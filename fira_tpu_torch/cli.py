@@ -1,0 +1,104 @@
+"""Command-line entry point of the port (counterpart of ``fira_tpu/cli.py``):
+the ``test`` subcommand, which beam-decodes the test split with a trained
+checkpoint and writes OUTPUT/output_fira.
+
+The checkpoint is ``<ckpt-dir>/best.pt``, a ``torch.save``d state_dict of
+``FiraModel`` (``fira_tpu_torch.convert`` makes one from a flax tree). The
+run is on the CUDA card unless ``--device cpu`` is given; with no card it
+raises instead of carrying on on the CPU.
+
+Example:
+    python -m fira_tpu_torch.cli test --config fira-full --data-dir DataSet
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List, Optional
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="fira_tpu_torch", description=__doc__)
+    p.add_argument("command", choices=["test"],
+                   help="test: beam-decode the test split")
+    p.add_argument("--config", default="fira-full",
+                   help="named config: fira-tiny | fira-full | fira-large")
+    p.add_argument("--ablation", default=None,
+                   choices=["no_edit", "no_subtoken", "nothing"],
+                   help="paper Table 3 ablations")
+    p.add_argument("--data-dir", default="DataSet",
+                   help="corpus directory (reference DataSet/ layout)")
+    p.add_argument("--out-dir", default="OUTPUT")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="default: <out-dir>/ckpt[_<ablation>]")
+    p.add_argument("--test-batch-size", type=int, default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device. ``cuda`` without a card raises. On the card, f32
+    matmuls and convolutions run in full f32 (no TF32), so results match
+    the f32 reference."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if name != "cuda":
+        raise ValueError(f"unknown device {name!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _load_var_maps(data_dir: str) -> Optional[List[dict]]:
+    path = os.path.join(data_dir, "variable.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+
+    from fira_tpu_torch.config import apply_ablation, get_config
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.decode.runner import output_name, run_test
+    from fira_tpu_torch.model.model import FiraModel
+
+    cfg = apply_ablation(get_config(args.config.replace("_", "-")),
+                         args.ablation)
+    if args.test_batch_size:
+        cfg = cfg.replace(test_batch_size=args.test_batch_size)
+    suffix = f"_{args.ablation}" if args.ablation else ""
+    ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, f"ckpt{suffix}")
+    ckpt = os.path.join(ckpt_dir, "best.pt")
+    if not os.path.exists(ckpt):
+        print(f"no checkpoint under {ckpt_dir}; train first", file=sys.stderr)
+        return 1
+
+    dataset = FiraDataset(args.data_dir, cfg)
+    cfg = dataset.cfg
+    model = FiraModel(cfg, device=device)
+    model.load_state_dict(torch.load(ckpt, map_location=device,
+                                     weights_only=True))
+    metrics = run_test(model, dataset, cfg, out_dir=args.out_dir,
+                       ablation=args.ablation,
+                       var_maps=_load_var_maps(args.data_dir))
+    print(f"test sentence-bleu: {metrics['sentence_bleu']:.4f} "
+          f"({int(metrics['n'])} commits) -> "
+          f"{os.path.join(args.out_dir, output_name(args.ablation))}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,76 @@
+"""Carry weights between the JAX package's flax parameter tree and the
+port's ``state_dict``.
+
+The port's submodules carry the flax module names, so a flax leaf at
+``encoder/gcn_0/fc1/kernel`` becomes ``encoder.gcn_0.fc1.weight``. Leaf
+names map as follows: a Dense ``kernel`` (in, out) becomes a Linear
+``weight`` (out, in), transposed; an Embed ``embedding`` and a LayerNorm
+``scale`` become ``weight``; ``bias`` stays ``bias``. The copy head's score
+kernel (D, 1) becomes the Linear(D, 1) weight (1, D). Both directions work
+on nested dicts of numpy arrays on the flax side.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _flatten(sub, prefix + (name,))
+        else:
+            yield prefix + (name,), sub
+
+
+def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``params`` tree (nested dict of arrays) -> port state_dict."""
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, leaf in _flatten(tree):
+        arr = np.array(leaf, dtype=np.float32)
+        *mods, leaf_name = path
+        if leaf_name == "kernel":
+            name, arr = "weight", arr.T
+        elif leaf_name in ("embedding", "scale"):
+            name = "weight"
+        elif leaf_name == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
+        out[".".join(mods + [name])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return out
+
+
+def _flax_leaf_name(module: str, tensor: torch.Tensor) -> str:
+    if module.endswith("embed"):
+        return "embedding"
+    if tensor.dim() == 1:
+        return "scale"        # LayerNorm weight
+    return "kernel"
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Port state_dict -> flax ``params`` tree of numpy arrays; the
+    inverse of :func:`params_from_flax`."""
+    tree: Dict = {}
+    for key, tensor in state_dict.items():
+        *mods, name = key.split(".")
+        arr = tensor.detach().cpu().numpy()
+        if name == "weight":
+            leaf = _flax_leaf_name(mods[-1], tensor)
+            if leaf == "kernel":
+                arr = arr.T
+        elif name == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"no flax counterpart for {key}")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

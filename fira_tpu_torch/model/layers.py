@@ -1,0 +1,193 @@
+"""Building-block modules of the FIRA graph encoder / decoder (counterpart
+of ``fira_tpu/model/layers.py``).
+
+Post-LN residuals, additive -1e9 masking, interleaved sin/cos positions and
+the closed-form two-channel combination gate, as in the reference
+(gnn_transformer.py, combination_layer.py). Submodule names follow the JAX
+package's parameter tree (q_proj/k_proj/v_proj/out_proj/norm, fc1/fc2), so
+``convert`` maps weights by name. The slice serves, so the modules run
+deterministically: no dropout.
+
+Parameters are created on ``device`` and left uninitialised; the model's
+``init_parameters`` fills them from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn.utils import skip_init
+
+NEG_INF = -1e9   # the reference's additive mask fill (never -inf: a fully
+                 # masked row stays uniform instead of turning NaN)
+
+
+def dense(d_in: int, d_out: int, *, bias: bool = True, device=None) -> nn.Linear:
+    """``nn.Linear`` (weight (out, in)), left uninitialised (no draw from
+    the global generator); ``init_parameters`` fills it."""
+    return skip_init(nn.Linear, d_in, d_out, bias=bias,
+                     device=device or "cpu")
+
+
+def layer_norm(d: int, device=None) -> nn.LayerNorm:
+    return skip_init(nn.LayerNorm, d, eps=1e-5, device=device or "cpu")
+
+
+def embedding(n: int, d: int, device=None) -> nn.Embedding:
+    return skip_init(nn.Embedding, n, d, device=device or "cpu")
+
+
+def position_encoding(length: int, dmodel: int) -> np.ndarray:
+    """Interleaved sin/cos positions (gnn_transformer.py:10-19): for each
+    frequency j the pair (sin, cos) is laid out adjacently — NOT the usual
+    all-sin-then-all-cos layout."""
+    pos = np.zeros((length, dmodel), dtype=np.float32)
+    i = np.arange(length)[:, None].astype(np.float64)
+    j = np.arange(dmodel // 2)[None, :].astype(np.float64)
+    angle = i / np.power(10000.0, 2.0 * j / dmodel)
+    pos[:, 0::2] = np.sin(angle)
+    pos[:, 1::2] = np.cos(angle)
+    return pos
+
+
+def combination_gate(query, key, value, *, scale: float):
+    """combination_layer.py:6-17: per element, softmax over the pair
+    (q*k*scale, q*v*scale) weights k and v. The two-way softmax is written
+    in closed form: softmax([a, b]) = (sigmoid(a-b), sigmoid(b-a))."""
+    diff = query * key * scale - query * value * scale
+    return torch.sigmoid(diff) * key + torch.sigmoid(-diff) * value
+
+
+class Combination(nn.Module):
+    """Multi-head combination (gnn_transformer.py:176-205): three input
+    projections, the gate with scale 1/sqrt(d_head) in the merged
+    (B, S, d_model) layout (the gate is elementwise, so the head split is a
+    layout no-op), output projection, post-LN residual on the query."""
+
+    def __init__(self, num_heads: int, d_model: int, device=None):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model={d_model} not divisible by "
+                             f"num_heads={num_heads}")
+        self.scale = 1.0 / math.sqrt(d_model // num_heads)
+        self.q_proj = dense(d_model, d_model, device=device)
+        self.k_proj = dense(d_model, d_model, device=device)
+        self.v_proj = dense(d_model, d_model, device=device)
+        self.out_proj = dense(d_model, d_model, device=device)
+        self.norm = layer_norm(d_model, device)
+
+    def forward(self, query, key, value):
+        x = combination_gate(self.q_proj(query), self.k_proj(key),
+                             self.v_proj(value), scale=self.scale)
+        return self.norm(self.out_proj(x) + query)
+
+
+class GCN(nn.Module):
+    """One graph-convolution round (gnn_transformer.py:64-86):
+    fc1 -> A.x -> fc2 -> residual -> LayerNorm, over a dense (B, N, N)
+    normalized adjacency."""
+
+    def __init__(self, d_model: int, device=None):
+        super().__init__()
+        self.fc1 = dense(d_model, d_model, device=device)
+        self.fc2 = dense(d_model, d_model, device=device)
+        self.norm = layer_norm(d_model, device)
+
+    def forward(self, graph_em, adj):
+        x = torch.bmm(adj, self.fc1(graph_em))
+        return self.norm(self.fc2(x) + graph_em)
+
+
+class Attention(nn.Module):
+    """Post-LN multi-head attention (gnn_transformer.py:124-161): additive
+    -1e9 masking where mask==0, softmax, output projection, residual on the
+    original query, LayerNorm. ``project_kv`` and ``attend`` are separate so
+    the cached decode projects each new position once and attends over the
+    cache."""
+
+    def __init__(self, num_heads: int, d_model: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.d_model = d_model
+        self.q_proj = dense(d_model, d_model, device=device)
+        self.k_proj = dense(d_model, d_model, device=device)
+        self.v_proj = dense(d_model, d_model, device=device)
+        self.out_proj = dense(d_model, d_model, device=device)
+        self.norm = layer_norm(d_model, device)
+
+    def _split_heads(self, x):
+        B, length = x.shape[0], x.shape[1]
+        d_head = self.d_model // self.num_heads
+        return x.reshape(B, length, self.num_heads, d_head).transpose(1, 2)
+
+    def project_kv(self, key, value):
+        """(B, L, D) inputs -> head-split (B, H, L, d_head) K and V."""
+        return (self._split_heads(self.k_proj(key)),
+                self._split_heads(self.v_proj(value)))
+
+    def attend(self, query, k, v, mask, *, causal: bool = False):
+        """Attention over pre-projected K/V. ``mask``: (B, kv_len) key
+        padding or a (B, 1, q_len|1, kv_len) mask, nonzero = attend.
+        ``causal`` adds the lower-triangular mask (q_len must equal kv_len:
+        offset decode goes through the cache path)."""
+        B, q_len = query.shape[0], query.shape[1]
+        d_head = self.d_model // self.num_heads
+        q = self._split_heads(self.q_proj(query))
+        weight = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d_head)
+        if mask.dim() < 4:
+            mask = mask[:, None, None, :]
+        weight = weight.masked_fill(mask == 0, NEG_INF)
+        if causal:
+            if q_len != k.shape[2]:
+                raise ValueError(
+                    f"causal=True requires q_len == kv_len (got {q_len} vs "
+                    f"{k.shape[2]}); offset decode must use the cache path")
+            tri = torch.ones(q_len, q_len, dtype=torch.bool,
+                             device=query.device).tril()
+            weight = weight.masked_fill(~tri, NEG_INF)
+        out = torch.matmul(torch.softmax(weight, dim=-1), v)
+        out = out.transpose(1, 2).reshape(B, q_len, self.d_model)
+        return self.norm(self.out_proj(out) + query)
+
+    def forward(self, query, key, value, mask, *, causal: bool = False):
+        k, v = self.project_kv(key, value)
+        return self.attend(query, k, v, mask, causal=causal)
+
+
+class FeedForward(nn.Module):
+    """Post-LN 4x ReLU FFN (gnn_transformer.py:163-174)."""
+
+    def __init__(self, d_model: int, mult: int = 4, device=None):
+        super().__init__()
+        self.fc1 = dense(d_model, mult * d_model, device=device)
+        self.fc2 = dense(mult * d_model, d_model, device=device)
+        self.norm = layer_norm(d_model, device)
+
+    def forward(self, x):
+        return self.norm(self.fc2(torch.relu(self.fc1(x))) + x)
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Fill every parameter of ``module`` from ``gen``, in module order,
+    with PyTorch's defaults: Linear weight and bias U(+-1/sqrt(fan_in)),
+    Embedding N(0, 1), LayerNorm ones/zeros. Drawn on the CPU, so a seed
+    gives the same weights on every device."""
+    def draw(t, fn):
+        t.copy_(fn(torch.empty(t.shape)))
+
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            for p in (m.weight, m.bias):
+                if p is not None:
+                    draw(p, lambda x: x.uniform_(-bound, bound, generator=gen))
+        elif isinstance(m, nn.Embedding):
+            draw(m.weight, lambda x: x.normal_(generator=gen))
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return module

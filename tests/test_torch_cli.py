@@ -1,0 +1,88 @@
+"""The port's ``test`` CLI end to end on a tiny synthetic corpus: on the
+same weights it writes an OUTPUT/output_fira byte-identical to the JAX
+package's ``run_test`` with the Pallas copy head (interpreted on the CPU).
+The weights are the port's own seeded initialisation, carried to the JAX
+package with ``convert.params_to_flax``; with them the messages run to
+many words, so the comparison covers real text, not empty lines.
+Without a checkpoint it exits 1 with the JAX CLI's message; asked for
+``--device cuda`` on a host without a card it raises."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fira_tpu.cli import _load_var_maps
+from fira_tpu.config import fira_tiny
+from fira_tpu.data import synthetic as jax_synthetic
+from fira_tpu.data.dataset import FiraDataset as JaxDataset
+from fira_tpu.decode.runner import run_test as jax_run_test
+from fira_tpu.model.model import FiraModel as JaxModel
+from fira_tpu_torch import cli, convert
+from fira_tpu_torch.config import FiraConfig as TorchConfig
+from fira_tpu_torch.data import synthetic
+from fira_tpu_torch.model.model import FiraModel
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_COMMITS, SEED, TEST_BS = 80, 3, 4
+
+
+def test_output_file_byte_identical_to_jax(tmp_path):
+    jdir, tdir = str(tmp_path / "jax_data"), str(tmp_path / "torch_data")
+    jax_synthetic.write_corpus_dir(jdir, n_commits=N_COMMITS, seed=SEED)
+    synthetic.write_corpus_dir(tdir, n_commits=N_COMMITS, seed=SEED)
+    cfg = fira_tiny(copy_head_impl="pallas", test_batch_size=TEST_BS)
+    ds = JaxDataset(jdir, cfg)
+    cfg = ds.cfg
+    tmodel = FiraModel(TorchConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(TorchConfig)}))
+    tmodel.init_parameters(torch.Generator().manual_seed(0))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    torch.save(tmodel.state_dict(), ckpt / "best.pt")
+
+    params = jax.tree_util.tree_map(
+        jnp.asarray, convert.params_to_flax(tmodel.state_dict()))
+    jout = str(tmp_path / "jax_out")
+    metrics = jax_run_test(JaxModel(cfg), params, ds, cfg, out_dir=jout,
+                           var_maps=_load_var_maps(jdir))
+    assert int(metrics["n"]) == len(ds.splits["test"]) > TEST_BS
+    tout = str(tmp_path / "torch_out")
+    proc = subprocess.run(
+        [sys.executable, "-m", "fira_tpu_torch.cli", "test",
+         "--config", "fira-tiny", "--data-dir", tdir, "--out-dir", tout,
+         "--ckpt-dir", str(ckpt), "--test-batch-size", str(TEST_BS),
+         "--device", "cpu"],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "test sentence-bleu" in proc.stdout
+    with open(os.path.join(jout, "output_fira"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(tout, "output_fira"), "rb") as f:
+        got = f.read()
+    assert want.count(b"\n") == len(ds.splits["test"])
+    assert len(want.split()) > 5 * len(ds.splits["test"])   # real text
+    assert got == want
+
+
+def test_no_checkpoint_exits_1(tmp_path, capsys):
+    rc = cli.main(["test", "--config", "fira-tiny", "--device", "cpu",
+                   "--data-dir", str(tmp_path / "data"),
+                   "--out-dir", str(tmp_path / "out"),
+                   "--ckpt-dir", str(tmp_path / "none")])
+    assert rc == 1
+    assert (f"no checkpoint under {tmp_path / 'none'}; train first"
+            in capsys.readouterr().err)
+
+
+def test_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["test", "--config", "fira-tiny", "--device", "cuda",
+                  "--data-dir", str(tmp_path), "--out-dir", str(tmp_path)])

@@ -1,0 +1,90 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions, and the wrappers' refusals. Tests that need the card carry the
+``gpu`` marker and skip without one; run them on a machine with an NVIDIA
+H100 with ``python -m pytest tests/test_torch_gpu.py -m gpu``. This file
+imports no JAX, so it also runs where only PyTorch is installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from fira_tpu_torch.ops import copy_score as cs
+
+
+@pytest.fixture
+def cuda():
+    """The card, with TF32 off so f32 products are full f32; skips the
+    test on a host without one (decided here, never at import time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(B, T, S, D, dtype=torch.float32, device="cpu", seed=0):
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(rng.standard_normal((B, S, D), np.float32))
+    tgt = torch.from_numpy(rng.standard_normal((B, T, D), np.float32))
+    w = torch.from_numpy(rng.standard_normal((D, 1), np.float32) * 0.1)
+    b = torch.from_numpy(rng.standard_normal((1,), np.float32))
+    return (src.to(device, dtype), tgt.to(device, dtype), w.to(device),
+            b.to(device))
+
+
+# decode (B=20x3 beams, T=1), unaligned S and T, every supported width
+SHAPES = [(60, 1, 370, 256), (2, 13, 37, 64), (2, 7, 130, 128),
+          (3, 30, 370, 256), (2, 17, 33, 512), (1, 40, 5, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_copy_scores_kernel_matches_plain_f32(cuda, shape):
+    """f32 at rtol/atol 1e-5: the kernel sums D in another order than the
+    plain version's matmul."""
+    src, tgt, w, b = _inputs(*shape, device=cuda)
+    before = cs.copy_scores.launches
+    got = cs.copy_scores(src, tgt, w, b)
+    torch.cuda.synchronize()
+    assert cs.copy_scores.launches == before + 1
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.shape == want.shape == (shape[0], shape[1], shape[2])
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_copy_scores_kernel_matches_plain_bf16(cuda):
+    """bf16 inputs, f32 math, bf16 output: 1e-2 covers one bf16 rounding
+    of the result and of the bias add."""
+    src, tgt, w, b = _inputs(60, 3, 370, 256, dtype=torch.bfloat16,
+                             device=cuda)
+    got = cs.copy_scores(src, tgt, w, b)
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_copy_scores_kernel_refuses_what_it_does_not_take(cuda):
+    src, tgt, w, b = _inputs(2, 3, 37, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        cs.copy_scores(src.requires_grad_(), tgt, w, b)
+    src = src.detach()
+    with pytest.raises(TypeError):
+        cs.copy_scores(src, tgt.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.copy_scores(src.transpose(0, 1).contiguous().transpose(0, 1),
+                       tgt, w, b)
+    with pytest.raises(ValueError, match="D="):
+        s2, t2, w2, b2 = _inputs(2, 3, 37, 96, device=cuda)
+        cs.copy_scores(s2, t2, w2, b2)
+    with pytest.raises(ValueError, match="on cpu"):
+        cs.copy_scores(src, tgt.cpu(), w, b)
+
+
+def test_copy_scores_other_device_raises():
+    src, tgt, w, b = _inputs(2, 3, 37, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        cs.copy_scores(src, tgt, w, b)

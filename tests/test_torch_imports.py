@@ -1,0 +1,33 @@
+"""Importing every module of the port pulls in no JAX, flax, orbax and
+nothing of the JAX package ``fira_tpu``. Checked in a fresh interpreter:
+this test process has imported ``fira_tpu`` already (tests/conftest.py)."""
+
+import os
+import subprocess
+import sys
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import fira_tpu_torch
+names = ["fira_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(fira_tpu_torch.__path__,
+                                          "fira_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+banned = ("jax", "jaxlib", "flax", "orbax", "fira_tpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in banned)
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_fira_tpu():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.split("\n")[:2]
+    assert int(n_modules) >= 20          # the walk found the whole package
+    assert bad == "", f"the port imported {bad}"
