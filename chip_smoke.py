@@ -10,15 +10,26 @@ Phases, each printing its own line; any failure exits non-zero:
             the sources in this checkout (registers, shared memory, spills);
 3. kernels  each kernel against its plain PyTorch version on the card at
             the shapes the main path gives it, timed with CUDA events
-            (L2 flushed between launches), beside its bound;
-4. main     the test path at fira-full width through the CLI entry point
-            (``fira_tpu_torch.cli test`` on cuda) on a synthetic corpus with
-            the paper's vocabulary sizes and random seeded weights; the
-            kernel launch counts of this run must match the path;
-5. plain    the same decode with the plain copy score swapped in by this
-            script (the CLI never does): the output file must be
-            byte-identical; and on a small input the card's distributions
-            must agree with the CPU's.
+            (L2 flushed between launches), beside its bound: K1 (copy-score
+            forward) and K2 (its backward);
+4. train    the training path at fira-full width on a synthetic corpus with
+            the paper's vocabulary sizes and random seeded weights: one
+            epoch through the CLI (``fira_tpu_torch.cli train`` on cuda),
+            then two epochs with the dev gate brought in (every 2 batches
+            from epoch 0) through the library entry ``train.loop.train``;
+            K2 must launch once per step and K1 once per step and per dev
+            batch;
+5. train plain  the same steps from the same weights and dropout seed with
+            the plain copy score swapped in by this script (no entry point
+            does): the per-step losses must agree;
+6. main     the test path through the CLI entry point (``cli test`` on
+            cuda), decoding the trained checkpoint; the K1 launch count of
+            this run must match the path;
+7. plain    the same decode with the plain copy score swapped in: the
+            output file must be byte-identical; and on a small input the
+            card's distributions must agree with the CPU's;
+8. profile  one warm training step (plain copy score, then the kernels)
+            and one decode batch under torch.profiler.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -96,15 +107,31 @@ def host_call_us(torch, fn, n: int = 200) -> float:
     return 1e6 * (t1 - t0) / n
 
 
+def _bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def copy_score_bound_ms(B: int, T: int, S: int, D: int, itemsize: int):
     """Least time for the copy score on the H100: each input read once and
     the output written once, against the f32 operations (add, tanh, mul,
     accumulate per (b, t, s, d)); returns (ms, "bytes" | "operations")."""
     nbytes = (B * S * D + B * T * D + B * T * S) * itemsize + D * 4 + 4
-    ops = 4 * B * T * S * D
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _bound(nbytes, 4 * B * T * S * D)
+
+
+def copy_score_bwd_bound_ms(B: int, T: int, S: int, D: int, itemsize: int):
+    """Least time for the copy score's backward on the H100. Bytes: src,
+    tgt and dout read once, dsrc and dtgt written once (w and dw are D
+    values each). Operations: 8 f32 a (b, t, s, d) element: the add, the
+    tanh, 1 - x^2 (one multiply-add), the product by w * dout, x * dout,
+    and the accumulations of dsrc, dtgt and dw. At (170, 30, 370, 256) f32
+    that is 147 MB (0.044 ms) against 3.87 G operations (0.058 ms): bound
+    by operations. Returns (ms, "bytes" | "operations")."""
+    nbytes = ((2 * B * S * D + 2 * B * T * D + B * T * S) * itemsize
+              + 2 * D * 4)
+    return _bound(nbytes, 8 * B * T * S * D)
 
 
 def phase_kernels(torch, cs, cfg):
@@ -159,6 +186,52 @@ def phase_kernels(torch, cs, cfg):
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound, bound_by=by)
     return record
+
+
+def phase_kernels_bwd(torch, cs, cfg):
+    """Copy-score backward (K2) against the plain autograd backward at the
+    training shape, f32, rtol 5e-4 / atol 5e-5 (the JAX package's gradient
+    tolerance); the plain backward is timed on a retained graph, so it
+    runs from the saved (B, T, S, D) intermediate, without the forward."""
+    B, T = cfg.batch_size, cfg.tar_len
+    S, D = cfg.sou_len + cfg.sub_token_len, cfg.embedding_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    src = torch.randn((B, S, D), device="cuda", generator=gen)
+    tgt = torch.randn((B, T, D), device="cuda", generator=gen)
+    w = torch.randn((D, 1), device="cuda", generator=gen) * 0.1
+    dout = torch.randn((B, T, S), device="cuda", generator=gen)
+    got = cs.copy_scores_backward(src, tgt, w, dout)
+    leaves = [x.clone().requires_grad_() for x in (src, tgt, w)]
+    out = cs.copy_scores_reference(*leaves, torch.zeros(1, device="cuda"))
+    want = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, r in zip(("dsrc", "dtgt", "dw"), got, want):
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"copy_score_bwd {name}: {tuple(g.shape)} {g.dtype}")
+        check(bool(torch.isfinite(g).all()), f"copy_score_bwd {name}: "
+              "non-finite")
+        errs[name] = (g - r).abs().max().item()
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=5e-5)
+    again = cs.copy_scores_backward(src, tgt, w, dout)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "copy_score_bwd: two runs on the same inputs differ")
+    w32 = w.reshape(-1).contiguous()
+    ms = time_cold_ms(torch, lambda: cs.launch_backward(src, tgt, w32, dout))
+    wrapper_ms = time_cold_ms(
+        torch, lambda: cs.copy_scores_backward(src, tgt, w, dout))
+    plain_ms = time_cold_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, dout, retain_graph=True), n=10)
+    del out
+    bound, by = copy_score_bwd_bound_ms(B, T, S, D, src.element_size())
+    print(f"[kernels] copy_score_bwd train ({B},{T},{S},{D}) f32: max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol 5e-4, atol 5e-5), bitwise equal over two runs; kernel "
+          f"{ms:.4f} ms (wrapper with the dw sum {wrapper_ms:.4f} ms), plain "
+          f"backward {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel "
+          f"at {100 * bound / ms:.1f}% of bound", flush=True)
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def write_corpus(data_dir: str) -> None:
@@ -221,23 +294,26 @@ def phase_small_reference(torch, FiraModel, batch_to_device, make_batch,
         check(ratio <= 1e-4, f"small input {name}: card vs CPU {ratio:.3e}")
 
 
-def phase_profile(torch, model, ds, make_batch, batch_to_device,
-                  beam_search_cached):
-    """One warm beam-decode batch under torch.profiler: device time by
-    kernel against the host-clock wall, so the share of the wall the card
-    is idle shows how far the host holds it back."""
+def device_mallocs(torch) -> int:
+    """cudaMalloc calls made so far by PyTorch's caching allocator (a
+    step that keeps allocating new blocks pays a device synchronisation
+    for each)."""
+    return int(torch.cuda.memory_stats().get("num_device_alloc", 0))
+
+
+def profile_one(torch, label: str, fn, warm: int = 1) -> None:
+    """``fn()`` once under torch.profiler after ``warm`` unprofiled runs:
+    device time by kernel against the host-clock wall, so the share of the
+    wall the card is idle shows how far the host holds it back."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = ds.cfg
-    host = make_batch(ds.splits["test"], list(range(cfg.test_batch_size)),
-                      cfg, batch_size=cfg.test_batch_size)
-    batch = batch_to_device(host, torch.device("cuda"))
-    beam_search_cached(model, batch, cfg)
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        beam_search_cached(model, batch, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # device-side events only: the host ops that launched them carry the
@@ -246,16 +322,16 @@ def phase_profile(torch, model, ds, make_batch, batch_to_device,
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(r[1] for r in rows)
-    print(f"[profile] one decode batch ({cfg.test_batch_size} commits, "
-          f"{cfg.tar_len - 1} steps): wall {wall_us / 1e3:.2f} ms (profiler "
-          f"on), device busy {device_us / 1e3:.2f} ms = "
+    check(device_us > 0, f"profile {label}: no device time traced")
+    print(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms (profiler on), "
+          f"device busy {device_us / 1e3:.2f} ms = "
           f"{100 * device_us / wall_us:.1f}% (idle "
           f"{100 - 100 * device_us / wall_us:.1f}%), "
           f"{sum(r[2] for r in rows)} kernels and copies", flush=True)
     top = sorted(rows, key=lambda r: -r[1])
     for key, us, n in top[:8] + [r for r in top[8:] if "copy_score" in r[0]]:
-        print(f"[profile]   {us / 1e3:8.3f} ms  x{n:<5d} {key[:90]}",
-              flush=True)
+        print(f"[profile]   {us / 1e3:8.3f} ms  x{n:<5d} "
+              f"{100 * us / device_us:5.1f}%  {key[:90]}", flush=True)
 
 
 def main() -> int:
@@ -271,9 +347,13 @@ def main() -> int:
     from fira_tpu_torch.data.batching import make_batch
     from fira_tpu_torch.data.dataset import FiraDataset
     from fira_tpu_torch.decode.beam import beam_search_cached
-    from fira_tpu_torch.decode.runner import batch_to_device, run_test
+    from fira_tpu_torch.decode.runner import (TRAIN_FIELDS, batch_to_device,
+                                              run_test)
     from fira_tpu_torch.model.model import FiraModel
     from fira_tpu_torch.ops import build, copy_score as cs
+    from fira_tpu_torch.train import loop as train_loop
+    from fira_tpu_torch.train.state import CheckpointManager, init_state
+    from fira_tpu_torch.train.step import train_step
 
     cli.resolve_device("cuda")   # TF32 off, as the CLI runs
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -295,25 +375,120 @@ def main() -> int:
     work = os.path.join(root, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     data_dir, out_dir = os.path.join(work, "DataSet"), os.path.join(work, "out")
-    ckpt_dir = os.path.join(work, "ckpt")
     write_corpus(data_dir)
     ds = FiraDataset(data_dir, fira_full())
     cfg = ds.cfg
+    n_train, n_valid = len(ds.splits["train"]), len(ds.splits["valid"])
     n_test = len(ds.splits["test"])
     check(cfg.vocab_size == WORD_VOCAB and cfg.ast_change_vocab_size
           == AST_VOCAB and cfg.output_vocab_size == 25_020,
           f"widths {cfg.vocab_size}/{cfg.ast_change_vocab_size}")
+    var_maps = cli._load_var_maps(data_dir)   # as the CLI passes them
 
-    record = phase_kernels(torch, cs, cfg)
+    fwd_record = phase_kernels(torch, cs, cfg)
+    bwd_record = phase_kernels_bwd(torch, cs, cfg)
 
-    model = FiraModel(cfg).init_parameters(
-        torch.Generator().manual_seed(SEED))
-    os.makedirs(ckpt_dir)
-    state_dict = model.state_dict()
-    torch.save(state_dict, os.path.join(ckpt_dir, "best.pt"))
-    del model
+    # --- main path, training: counts from zero around it only ---
+    steps_per_epoch = math.ceil(n_train / cfg.batch_size)
+    gated = cfg.replace(dev_start_epoch=0, dev_every_batches=2)
+    ckpt_dir = os.path.join(work, "ckpt")
+    cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    mallocs = device_mallocs(torch)
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--config", "fira-full", "--data-dir", data_dir,
+                   "--out-dir", os.path.join(work, "train_cli"), "--ckpt-dir",
+                   os.path.join(work, "ckpt_cli"), "--epochs", "1"])
+    check(rc == 0, f"cli train exited {rc}")
+    cli_wall = time.perf_counter() - t0
+    result = train_loop.train(ds, gated, device="cuda",
+                              out_dir=os.path.join(work, "train"),
+                              ckpt_dir=ckpt_dir, epochs=2, var_maps=var_maps,
+                              resume=False)
+    torch.cuda.synchronize()
+    k1_train = cs.copy_scores.launches
+    k2_train = cs.copy_scores_backward.launches
+    train_peak = torch.cuda.max_memory_allocated()
+    train_mallocs = device_mallocs(torch) - mallocs
+    steps = steps_per_epoch + result.steps
+    check(result.steps == 2 * steps_per_epoch,
+          f"{result.steps} steps, expected {2 * steps_per_epoch}")
+    check(k2_train == steps, f"copy_score_bwd launched {k2_train} times on "
+          f"the train path, expected {steps} (one per step)")
+    check(k1_train == steps + result.dev_batches,
+          f"copy_score launched {k1_train} times on the train path, "
+          f"expected {steps} steps + {result.dev_batches} dev batches")
+    want_gates = 2 * math.ceil(steps_per_epoch / 2)
+    check(result.gates == want_gates and result.dev_batches
+          == want_gates * math.ceil(n_valid / cfg.test_batch_size),
+          f"{result.gates} gates / {result.dev_batches} dev batches")
+    check(all(math.isfinite(x) for x in result.losses),
+          f"non-finite loss {result.losses}")
+    with open(os.path.join(work, "train", "train_process")) as f:
+        gate_lines = f.read().splitlines()
+    check(len(gate_lines) == result.gates, f"{len(gate_lines)} gate lines")
+    ckpt = CheckpointManager(ckpt_dir)
+    check(ckpt.has(ckpt.LATEST), "no latest.pt after training")
+    print(f"[train] cli train fira-full on {kind}: 1 epoch, "
+          f"{steps_per_epoch} steps of batch {cfg.batch_size} over "
+          f"{n_train} commits, wall {cli_wall:.2f} s incl. data load and "
+          f"the first steps' set-up", flush=True)
+    print(f"[train] train.loop.train with the gate (every 2 batches from "
+          f"epoch 0): {result.steps} steps, {result.gates} gates x "
+          f"{result.dev_batches // max(result.gates, 1)} dev batches "
+          f"({n_valid} commits); steps/s {result.steps_per_sec:.3f}, "
+          f"training commits/s {result.commits_per_sec:.2f} (dev gates, "
+          f"checkpoint writes and the first interval excluded), feed share "
+          f"{result.feed_stall_frac:.3f}; dev gates {result.dev_seconds:.2f} "
+          f"s ({1e3 * result.dev_seconds / max(result.gates, 1):.0f} ms a "
+          f"gate); best dev bleu {result.best_bleu:.4f}; losses "
+          + " ".join(f"{x:.4f}" for x in result.losses), flush=True)
+    print(f"[train] launches on the train path: copy_score {k1_train} "
+          f"(expected {steps} steps + {result.dev_batches} dev batches), "
+          f"copy_score_bwd {k2_train} (expected {steps}); peak device "
+          f"memory {train_peak / 2**20:.1f} MiB; {train_mallocs} device "
+          f"allocations by the caching allocator", flush=True)
 
-    # --- main path: the CLI on cuda; counts from zero around it only ---
+    # --- the same steps with the plain copy score (this script's hook) ---
+    state = init_state(gated, "cuda")
+    state.model.copy_net.score_fn = cs.copy_scores_reference
+    torch.cuda.reset_peak_memory_stats()
+    mallocs = device_mallocs(torch)
+    plain = train_loop.train(ds, gated.replace(dev_start_epoch=10**6),
+                             device="cuda",
+                             out_dir=os.path.join(work, "train_plain"),
+                             ckpt_dir=os.path.join(work, "ckpt_plain"),
+                             epochs=2, resume=False, state=state)
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain_mallocs = device_mallocs(torch) - mallocs
+    check(len(plain.losses) == len(result.losses), "plain step count")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(result.losses,
+                                                  plain.losses))
+    check(rel <= 1e-4, f"train losses kernel vs plain: largest relative "
+          f"difference {rel:.3e} > 1e-4")
+    print(f"[train plain] same steps, weights and dropout seed with the "
+          f"plain copy score: losses agree to {rel:.3e} relative (limit "
+          f"1e-4); steps/s {plain.steps_per_sec:.3f} (kernel "
+          f"{result.steps_per_sec:.3f}), training commits/s "
+          f"{plain.commits_per_sec:.2f} (kernel {result.commits_per_sec:.2f});"
+          f" peak device memory {plain_peak / 2**20:.1f} MiB (kernel "
+          f"{train_peak / 2**20:.1f}); {plain_mallocs} device allocations "
+          f"in {plain.steps} steps (kernel path: {train_mallocs} in "
+          f"{steps} steps and {result.gates} gates)", flush=True)
+
+    # --- profile one warm training step, plain copy score then kernels ---
+    host = make_batch(ds.splits["train"], list(range(cfg.batch_size)), cfg,
+                      batch_size=cfg.batch_size)
+    batch = batch_to_device(host, torch.device("cuda"), TRAIN_FIELDS)
+    for label, fn in (("plain copy score", cs.copy_scores_reference),
+                      ("kernels", cs.copy_scores)):
+        state.model.copy_net.score_fn = fn
+        profile_one(torch, f"one training step (batch {cfg.batch_size}, "
+                    f"{label})", lambda: train_step(
+                        state.model, state.optimizer, batch, state.generator))
+    del state, batch
+
+    # --- main path, test: the CLI decodes the trained checkpoint ---
     cs.copy_scores.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -321,28 +496,30 @@ def main() -> int:
                    "--out-dir", out_dir, "--ckpt-dir", ckpt_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cs.copy_scores.launches
+    k1_test = cs.copy_scores.launches
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"cli test exited {rc}")
     want = math.ceil(n_test / cfg.test_batch_size) * (cfg.tar_len - 1)
-    check(launches == want, f"copy_score launched {launches} times on the "
-          f"main path, expected {want}")
+    check(k1_test == want, f"copy_score launched {k1_test} times on the "
+          f"test path, expected {want}")
     out_file = os.path.join(out_dir, "output_fira")
     with open(out_file, "rb") as f:
         kernel_bytes = f.read()
     lines = kernel_bytes.decode().split("\n")[:-1]
     check(len(lines) == n_test, f"{len(lines)} output lines for {n_test}")
     check(sum(len(l.split()) for l in lines) > 0, "every prediction empty")
-    print(f"[main] cli test fira-full on {kind}: {n_test} commits, "
-          f"{math.ceil(n_test / cfg.test_batch_size)} batches, copy_score "
-          f"launches {launches} (expected {want}); wall {wall:.2f} s incl. "
-          f"data and weight load = {n_test / wall:.2f} commits/s; peak "
-          f"device memory {peak / 2**20:.1f} MiB", flush=True)
+    print(f"[main] cli test fira-full on {kind}, trained checkpoint "
+          f"({'best.pt' if ckpt.has(ckpt.BEST) else 'latest.pt'}): {n_test} "
+          f"commits, {math.ceil(n_test / cfg.test_batch_size)} batches, "
+          f"copy_score launches {k1_test} (expected {want}); wall "
+          f"{wall:.2f} s incl. data and weight load = {n_test / wall:.2f} "
+          f"commits/s; peak device memory {peak / 2**20:.1f} MiB", flush=True)
 
     # --- same decode, plain copy score swapped in by this script ---
+    state_dict = (torch.load(ckpt.path(ckpt.BEST), weights_only=True)
+                  if ckpt.has(ckpt.BEST) else ckpt.load_latest()["model"])
     model = FiraModel(cfg, device="cuda")
     model.load_state_dict(state_dict)
-    var_maps = cli._load_var_maps(data_dir)   # as the CLI passes them
     rates = {"kernel": [], "plain": []}
     # in turns (kernel, plain, plain, kernel): the host clock drifts
     for label in ("kernel", "plain", "plain", "kernel"):
@@ -362,17 +539,25 @@ def main() -> int:
           f"kernel {' '.join(f'{r:.2f}' for r in rates['kernel'])}, plain "
           f"{' '.join(f'{r:.2f}' for r in rates['plain'])}", flush=True)
     model.copy_net.score_fn = cs.copy_scores
-    phase_profile(torch, model, ds, make_batch, batch_to_device,
-                  beam_search_cached)
-    del model
+    host = make_batch(ds.splits["test"], list(range(cfg.test_batch_size)),
+                      cfg, batch_size=cfg.test_batch_size)
+    batch = batch_to_device(host, torch.device("cuda"))
+    profile_one(torch, f"one decode batch ({cfg.test_batch_size} commits, "
+                f"{cfg.tar_len - 1} steps)",
+                lambda: beam_search_cached(model, batch, cfg))
+    del model, batch
     phase_small_reference(torch, FiraModel, batch_to_device, make_batch, ds,
                           state_dict)
 
-    kernels = [dict(
-        name="copy_score_fwd", route="cuda",
-        source="fira_tpu_torch/ops/csrc/copy_score.cu",
-        replaces="fira_tpu/ops/copy_score.py:119", launches=launches,
-        library_ms=None, **record)]
+    kernels = [
+        dict(name="copy_score_fwd", route="cuda",
+             source="fira_tpu_torch/ops/csrc/copy_score.cu",
+             replaces="fira_tpu/ops/copy_score.py:119",
+             launches=k1_train + k1_test, library_ms=None, **fwd_record),
+        dict(name="copy_score_bwd", route="cuda",
+             source="fira_tpu_torch/ops/csrc/copy_score_bwd.cu",
+             replaces="fira_tpu/ops/copy_score.py:148",
+             launches=k2_train, library_ms=None, **bwd_record)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
 """Command-line entry point of the port (counterpart of ``fira_tpu/cli.py``):
-the ``test`` subcommand, which beam-decodes the test split with a trained
-checkpoint and writes OUTPUT/output_fira.
 
-The checkpoint is ``<ckpt-dir>/best.pt``, a ``torch.save``d state_dict of
-``FiraModel`` (``fira_tpu_torch.convert`` makes one from a flax tree). The
-run is on the CUDA card unless ``--device cpu`` is given; with no card it
-raises instead of carrying on on the CPU.
+- ``train`` fits the model with Adam, runs the dev gate, and writes
+  ``<ckpt-dir>/best.pt`` (on a dev-BLEU improvement) and
+  ``<ckpt-dir>/latest.pt`` (each epoch; a later call resumes from it);
+- ``test`` beam-decodes the test split with ``<ckpt-dir>/best.pt`` (or,
+  when dev BLEU never improved, the model in ``latest.pt``) and writes
+  OUTPUT/output_fira.
+
+``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
+(``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
+the CUDA card unless ``--device cpu`` is given; with no card it raises
+instead of carrying on on the CPU.
 
 Example:
+    python -m fira_tpu_torch.cli train --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli test --config fira-full --data-dir DataSet
 """
 
@@ -24,8 +30,9 @@ import torch
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fira_tpu_torch", description=__doc__)
-    p.add_argument("command", choices=["test"],
-                   help="test: beam-decode the test split")
+    p.add_argument("command", choices=["train", "test"],
+                   help="train: fit + dev-gate; test: beam-decode the test "
+                        "split")
     p.add_argument("--config", default="fira-full",
                    help="named config: fira-tiny | fira-full | fira-large")
     p.add_argument("--ablation", default=None,
@@ -36,7 +43,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default="OUTPUT")
     p.add_argument("--ckpt-dir", default=None,
                    help="default: <out-dir>/ckpt[_<ablation>]")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="override config epoch count")
+    p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--test-batch-size", type=int, default=None)
+    p.add_argument("--no-resume", action="store_true",
+                   help="ignore an existing latest checkpoint")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -74,23 +86,52 @@ def main(argv: Optional[List[str]] = None) -> int:
     from fira_tpu_torch.data.dataset import FiraDataset
     from fira_tpu_torch.decode.runner import output_name, run_test
     from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.train.state import CheckpointManager
 
     cfg = apply_ablation(get_config(args.config.replace("_", "-")),
                          args.ablation)
+    if args.batch_size:
+        cfg = cfg.replace(batch_size=args.batch_size)
     if args.test_batch_size:
         cfg = cfg.replace(test_batch_size=args.test_batch_size)
     suffix = f"_{args.ablation}" if args.ablation else ""
     ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, f"ckpt{suffix}")
-    ckpt = os.path.join(ckpt_dir, "best.pt")
-    if not os.path.exists(ckpt):
+
+    if args.command == "train":
+        from fira_tpu_torch.train.loop import train
+
+        dataset = FiraDataset(args.data_dir, cfg)
+        result = train(dataset, dataset.cfg, device=device,
+                       out_dir=args.out_dir, ckpt_dir=ckpt_dir,
+                       epochs=args.epochs,
+                       var_maps=_load_var_maps(args.data_dir),
+                       resume=not args.no_resume)
+        print(f"best dev bleu: {result.best_bleu:.4f}  "
+              f"throughput: {result.commits_per_sec:.1f} "
+              f"commits/sec/chip  "
+              f"feed_stall_frac: {result.feed_stall_frac:.3f}")
+        return 0
+
+    ckpt = CheckpointManager(ckpt_dir)
+    use_best = ckpt.has(CheckpointManager.BEST)
+    if not use_best and not ckpt.has(CheckpointManager.LATEST):
         print(f"no checkpoint under {ckpt_dir}; train first", file=sys.stderr)
         return 1
+    if use_best:
+        state_dict = torch.load(ckpt.path(CheckpointManager.BEST),
+                                map_location=device, weights_only=True)
+    else:
+        # the dev gate saves best only on strict improvement (reference
+        # run_model.py:94-96), so a short run whose dev BLEU never left
+        # 0.0 has no best yet: decode the latest state instead of refusing
+        print("no best checkpoint (dev BLEU never improved); "
+              "decoding the LATEST training state", file=sys.stderr)
+        state_dict = ckpt.load_latest()["model"]
 
     dataset = FiraDataset(args.data_dir, cfg)
     cfg = dataset.cfg
     model = FiraModel(cfg, device=device)
-    model.load_state_dict(torch.load(ckpt, map_location=device,
-                                     weights_only=True))
+    model.load_state_dict(state_dict)
     metrics = run_test(model, dataset, cfg, out_dir=args.out_dir,
                        ablation=args.ablation,
                        var_maps=_load_var_maps(args.data_dir))

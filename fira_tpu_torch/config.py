@@ -74,8 +74,9 @@ class FiraConfig:
     beam_early_exit: bool = False
 
     # --- knobs of JAX-package paths the port does not run yet (engine,
-    # serving, ingest, fault injection, training loop, input pipeline,
-    # buckets, ring attention); kept so configs read alike ---
+    # serving, ingest, fault injection, the threaded input pipeline,
+    # grouped and accumulated steps, buckets, ring attention); kept so
+    # configs read alike ---
     decode_engine: bool = False
     engine_slots: int = 0
     engine_prefill_depth: int = 2
@@ -113,6 +114,9 @@ class FiraConfig:
     engine_spares: int = 0
     respawn_backoff_s: float = 0.25
     typed_edges: bool = False
+    # Selects the JAX package's dropout-stream generator. In the port it
+    # selects nothing: dropout draws from a torch.Generator
+    # (train/state.init_state), whatever this field says.
     rng_impl: str = "threefry"
     accum_steps: int = 1
     fused_steps: int = 1
@@ -236,4 +240,8 @@ def unsupported(cfg: FiraConfig) -> List[str]:
     if cfg.seq_shards > 1:
         errs.append(f"seq_shards={cfg.seq_shards} (the port runs dense "
                     f"cross-attention only)")
+    for knob in ("accum_steps", "fused_steps"):
+        if getattr(cfg, knob) != 1:
+            errs.append(f"{knob}={getattr(cfg, knob)} (the port runs one "
+                        f"optimizer step per batch only)")
     return errs

@@ -7,7 +7,9 @@ names map as follows: a Dense ``kernel`` (in, out) becomes a Linear
 ``weight`` (out, in), transposed; an Embed ``embedding`` and a LayerNorm
 ``scale`` become ``weight``; ``bias`` stays ``bias``. The copy head's score
 kernel (D, 1) becomes the Linear(D, 1) weight (1, D). Both directions work
-on nested dicts of numpy arrays on the flax side.
+on nested dicts of numpy arrays on the flax side. ``adam_state_from_optax``
+carries optax Adam moments the same way into a ``torch.optim.Adam``
+state_dict, so a JAX train state continues in the port.
 """
 
 from __future__ import annotations
@@ -74,3 +76,29 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def adam_state_from_optax(mu_tree: Mapping, nu_tree: Mapping, count,
+                          model: torch.nn.Module, *, lr: float = 1e-4
+                          ) -> Dict:
+    """optax Adam moments -> a ``torch.optim.Adam`` state_dict for
+    ``model``'s parameters. ``mu_tree`` and ``nu_tree`` are flax trees of
+    numpy arrays in the ``params`` layout (``ScaleByAdamState.mu`` /
+    ``.nu``), ``count`` its step count; they map by name through
+    :func:`params_from_flax`, so a Dense kernel's moments are transposed
+    as the kernel is. ``lr`` is the optimizer's learning rate (the
+    state_dict carries it; betas and eps are the shared defaults). Reading
+    the orbax checkpoint that holds the trees is the caller's job."""
+    mu, nu = params_from_flax(mu_tree), params_from_flax(nu_tree)
+    names = [name for name, _ in model.named_parameters()]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise KeyError(f"moments cover {sorted(set(mu) ^ set(names))} "
+                       f"differently from the model's parameters")
+    template = torch.optim.Adam(model.parameters(), lr=lr,
+                                betas=(0.9, 0.999), eps=1e-8).state_dict()
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    template["state"] = {
+        i: {"step": step.clone(), "exp_avg": mu[name],
+            "exp_avg_sq": nu[name]}
+        for i, name in enumerate(names)}
+    return template

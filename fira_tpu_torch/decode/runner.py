@@ -30,9 +30,11 @@ from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
 from fira_tpu_torch.model.model import FiraModel
 
-# batch fields the device needs (msg/msg_tar/valid stay on the host)
+# batch fields the decode needs on the device (valid stays on the host,
+# and so do msg/msg_tar, which only training and the dev gate read there)
 DEVICE_FIELDS = ("diff", "diff_mark", "ast_change", "sub_token",
                  "senders", "receivers", "values")
+TRAIN_FIELDS = DEVICE_FIELDS + ("msg", "msg_tar")
 
 
 def output_name(ablation: Optional[str]) -> str:
@@ -68,14 +70,14 @@ def sample_emitter(writer, *, vocab, cfg: FiraConfig, bleu_by_pos: Dict,
     return emit
 
 
-def batch_to_device(host: Dict[str, np.ndarray], device: torch.device
-                    ) -> Dict[str, torch.Tensor]:
-    """Copy the device fields of a host batch; ids and edge indices travel
-    in their narrow wire types and are upcast to int64 on the device. On a
+def batch_to_device(host: Dict[str, np.ndarray], device: torch.device,
+                    fields=DEVICE_FIELDS) -> Dict[str, torch.Tensor]:
+    """Copy ``fields`` of a host batch; ids and edge indices travel in
+    their narrow wire types and are upcast to int64 on the device. On a
     CUDA device the copies come from pinned memory and do not block."""
     cuda = device.type == "cuda"
     out = {}
-    for f in DEVICE_FIELDS:
+    for f in fields:
         t = torch.from_numpy(host[f])
         if cuda:
             t = t.pin_memory()

@@ -5,8 +5,15 @@ Post-LN residuals, additive -1e9 masking, interleaved sin/cos positions and
 the closed-form two-channel combination gate, as in the reference
 (gnn_transformer.py, combination_layer.py). Submodule names follow the JAX
 package's parameter tree (q_proj/k_proj/v_proj/out_proj/norm, fc1/fc2), so
-``convert`` maps weights by name. The slice serves, so the modules run
-deterministically: no dropout.
+``convert`` maps weights by name.
+
+Dropout sits at the JAX package's five sites (inside the combination gate
+and after its output projection, after the GCN's fc2, after attention's
+output projection, after the FFN's fc2). It is active only in a module's
+``training`` mode at a rate above 0, and then draws its masks from the
+``torch.Generator`` the caller passes down; in ``eval()`` mode, or at rate
+0, every module is deterministic. The rates default to 0 here; the model
+passes the config's (0.1, and 0.2 for the GCN, as the JAX package).
 
 Parameters are created on ``device`` and left uninitialised; the model's
 ``init_parameters`` fills them from an explicit ``torch.Generator``.
@@ -53,6 +60,22 @@ def position_encoding(length: int, dmodel: int) -> np.ndarray:
     return pos
 
 
+def dropout(x, p: float, generator, *, training: bool = True):
+    """Inverted dropout as flax's ``nn.Dropout``: keep each element with
+    probability 1-p and scale it by 1/(1-p). The mask comes from
+    ``torch.rand`` on ``generator`` (``F.dropout`` takes none). The
+    identity when not ``training`` or at p=0."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 def combination_gate(query, key, value, *, scale: float):
     """combination_layer.py:6-17: per element, softmax over the pair
     (q*k*scale, q*v*scale) weights k and v. The two-way softmax is written
@@ -65,13 +88,16 @@ class Combination(nn.Module):
     """Multi-head combination (gnn_transformer.py:176-205): three input
     projections, the gate with scale 1/sqrt(d_head) in the merged
     (B, S, d_model) layout (the gate is elementwise, so the head split is a
-    layout no-op), output projection, post-LN residual on the query."""
+    layout no-op), output projection, post-LN residual on the query.
+    Dropout inside the gate and after the output projection."""
 
-    def __init__(self, num_heads: int, d_model: int, device=None):
+    def __init__(self, num_heads: int, d_model: int,
+                 dropout_rate: float = 0.0, device=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} not divisible by "
                              f"num_heads={num_heads}")
+        self.dropout_rate = dropout_rate
         self.scale = 1.0 / math.sqrt(d_model // num_heads)
         self.q_proj = dense(d_model, d_model, device=device)
         self.k_proj = dense(d_model, d_model, device=device)
@@ -79,38 +105,46 @@ class Combination(nn.Module):
         self.out_proj = dense(d_model, d_model, device=device)
         self.norm = layer_norm(d_model, device)
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value, generator=None):
+        p, on = self.dropout_rate, self.training
         x = combination_gate(self.q_proj(query), self.k_proj(key),
                              self.v_proj(value), scale=self.scale)
-        return self.norm(self.out_proj(x) + query)
+        x = dropout(x, p, generator, training=on)
+        out = dropout(self.out_proj(x), p, generator, training=on)
+        return self.norm(out + query)
 
 
 class GCN(nn.Module):
     """One graph-convolution round (gnn_transformer.py:64-86):
-    fc1 -> A.x -> fc2 -> residual -> LayerNorm, over a dense (B, N, N)
-    normalized adjacency."""
+    fc1 -> A.x -> fc2 -> dropout -> residual -> LayerNorm, over a dense
+    (B, N, N) normalized adjacency."""
 
-    def __init__(self, d_model: int, device=None):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.fc1 = dense(d_model, d_model, device=device)
         self.fc2 = dense(d_model, d_model, device=device)
         self.norm = layer_norm(d_model, device)
 
-    def forward(self, graph_em, adj):
+    def forward(self, graph_em, adj, generator=None):
         x = torch.bmm(adj, self.fc1(graph_em))
-        return self.norm(self.fc2(x) + graph_em)
+        x = dropout(self.fc2(x), self.dropout_rate, generator,
+                    training=self.training)
+        return self.norm(x + graph_em)
 
 
 class Attention(nn.Module):
     """Post-LN multi-head attention (gnn_transformer.py:124-161): additive
-    -1e9 masking where mask==0, softmax, output projection, residual on the
-    original query, LayerNorm. ``project_kv`` and ``attend`` are separate so
-    the cached decode projects each new position once and attends over the
-    cache."""
+    -1e9 masking where mask==0, softmax, output projection, dropout,
+    residual on the original query, LayerNorm. ``project_kv`` and
+    ``attend`` are separate so the cached decode projects each new position
+    once and attends over the cache."""
 
-    def __init__(self, num_heads: int, d_model: int, device=None):
+    def __init__(self, num_heads: int, d_model: int,
+                 dropout_rate: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.d_model = d_model
         self.q_proj = dense(d_model, d_model, device=device)
         self.k_proj = dense(d_model, d_model, device=device)
@@ -128,7 +162,8 @@ class Attention(nn.Module):
         return (self._split_heads(self.k_proj(key)),
                 self._split_heads(self.v_proj(value)))
 
-    def attend(self, query, k, v, mask, *, causal: bool = False):
+    def attend(self, query, k, v, mask, *, causal: bool = False,
+               generator=None):
         """Attention over pre-projected K/V. ``mask``: (B, kv_len) key
         padding or a (B, 1, q_len|1, kv_len) mask, nonzero = attend.
         ``causal`` adds the lower-triangular mask (q_len must equal kv_len:
@@ -150,24 +185,33 @@ class Attention(nn.Module):
             weight = weight.masked_fill(~tri, NEG_INF)
         out = torch.matmul(torch.softmax(weight, dim=-1), v)
         out = out.transpose(1, 2).reshape(B, q_len, self.d_model)
-        return self.norm(self.out_proj(out) + query)
+        out = dropout(self.out_proj(out), self.dropout_rate, generator,
+                      training=self.training)
+        return self.norm(out + query)
 
-    def forward(self, query, key, value, mask, *, causal: bool = False):
+    def forward(self, query, key, value, mask, *, causal: bool = False,
+                generator=None):
         k, v = self.project_kv(key, value)
-        return self.attend(query, k, v, mask, causal=causal)
+        return self.attend(query, k, v, mask, causal=causal,
+                           generator=generator)
 
 
 class FeedForward(nn.Module):
-    """Post-LN 4x ReLU FFN (gnn_transformer.py:163-174)."""
+    """Post-LN 4x ReLU FFN (gnn_transformer.py:163-174), dropout after
+    fc2."""
 
-    def __init__(self, d_model: int, mult: int = 4, device=None):
+    def __init__(self, d_model: int, mult: int = 4,
+                 dropout_rate: float = 0.0, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.fc1 = dense(d_model, mult * d_model, device=device)
         self.fc2 = dense(mult * d_model, d_model, device=device)
         self.norm = layer_norm(d_model, device)
 
-    def forward(self, x):
-        return self.norm(self.fc2(torch.relu(self.fc1(x))) + x)
+    def forward(self, x, generator=None):
+        h = dropout(self.fc2(torch.relu(self.fc1(x))), self.dropout_rate,
+                    generator, training=self.training)
+        return self.norm(h + x)
 
 
 @torch.no_grad()

@@ -6,8 +6,14 @@ batch into a dense (B, graph_len, graph_len) tensor that all GCN rounds
 reuse. The decode path is the KV-cached one: ``decode_init`` computes the
 per-layer cross-attention K/V and the copy head's source projection once
 per batch, and ``fused_probs_step`` decodes one position against the
-self-attention caches. Every copy-head score goes through
-``ops.copy_score.copy_scores``, the CUDA kernel on a CUDA tensor.
+self-attention caches. ``forward`` is the training loss (sum, count) and
+``dev_predict`` the dev gate's teacher-forced greedy ids. Every copy-head
+score goes through ``ops.copy_score.copy_scores``, the CUDA kernels (K1
+forward, K2 backward) on a CUDA tensor.
+
+Dropout draws from the ``torch.Generator`` passed to ``forward`` (and from
+there to ``encode``, ``Decoder.forward`` and the layers), in training mode
+only; the cached decode path is always deterministic.
 
 Submodule names follow the JAX package's parameter tree, so
 ``fira_tpu_torch.convert`` maps a flax checkpoint onto this module by name.
@@ -69,14 +75,15 @@ class Encoder(nn.Module):
         self.mark_embed = embedding(4, d, device)
         self.ast_change_embed = embedding(cfg.ast_change_vocab_size, d, device)
         for i in range(cfg.num_layers):
-            self.add_module(f"combination_{i}",
-                            Combination(cfg.num_head, d, device=device))
-            self.add_module(f"gcn_{i}", GCN(d, device=device))
+            self.add_module(f"combination_{i}", Combination(
+                cfg.num_head, d, cfg.dropout_rate, device=device))
+            self.add_module(f"gcn_{i}", GCN(d, cfg.gcn_dropout_rate,
+                                            device=device))
         self.register_buffer(
             "pos", torch.from_numpy(position_encoding(cfg.sou_len, d)).to(device),
             persistent=False)
 
-    def forward(self, diff, mark, ast_change, adj, sub_token):
+    def forward(self, diff, mark, ast_change, adj, sub_token, generator=None):
         sou = self.cfg.sou_len
         input_em = _embed_padded(self.word_embed, diff) + self.pos[None]
         mark_em = _embed_padded(self.mark_embed, mark)
@@ -87,9 +94,9 @@ class Encoder(nn.Module):
         for i in range(self.cfg.num_layers):
             diff_em = graph_em[:, :sou]
             diff_em = getattr(self, f"combination_{i}")(diff_em, diff_em,
-                                                        mark_em)
+                                                        mark_em, generator)
             graph_em = torch.cat([diff_em, graph_em[:, sou:]], dim=1)
-            graph_em = getattr(self, f"gcn_{i}")(graph_em, adj)
+            graph_em = getattr(self, f"gcn_{i}")(graph_em, adj, generator)
         return (graph_em[:, :sou],
                 graph_em[:, sou : sou + self.cfg.sub_token_len])
 
@@ -107,10 +114,11 @@ class Decoder(nn.Module):
         # no padding_idx on the decoder embedding (gnn_transformer.py:93-94)
         self.embed = embedding(cfg.vocab_size, d, device)
         for i in range(cfg.num_layers):
-            self.add_module(f"self_attn_{i}", Attention(h, d, device=device))
-            self.add_module(f"cross_attn_{i}", Attention(h, d, device=device))
-            self.add_module(f"ffn_{i}", FeedForward(d, cfg.ffn_mult,
-                                                    device=device))
+            for kind in ("self_attn", "cross_attn"):
+                self.add_module(f"{kind}_{i}", Attention(
+                    h, d, cfg.dropout_rate, device=device))
+            self.add_module(f"ffn_{i}", FeedForward(
+                d, cfg.ffn_mult, cfg.dropout_rate, device=device))
         self.register_buffer(
             "pos", torch.from_numpy(position_encoding(cfg.tar_len, d)).to(device),
             persistent=False)
@@ -118,13 +126,15 @@ class Decoder(nn.Module):
     def _layer(self, kind: str, i: int):
         return getattr(self, f"{kind}_{i}")
 
-    def forward(self, tar, sou_embedding, sou_mask, tar_mask_pad):
+    def forward(self, tar, sou_embedding, sou_mask, tar_mask_pad,
+                generator=None):
         x = self.embed(tar) + self.pos[None, : tar.shape[1]]
         for i in range(self.cfg.num_layers):
-            x = self._layer("self_attn", i)(x, x, x, tar_mask_pad, causal=True)
+            x = self._layer("self_attn", i)(x, x, x, tar_mask_pad, causal=True,
+                                            generator=generator)
             x = self._layer("cross_attn", i)(x, sou_embedding, sou_embedding,
-                                             sou_mask)
-            x = self._layer("ffn", i)(x)
+                                             sou_mask, generator=generator)
+            x = self._layer("ffn", i)(x, generator)
         return x
 
     def cross_kv(self, sou_embedding):
@@ -208,7 +218,7 @@ class FiraModel(nn.Module):
         """Random weights from ``gen`` (PyTorch's default distributions)."""
         return init_parameters(self, gen)
 
-    def encode(self, batch: Dict[str, torch.Tensor]):
+    def encode(self, batch: Dict[str, torch.Tensor], generator=None):
         """Run the graph encoder once; returns ([diff||sub] states, mask)."""
         graph_len = (batch["diff"].shape[1] + batch["sub_token"].shape[1]
                      + batch["ast_change"].shape[1])
@@ -217,7 +227,7 @@ class FiraModel(nn.Module):
         diff, sub_token = batch["diff"].long(), batch["sub_token"].long()
         sou_emb, sub_emb = self.encoder(diff, batch["diff_mark"].long(),
                                         batch["ast_change"].long(), adj,
-                                        sub_token)
+                                        sub_token, generator)
         states = torch.cat([sou_emb, sub_emb], dim=1)
         mask = torch.cat([diff != 0, sub_token != 0], dim=1)
         return states, mask
@@ -235,13 +245,57 @@ class FiraModel(nn.Module):
         return torch.cat([gate[:, :, 0:1] * gen, gate[:, :, 1:2] * copy],
                          dim=-1)
 
+    def _dist_parts(self, states, mask, tar, tar_mask_pad, generator=None):
+        """Decoder over a full prefix, then the generation softmax, masked
+        copy softmax and gate, unfused."""
+        tar_emb = self.decoder(tar.long(), states, mask, tar_mask_pad,
+                               generator)
+        return self._heads(mask, self.copy_net.project_src(states), tar_emb)
+
     def fused_probs(self, states, mask, tar, tar_mask_pad):
         """Decoder + copy fusion over a full prefix -> probability-space
         distribution over vocab_size + sou_len + sub_token_len
         (Model.py:52-64)."""
-        tar_emb = self.decoder(tar.long(), states, mask, tar_mask_pad)
-        src_proj = self.copy_net.project_src(states)
-        return self._fuse(*self._heads(mask, src_proj, tar_emb))
+        return self._fuse(*self._dist_parts(states, mask, tar, tar_mask_pad))
+
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None):
+        """Training/dev loss: (nll_sum, token_count), as the reference
+        (Model.py:66-84); callers normalise. The label is ``msg_tar``
+        shifted left with a zero column; each position's label probability
+        is gathered from the unfused factors (gate x gen or gate x copy),
+        clamped to [1e-10, 1] and logged; label 0 is masked out. Dropout
+        draws from ``generator`` in training mode."""
+        states, mask = self.encode(batch, generator)
+        tar = batch["msg"].long()
+        gen, copy, gate = self._dist_parts(states, mask, tar, tar != 0,
+                                           generator)
+        msg_tar = batch["msg_tar"].long()
+        label = torch.cat([msg_tar[:, 1:], torch.zeros_like(msg_tar[:, :1])],
+                          dim=1)
+        label_mask = label != 0
+        V = self.cfg.vocab_size
+        is_gen = label < V
+        gi = torch.where(is_gen, label, 0)[..., None]
+        ci = (label - V).clamp(0, copy.shape[-1] - 1)[..., None]
+        pg = gen.gather(-1, gi)[..., 0] * gate[..., 0]
+        pc = copy.gather(-1, ci)[..., 0] * gate[..., 1]
+        nll = -torch.log(torch.where(is_gen, pg, pc).clamp(1e-10, 1.0))
+        nll = torch.where(label_mask, nll, torch.zeros_like(nll))
+        return nll.sum(), label_mask.sum()
+
+    @torch.no_grad()
+    def dev_predict(self, batch: Dict[str, torch.Tensor]):
+        """Teacher-forced greedy ids for all positions (Model.py:86): the
+        argmax of the fused distribution, with dropout off whatever the
+        module's mode (restored after)."""
+        was_training = self.training
+        self.eval()
+        try:
+            states, mask = self.encode(batch)
+            tar = batch["msg"].long()
+            return self.fused_probs(states, mask, tar, tar != 0).argmax(-1)
+        finally:
+            self.train(was_training)
 
     def decode_init(self, states):
         """Everything constant across decode steps, once per batch:

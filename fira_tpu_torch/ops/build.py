@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("copy_score",)   # one source each: csrc/<name>.cu
+KERNELS = ("copy_score", "copy_score_bwd")   # one source each: csrc/<name>.cu
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas registers / shared memory / spills) per library

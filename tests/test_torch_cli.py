@@ -5,10 +5,17 @@ The weights are the port's own seeded initialisation, carried to the JAX
 package with ``convert.params_to_flax``; with them the messages run to
 many words, so the comparison covers real text, not empty lines.
 Without a checkpoint it exits 1 with the JAX CLI's message; asked for
-``--device cuda`` on a host without a card it raises."""
+``--device cuda`` on a host without a card it raises.
+
+``train`` on a tiny corpus writes ``train_process`` lines in the JAX
+format, at the same (epoch, batch) gates as the JAX package's ``train()``
+on the same corpus and config, plus ``latest.pt`` (and ``best.pt`` when dev
+BLEU improved); a second call resumes and runs no epoch; ``test`` then
+decodes the trained checkpoint."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -23,6 +30,7 @@ from fira_tpu.data import synthetic as jax_synthetic
 from fira_tpu.data.dataset import FiraDataset as JaxDataset
 from fira_tpu.decode.runner import run_test as jax_run_test
 from fira_tpu.model.model import FiraModel as JaxModel
+from fira_tpu.train.loop import train as jax_train
 from fira_tpu_torch import cli, convert
 from fira_tpu_torch.config import FiraConfig as TorchConfig
 from fira_tpu_torch.data import synthetic
@@ -85,4 +93,61 @@ def test_cuda_without_card_raises(tmp_path):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["test", "--config", "fira-tiny", "--device", "cuda",
+                  "--data-dir", str(tmp_path), "--out-dir", str(tmp_path)])
+
+
+TRAIN_COMMITS, TRAIN_BS = 40, 4
+GATE_LINE = re.compile(r"^epoch: (\d+) batch: (\d+) dev bleu: (\S+) "
+                       r"is better: (True|False)$")
+
+
+def _gates(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    matches = [GATE_LINE.match(line) for line in lines]
+    assert lines and all(matches), lines
+    return [(int(m[1]), int(m[2])) for m in matches]
+
+
+def test_train_then_resume_then_test(tmp_path, capsys):
+    """fira-tiny has dev_start_epoch=0 and dev_every_batches=4; at batch
+    size 4 an epoch of the train split has several gates."""
+    jdir, tdir = str(tmp_path / "jax_data"), str(tmp_path / "torch_data")
+    jax_synthetic.write_corpus_dir(jdir, n_commits=TRAIN_COMMITS, seed=SEED)
+    synthetic.write_corpus_dir(tdir, n_commits=TRAIN_COMMITS, seed=SEED)
+    jds = JaxDataset(jdir, fira_tiny(batch_size=TRAIN_BS))
+    jout = str(tmp_path / "jax_out")
+    jax_train(jds, jds.cfg, out_dir=jout, epochs=2,
+              var_maps=_load_var_maps(jdir))
+
+    tout = str(tmp_path / "torch_out")
+    argv = ["--config", "fira-tiny", "--device", "cpu", "--data-dir", tdir,
+            "--out-dir", tout, "--batch-size", str(TRAIN_BS)]
+    assert cli.main(["train", *argv, "--epochs", "2"]) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"best dev bleu: \S+  throughput: \S+ commits/sec/chip"
+                     r"  feed_stall_frac: \S+", out), out
+    gates = _gates(os.path.join(tout, "train_process"))
+    assert gates == _gates(os.path.join(jout, "train_process"))
+    assert len(gates) > 2 and {e for e, _ in gates} == {0, 1}
+    ckpt = os.path.join(tout, "ckpt")
+    assert os.path.isfile(os.path.join(ckpt, "latest.pt"))
+    improved = "True" in open(os.path.join(tout, "train_process")).read()
+    assert os.path.isfile(os.path.join(ckpt, "best.pt")) == improved
+
+    assert cli.main(["train", *argv, "--epochs", "2"]) == 0
+    assert "resumed at epoch 2" in capsys.readouterr().out
+    assert _gates(os.path.join(tout, "train_process")) == gates
+
+    assert cli.main(["test", *argv]) == 0
+    assert "test sentence-bleu" in capsys.readouterr().out
+    with open(os.path.join(tout, "output_fira")) as f:
+        assert len(f.read().splitlines()) == len(jds.splits["test"])
+
+
+def test_train_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--config", "fira-tiny", "--device", "cuda",
                   "--data-dir", str(tmp_path), "--out-dir", str(tmp_path)])

@@ -68,9 +68,16 @@ def test_copy_scores_kernel_matches_plain_bf16(cuda):
 
 @pytest.mark.gpu
 def test_copy_scores_kernel_refuses_what_it_does_not_take(cuda):
+    """The wrapper refuses what the kernels do not take; an input that
+    requires grad is taken (since K2), and its backward launches K2."""
     src, tgt, w, b = _inputs(2, 3, 37, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        cs.copy_scores(src.requires_grad_(), tgt, w, b)
+    out = cs.copy_scores(src.requires_grad_(), tgt, w, b)
+    assert out.grad_fn is not None
+    before = cs.copy_scores_backward.launches
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert cs.copy_scores_backward.launches == before + 1
+    assert src.grad is not None and src.grad.shape == src.shape
     src = src.detach()
     with pytest.raises(TypeError):
         cs.copy_scores(src, tgt.double(), w, b)
@@ -84,7 +91,74 @@ def test_copy_scores_kernel_refuses_what_it_does_not_take(cuda):
         cs.copy_scores(src, tgt.cpu(), w, b)
 
 
+# the training shape's T and S at a small batch, then unaligned shapes at
+# every other supported width
+BWD_SHAPES = [(3, 30, 370, 256), (2, 13, 37, 64), (2, 7, 130, 128),
+              (2, 17, 33, 512)]
+
+
+def _dout(B, T, S, device, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((B, T, S), np.float32)).to(
+        device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_copy_scores_backward_kernel_matches_plain(cuda, shape):
+    """K2 through autograd (dsrc, dtgt, dw, and dbias formed by autograd
+    outside the kernel) against the plain version's autograd, f32 at rtol
+    5e-4 / atol 5e-5, the JAX package's gradient tolerance; one K2 launch
+    per backward."""
+    src, tgt, w, b = _inputs(*shape, device=cuda)
+    dout = _dout(shape[0], shape[1], shape[2], cuda)
+    grads = {}
+    for name, fn in (("kernel", cs.copy_scores),
+                     ("plain", cs.copy_scores_reference)):
+        leaves = [x.clone().requires_grad_() for x in (src, tgt, w, b)]
+        before = cs.copy_scores_backward.launches
+        (fn(*leaves) * dout).sum().backward()
+        torch.cuda.synchronize()
+        launched = cs.copy_scores_backward.launches - before
+        assert launched == (1 if name == "kernel" else 0)
+        grads[name] = [x.grad for x in leaves]
+    for label, got, want in zip(("dsrc", "dtgt", "dw", "dbias"),
+                                grads["kernel"], grads["plain"]):
+        assert got.shape == want.shape and got.dtype == want.dtype, label
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-5,
+                                   msg=lambda m: f"{label}: {m}")
+
+
+@pytest.mark.gpu
+def test_copy_scores_backward_kernel_is_deterministic(cuda):
+    """No float atomics: two runs on the same inputs give the same bits."""
+    src, tgt, w, _ = _inputs(3, 30, 370, 256, device=cuda)
+    dout = _dout(3, 30, 370, cuda)
+    first = cs.copy_scores_backward(src, tgt, w, dout)
+    second = cs.copy_scores_backward(src, tgt, w, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_copy_scores_backward_kernel_bf16(cuda):
+    """bf16 inputs, f32 math, dsrc/dtgt in bf16 (one rounding each): 2e-2
+    of the plain f32 autograd on the same bf16 values."""
+    src, tgt, w, _ = _inputs(2, 13, 37, 256, dtype=torch.bfloat16,
+                             device=cuda)
+    dout = _dout(2, 13, 37, cuda).bfloat16()
+    got = cs.copy_scores_backward(src, tgt, w, dout)
+    want = cs.copy_scores_backward_reference(src.float(), tgt.float(), w,
+                                             dout.float())
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g.float(), r, rtol=2e-2, atol=2e-2)
+
+
 def test_copy_scores_other_device_raises():
     src, tgt, w, b = _inputs(2, 3, 37, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         cs.copy_scores(src, tgt, w, b)
+    with pytest.raises(ValueError, match="no kernel"):
+        cs.copy_scores_backward(src, tgt, w, _dout(2, 3, 37, "meta"))

@@ -2,11 +2,18 @@
 (transplanted) weights on the same numpy inputs: Combination, GCN,
 Attention (causal full prefix, key padding, and the cached ``attend`` at
 one position) and FeedForward. f32, rtol/atol 1e-5: the frameworks sum
-matmuls, softmaxes and LayerNorm variances in different orders."""
+matmuls, softmaxes and LayerNorm variances in different orders.
+
+Dropout cannot match across frameworks (the streams differ), so it is held
+on its own: in training mode at p > 0 it draws from the generator it is
+given (the same seed gives the same output bit for bit; the share of zeros
+is near p; the kept values are scaled by 1/(1-p)), and in eval mode or at
+p = 0 every module equals its deterministic output bit for bit."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fira_tpu.model import layers as jl
@@ -119,3 +126,54 @@ def test_attention_cached_attend_matches_jax():
         got = mod.attend(torch.from_numpy(q), k, v, torch.from_numpy(valid))
     np.testing.assert_allclose(k.numpy(), np.asarray(jk), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dropout_draws_from_the_generator():
+    x = torch.from_numpy(np.abs(_rand(64, 1000, seed=13)) + 0.5)
+    p = 0.2
+    a = tl.dropout(x, p, torch.Generator().manual_seed(5))
+    b = tl.dropout(x, p, torch.Generator().manual_seed(5))
+    c = tl.dropout(x, p, torch.Generator().manual_seed(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    zeros = (a == 0).float().mean().item()
+    assert abs(zeros - p) < 0.01        # 64,000 draws: sd 0.0016
+    kept = a != 0
+    torch.testing.assert_close(a[kept], x[kept] / (1 - p), rtol=0, atol=0)
+    assert tl.dropout(x, p, None, training=False) is x
+    assert tl.dropout(x, 0.0, None) is x
+    with pytest.raises(ValueError, match="Generator"):
+        tl.dropout(x, p, None)
+
+
+def _modules(p):
+    return {
+        "combination": (tl.Combination(H, D, p), lambda m, x, g:
+                        m(x, x, x, g)),
+        "gcn": (tl.GCN(D, p), lambda m, x, g: m(
+            x, torch.from_numpy(np.abs(_rand(B, L, L, seed=14))), g)),
+        "attention": (tl.Attention(H, D, p), lambda m, x, g: m(
+            x, x, x, torch.ones(B, L, dtype=torch.bool), causal=True,
+            generator=g)),
+        "ffn": (tl.FeedForward(D, 4, p), lambda m, x, g: m(x, g)),
+    }
+
+
+@pytest.mark.parametrize("name", ["combination", "gcn", "attention", "ffn"])
+def test_module_dropout_train_and_eval(name):
+    x = torch.from_numpy(_rand(B, L, D, seed=15))
+    mod, call = _modules(0.3)[name]
+    tl.init_parameters(mod, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        mod.eval()
+        det = call(mod, x, None)
+        mod.train()
+        a = call(mod, x, torch.Generator().manual_seed(1))
+        b = call(mod, x, torch.Generator().manual_seed(1))
+        c = call(mod, x, torch.Generator().manual_seed(2))
+        assert torch.equal(a, b)
+        assert not torch.equal(a, c) and not torch.equal(a, det)
+        # p = 0 in training mode: the deterministic output, bit for bit
+        zero, call0 = _modules(0.0)[name]
+        zero.load_state_dict(mod.state_dict())
+        zero.train()
+        assert torch.equal(call0(zero, x, None), det)
