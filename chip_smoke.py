@@ -41,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -66,6 +67,25 @@ def smi_name_power() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel from ``nvcc -Xptxas -v`` output: its
+    name and template arguments (from the mangled name), registers,
+    shared memory and spills."""
+    kernel, spills = "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            mangled = line.split()[-1]
+            m = re.search(r"(?<=\d)(copy_score\w*?_kernel)I(13__nv_bfloat16|f)"
+                          r"(?:Li(\d+)E)?", mangled)
+            kernel = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
+                      f"{', ' + m.group(3) if m.group(3) else ''}>"
+                      if m else mangled)
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
 
 
 def time_cold_ms(torch, fn, n: int = 50) -> float:
@@ -222,14 +242,39 @@ def phase_kernels_bwd(torch, cs, cfg):
         torch, lambda: cs.copy_scores_backward(src, tgt, w, dout))
     plain_ms = time_cold_ms(torch, lambda: torch.autograd.grad(
         out, leaves, dout, retain_graph=True), n=10)
-    del out
+    del out, leaves
     bound, by = copy_score_bwd_bound_ms(B, T, S, D, src.element_size())
     print(f"[kernels] copy_score_bwd train ({B},{T},{S},{D}) f32: max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (rtol 5e-4, atol 5e-5), bitwise equal over two runs; kernel "
-          f"{ms:.4f} ms (wrapper with the dw sum {wrapper_ms:.4f} ms), plain "
-          f"backward {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel "
-          f"at {100 * bound / ms:.1f}% of bound", flush=True)
+          f"(both launches) {ms:.4f} ms (wrapper with the dw sum "
+          f"{wrapper_ms:.4f} ms), plain backward {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.1f}% of "
+          f"bound", flush=True)
+    # large magnitudes beside ordinary values: a share of the entries of
+    # src (5 %) and tgt (2 %) at |value| 15-20 or 25-60, both signs
+    big = []
+    for x, frac in ((src, 0.05), (tgt, 0.02)):
+        mag = torch.where(
+            torch.rand(x.shape, device="cuda", generator=gen) < 0.5,
+            25 + 35 * torch.rand(x.shape, device="cuda", generator=gen),
+            15 + 5 * torch.rand(x.shape, device="cuda", generator=gen))
+        sign = torch.rand(x.shape, device="cuda", generator=gen) < 0.5
+        pick = torch.rand(x.shape, device="cuda", generator=gen) < frac
+        big.append(torch.where(pick, torch.where(sign, mag, -mag), x))
+    got = cs.copy_scores_backward(big[0], big[1], w, dout)
+    want = cs.copy_scores_backward_reference(big[0], big[1], w, dout)
+    torch.cuda.synchronize()
+    big_errs = {}
+    for name, g, r in zip(("dsrc", "dtgt", "dw"), got, want):
+        check(bool(torch.isfinite(g).all()), f"copy_score_bwd large {name}: "
+              "non-finite")
+        big_errs[name] = (g - r).abs().max().item()
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=5e-5)
+    print(f"[kernels] copy_score_bwd train shape, large magnitudes "
+          f"(|src| or |tgt| 15-60 on 5 % / 2 % of entries): max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in big_errs.items())
+          + " (rtol 5e-4, atol 5e-5)", flush=True)
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
 
@@ -332,6 +377,12 @@ def profile_one(torch, label: str, fn, warm: int = 1) -> None:
     for key, us, n in top[:8] + [r for r in top[8:] if "copy_score" in r[0]]:
         print(f"[profile]   {us / 1e3:8.3f} ms  x{n:<5d} "
               f"{100 * us / device_us:5.1f}%  {key[:90]}", flush=True)
+    k1_us = sum(r[1] for r in rows if "copy_score_fwd" in r[0])
+    k2_us = sum(r[1] for r in rows if "copy_score_bwd" in r[0])
+    if k1_us or k2_us:
+        print(f"[profile] {label}: copy-score kernels K1 {k1_us / 1e3:.4f} "
+              f"ms, K2 (both launches) {k2_us / 1e3:.4f} ms of "
+              f"{device_us / 1e3:.2f} ms device time", flush=True)
 
 
 def main() -> int:
@@ -368,9 +419,8 @@ def main() -> int:
           f"{', '.join(os.path.relpath(p, root) for p in paths.values())}",
           flush=True)
     for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for line in ptxas_summary(log):
+            print(f"[build] {name}: {line}", flush=True)
 
     work = os.path.join(root, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)

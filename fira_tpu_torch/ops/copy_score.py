@@ -94,15 +94,15 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     """K2's C entry points, built and loaded at first use: the launch and
-    the number of s-blocks whose dw partials it writes."""
+    the number of s-chunks whose partials it writes."""
     lib = build.load("copy_score_bwd")
     fn = lib.fira_copy_score_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    s_blocks = lib.fira_copy_score_bwd_s_blocks
-    s_blocks.argtypes = [ctypes.c_int]
-    s_blocks.restype = ctypes.c_int
-    return fn, s_blocks
+    chunks = lib.fira_copy_score_bwd_chunks
+    chunks.argtypes = [ctypes.c_int]
+    chunks.restype = ctypes.c_int
+    return fn, chunks
 
 
 def launch(src, tgt, w, out) -> None:
@@ -121,22 +121,26 @@ def launch(src, tgt, w, out) -> None:
 
 
 def launch_backward(src, tgt, w, dout):
-    """Launch K2 (both passes) on the current stream. Inputs as checked by
-    ``copy_scores_backward``; ``w`` is a contiguous f32 (D,). Returns dsrc
-    (B,S,D), dtgt (B,T,D) in src's type and the dw partials
-    (B, s_blocks, D) f32. Counts the launch."""
+    """Launch K2 on the current stream: one pass over the (b, t, s, d)
+    elements that writes dsrc and per-(b, s-chunk) partials of dtgt and
+    dw, then a fixed-order sum of the dtgt partials into dtgt. Inputs as
+    checked by ``copy_scores_backward``; ``w`` is a contiguous f32 (D,).
+    Returns dsrc (B,S,D), dtgt (B,T,D) in src's type and the dw partials
+    (B, n_chunks, D) f32. Counts one launch for the two kernels."""
     B, S, D = src.shape
     T = tgt.shape[1]
-    fn, s_blocks = _bwd_kernel()
+    fn, chunks = _bwd_kernel()
+    n_c = chunks(S)
     dsrc, dtgt = torch.empty_like(src), torch.empty_like(tgt)
-    dw_part = torch.empty((B, s_blocks(S), D), dtype=torch.float32,
-                          device=src.device)
+    dtgt_part = torch.empty((B, n_c, T, D), dtype=torch.float32,
+                            device=src.device)
+    dw_part = torch.empty((B, n_c, D), dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(src.data_ptr(), tgt.data_ptr(), w.data_ptr(),
                  dout.data_ptr(), dsrc.data_ptr(), dtgt.data_ptr(),
-                 dw_part.data_ptr(), B, T, S, D, _DTYPE_CODE[src.dtype],
-                 stream)
+                 dtgt_part.data_ptr(), dw_part.data_ptr(), B, T, S, D,
+                 _DTYPE_CODE[src.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"copy_score backward kernel launch failed: CUDA error {err}")
@@ -147,7 +151,8 @@ def launch_backward(src, tgt, w, dout):
 def copy_scores_backward(src, tgt, w, dout):
     """(dsrc, dtgt, dw) of sum(dout * copy_scores(src, tgt, w, bias)):
     dsrc and dtgt in src's type, dw in w's shape and type. CPU tensors take
-    the plain version; CUDA tensors launch K2."""
+    the plain version; CUDA tensors launch K2, and dw is the sum of its
+    per-(b, s-chunk) partials."""
     if src.device.type == "cpu":
         return copy_scores_backward_reference(src, tgt, w, dout)
     if src.device.type != "cuda":
@@ -162,7 +167,7 @@ def copy_scores_backward(src, tgt, w, dout):
                          f"tensor on {src.device}")
     dsrc, dtgt, dw_part = launch_backward(
         src, tgt, w.reshape(-1).to(torch.float32).contiguous(), dout)
-    # the partials' sum over (b, s-block), as the JAX code sums dw_part
+    # the partials' sum over (b, s-chunk), as the JAX code sums dw_part
     dw = dw_part.sum(dim=(0, 1)).to(w.dtype).reshape(w.shape)
     return dsrc, dtgt, dw
 

@@ -4,40 +4,47 @@
 //     g[b, t, s, d] = (1 - x^2) * w[d] * dout[b, t, s]
 //
 // it writes dsrc[b, s, :] = sum_t g, dtgt[b, t, :] = sum_s g and, per
-// (b, block of s), a partial dw = sum_{t, s} x * dout that the Python
+// (b, chunk of s), a partial dw = sum_{t, s} x * dout that the Python
 // wrapper sums (dbias = sum dout stays in the wrapper too).
 //
 // Replaces the TPU kernel fira_tpu/ops/copy_score.py:_bwd_kernel (its
 // pl.pallas_call in _copy_scores_bwd at :148). Like it, this kernel never
 // writes the (B, T, S, D) intermediate: it recomputes x from src and tgt.
 // The TPU kernel walks S in chunks on one core and carries dtgt and dw from
-// chunk to chunk; here blocks run in parallel and nothing carries over, so
-// the work is split into two passes, each of which owns its output rows:
+// chunk to chunk; here blocks run in parallel and nothing carries over.
 //
-//   pass A  one warp per (b, s): dsrc[b, s] and the dw partial;
-//   pass B  one warp per (b, t): dtgt[b, t].
+// Layout: the backward is separable in d. Every quantity at index d
+// depends only on src[.., d], tgt[.., d] and w[d], plus the scalar
+// dout[b, t, s]. So one thread owns one (b, d) column over one chunk of at
+// most 64 values of s, and a block is one b, one chunk and all D values of
+// d (D threads). A thread holds w[d], tgt[b, t, d] for a tile of up to 32
+// values of t and the matching dtgt accumulators in registers, and walks
+// its chunk once: for each s it loads src[b, s, d] (neighbouring threads
+// read neighbouring d), evaluates x once for every t of the tile, adds into
+// its dsrc, dtgt and dw accumulators, and writes dsrc[b, s, d]. dout[b, t, s]
+// is the same for every d, so the block stages its (t tile x chunk) piece
+// in shared memory s-major, and a thread reads four consecutive t with one
+// 16-byte broadcast load. No value is summed across threads, so there is
+// no shared-memory reduction and no float atomic.
 //
-// Both are one kernel, copy_score_bwd_kernel: a warp holds one "row"
-// (src[b, s] in pass A, tgt[b, t] in pass B) and D/32 values of w in
-// registers, lane l taking d = l + 32k, and walks the other tensor, which
-// the block stages in shared memory tile by tile, as the forward kernel
-// stages tgt. For each staged row dout is one scalar, broadcast to the
-// warp. Each lane accumulates its D/32 gradient values in registers and
-// writes them once; no float atomics anywhere, so the same inputs give the
-// same bits on every run. The dw partials are reduced over the block's
-// warps in shared memory in a fixed order and written as one (D,) row per
-// (b, block); the wrapper's sum over those rows is deterministic too.
+// T above 32 is taken in tiles of 32; for each later tile a thread adds
+// into its own dsrc values, which it alone writes, in tile order. Each
+// block writes its dtgt sums as a partial (B, n_chunks, T, D) f32 and its
+// dw sums as a partial (B, n_chunks, D) f32. A second kernel of this file
+// sums the dtgt partials over the chunks in chunk order and writes dtgt in
+// src's type; the wrapper sums the dw partials. Every sum runs in an order
+// fixed by the shapes alone, so the same inputs give the same bits on every
+// run.
 //
 // What bounds it on the H100: at the training shape (B, T, S, D) =
 // (170, 30, 370, 256), f32, it reads src, tgt and dout and writes dsrc and
 // dtgt, about 147 MB (0.044 ms at 3.35 TB/s), and does about 8 f32
 // operations on each of the 483 M (b, t, s, d) elements, 3.9 G operations
-// (0.058 ms at 67 TFLOP/s): bound by operations. The precise tanhf costs
-// some 20 instructions, and the two passes compute it twice, so the kernel
-// is bound by instructions well above that bound; the design accepts the
-// second tanh to keep every output owned by one warp. tanh.approx.f32
-// (~2^-11 relative error) would break the 5e-4 agreement with the plain
-// version's autograd, so it is not used.
+// (0.058 ms at 67 TFLOP/s), counting the tanh as one: bound by operations.
+// The precise tanhf costs some 20 instructions; tanh.approx.f32 (~2^-11
+// relative error) would break the 5e-4 agreement with the plain version's
+// autograd, so it is not used. The dtgt partials add 2 x 31 MB of traffic
+// at that shape, most of it in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,165 +52,197 @@
 
 namespace {
 
-constexpr int WARPS = 8;                 // rows per block
-constexpr int SMEM_FLOATS = 8192;        // 32 KB staged tile, under the 48 KB static limit
+constexpr int TT = 32;              // t values a thread holds in registers
+constexpr int CHUNK_MAX = 64;       // s values a block walks
+constexpr int DOUT_LD = TT + 4;     // row stride of the staged dout (floats)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// rows: (B, n_i, D), one per warp; cols: (B, n_j, D), staged. dout for
-// (b, i, j) is at dout + b * dout_b + i * stride_i + j * stride_j.
-// drow: (B, n_i, D). With WITH_DW, dw_part: (B, gridDim.x, D) f32.
-template <typename T, int DPL, bool WITH_DW>
-__global__ void __launch_bounds__(WARPS * 32)
-copy_score_bwd_kernel(const T* __restrict__ rows, const T* __restrict__ cols,
+// src (B, S, D), tgt (B, T, D), w (D,) f32, dout (B, T, S) -> dsrc (B, S, D)
+// and the partials dtgt_part (B, n_chunks, T, D) and dw_part (B, n_chunks,
+// D), both f32. Grid (n_chunks, B), block D threads; chunk c covers
+// s in [c * chunk, min((c + 1) * chunk, S)).
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+copy_score_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
                       const float* __restrict__ w, const T* __restrict__ dout,
-                      T* __restrict__ drow, float* __restrict__ dw_part,
-                      int n_i, int n_j, int64_t dout_b, int64_t stride_i,
-                      int64_t stride_j, int tile_j) {
-    constexpr int D = DPL * 32;
-    extern __shared__ float tile[];      // (tile_j, D) f32; then (WARPS, D)
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+                      T* __restrict__ dsrc, float* __restrict__ dtgt_part,
+                      float* __restrict__ dw_part, int n_t, int n_s,
+                      int chunk) {
+    __shared__ __align__(16) float dsm[CHUNK_MAX * DOUT_LD];
+    const int d = threadIdx.x;
+    const int c = blockIdx.x;
+    const int n_c = gridDim.x;
     const int b = blockIdx.y;
-    const int i = blockIdx.x * WARPS + warp;
-    const bool active = i < n_i;
+    const int s0 = c * chunk;
+    const int ns = min(chunk, n_s - s0);
+    const float wd = w[d];
+    const T* src_col = src + ((size_t)b * n_s + s0) * D + d;
+    T* dsrc_col = dsrc + ((size_t)b * n_s + s0) * D + d;
+    // dw sums some 2,000 products a chunk: a compensated (Kahan) sum over
+    // s keeps its rounding near that of the plain version's product
+    float dw = 0.f, dw_c = 0.f;
 
-    float rv[DPL], wv[DPL], acc[DPL], dwacc[DPL];
+    for (int t0 = 0; t0 < n_t; t0 += TT) {
+        const int tt = min(TT, n_t - t0);
+        // t past the tile's end holds tgt 0 and dout 0: it adds 0 to every
+        // sum, and its dtgt value is never written
+        float tv[TT], acc_t[TT];
 #pragma unroll
-    for (int k = 0; k < DPL; ++k) {
-        wv[k] = w[lane + 32 * k];
-        rv[k] = 0.f;
-        acc[k] = 0.f;
-        dwacc[k] = 0.f;
-    }
-    if (active) {
-        const T* row = rows + ((size_t)b * n_i + i) * D;
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) rv[k] = to_f32(row[lane + 32 * k]);
-    }
-    const T* cols_b = cols + (size_t)b * n_j * D;
-    const T* dout_bi = dout + b * dout_b + (active ? i : 0) * stride_i;
-
-    for (int j0 = 0; j0 < n_j; j0 += tile_j) {
-        const int jj = min(tile_j, n_j - j0);
-        __syncthreads();                 // the previous tile is consumed
-        for (int e = threadIdx.x; e < jj * D; e += blockDim.x) {
-            tile[e] = to_f32(cols_b[(size_t)j0 * D + e]);
+        for (int t = 0; t < TT; ++t) {
+            tv[t] = t < tt ? to_f32(tgt[((size_t)b * n_t + t0 + t) * D + d])
+                           : 0.f;
+            acc_t[t] = 0.f;
+        }
+        __syncthreads();                 // the previous tile's dout is consumed
+        const T* dout_bt = dout + ((size_t)b * n_t + t0) * n_s + s0;
+        for (int e = threadIdx.x; e < TT * ns; e += D) {
+            const int t = e / ns, s = e - t * ns;   // coalesced along s
+            dsm[s * DOUT_LD + t] =
+                t < tt ? to_f32(dout_bt[(size_t)t * n_s + s]) : 0.f;
         }
         __syncthreads();
-        if (active) {
-            for (int j = 0; j < jj; ++j) {
-                const float g = to_f32(dout_bi[(j0 + j) * stride_j]);
-                const float* crow = tile + j * D;
+
+        float sv = to_f32(src_col[0]);
+        for (int s = 0; s < ns; ++s) {
+            const float sv_next = s + 1 < ns ? to_f32(src_col[(size_t)(s + 1) * D])
+                                             : 0.f;
+            const float4* drow =
+                reinterpret_cast<const float4*>(dsm + s * DOUT_LD);
+            // the sums over the tile's t run in 4 lanes, for the
+            // instructions' overlap and for shorter chains of additions
+            float acc_s[4] = {0.f, 0.f, 0.f, 0.f};
+            float dw_s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-                for (int k = 0; k < DPL; ++k) {
-                    const float x = tanhf(rv[k] + crow[lane + 32 * k]);
-                    acc[k] += (1.f - x * x) * wv[k] * g;
-                    if constexpr (WITH_DW) dwacc[k] += x * g;
+            for (int q = 0; q < TT / 4; ++q) {
+                const float4 g4 = drow[q];
+                const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const float x = tanhf(sv + tv[4 * q + k]);
+                    const float h = fmaf(-x, x, 1.f) * g[k];
+                    acc_s[k] += h;
+                    acc_t[4 * q + k] += h;
+                    dw_s[k] = fmaf(x, g[k], dw_s[k]);
                 }
             }
+            const float dw_y = ((dw_s[0] + dw_s[1]) + (dw_s[2] + dw_s[3])) - dw_c;
+            const float dw_t = dw + dw_y;
+            dw_c = (dw_t - dw) - dw_y;
+            dw = dw_t;
+            const float v = wd * ((acc_s[0] + acc_s[1]) + (acc_s[2] + acc_s[3]));
+            T* o = dsrc_col + (size_t)s * D;
+            store(o, t0 == 0 ? v : to_f32(*o) + v);
+            sv = sv_next;
+        }
+
+        float* part = dtgt_part + (((size_t)b * n_c + c) * n_t + t0) * D + d;
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+            if (t < tt) part[(size_t)t * D] = acc_t[t];
         }
     }
-    if (active) {
-        T* out = drow + ((size_t)b * n_i + i) * D;
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) store(out + lane + 32 * k, acc[k]);
-    }
-    if constexpr (WITH_DW) {
-        __syncthreads();                 // the last tile is consumed
-        float* red = tile;               // (WARPS, D); inactive warps add 0
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) red[warp * D + lane + 32 * k] = dwacc[k];
-        __syncthreads();
-        float* part = dw_part + ((size_t)b * gridDim.x + blockIdx.x) * D;
-        for (int d = threadIdx.x; d < D; d += blockDim.x) {
-            float s = 0.f;
-#pragma unroll
-            for (int r = 0; r < WARPS; ++r) s += red[r * D + d];
-            part[d] = s;
-        }
-    }
+    dw_part[((size_t)b * n_c + c) * D + d] = dw;
 }
 
-template <typename T, int DPL, bool WITH_DW>
-cudaError_t launch_pass(const void* rows, const void* cols, const float* w,
-                        const void* dout, void* drow, float* dw_part, int B,
-                        int n_i, int n_j, int64_t dout_b, int64_t stride_i,
-                        int64_t stride_j, cudaStream_t stream) {
-    constexpr int D = DPL * 32;
-    const int tile_j = min(n_j, SMEM_FLOATS / D);
-    // the dw reduction reuses the tile as (WARPS, D)
-    const int smem_rows = WITH_DW ? max(tile_j, WARPS) : tile_j;
-    const dim3 grid((n_i + WARPS - 1) / WARPS, B);
-    copy_score_bwd_kernel<T, DPL, WITH_DW>
-        <<<grid, WARPS * 32, (size_t)smem_rows * D * sizeof(float), stream>>>(
-            static_cast<const T*>(rows), static_cast<const T*>(cols), w,
-            static_cast<const T*>(dout), static_cast<T*>(drow), dw_part, n_i,
-            n_j, dout_b, stride_i, stride_j, tile_j);
-    return cudaGetLastError();
+// dtgt[b, t, d] = w[d] * sum over c, in order, of dtgt_part[b, c, t, d].
+template <typename T>
+__global__ void __launch_bounds__(256)
+copy_score_bwd_dtgt_kernel(const float* __restrict__ dtgt_part,
+                           const float* __restrict__ w, T* __restrict__ dtgt,
+                           int n_c, int n_t, int D, int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int d = (int)(i % D);
+    const int64_t bt = i / D;
+    const int64_t b = bt / n_t, t = bt - b * n_t;
+    const float* p = dtgt_part + ((b * n_c) * n_t + t) * D + d;
+    const int64_t stride = (int64_t)n_t * D;
+    float sum = 0.f;
+    for (int c = 0; c < n_c; ++c) sum += p[c * stride];
+    store(dtgt + i, w[d] * sum);
 }
 
-template <typename T, int DPL>
+template <typename T, int D>
 cudaError_t launch(const void* src, const void* tgt, const float* w,
-                   const void* dout, void* dsrc, void* dtgt, float* dw_part,
-                   int B, int n_t, int n_s, cudaStream_t stream) {
-    const int64_t dout_b = (int64_t)n_t * n_s;
-    // pass A: a warp per (b, s) walks t; dout[b, t, s] = s * 1 + t * n_s
-    cudaError_t err = launch_pass<T, DPL, true>(
-        src, tgt, w, dout, dsrc, dw_part, B, n_s, n_t, dout_b, 1, n_s, stream);
+                   const void* dout, void* dsrc, void* dtgt, float* dtgt_part,
+                   float* dw_part, int B, int n_t, int n_s, int n_c, int chunk,
+                   cudaStream_t stream) {
+    copy_score_bwd_kernel<T, D><<<dim3(n_c, B), D, 0, stream>>>(
+        static_cast<const T*>(src), static_cast<const T*>(tgt), w,
+        static_cast<const T*>(dout), static_cast<T*>(dsrc), dtgt_part,
+        dw_part, n_t, n_s, chunk);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    // pass B: a warp per (b, t) walks s; dout[b, t, s] = t * n_s + s * 1
-    return launch_pass<T, DPL, false>(
-        tgt, src, w, dout, dtgt, nullptr, B, n_t, n_s, dout_b, n_s, 1, stream);
+    const int64_t n = (int64_t)B * n_t * D;
+    copy_score_bwd_dtgt_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0,
+                                    stream>>>(
+        dtgt_part, w, static_cast<T*>(dtgt), n_c, n_t, D, n);
+    return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* src, const void* tgt, const float* w,
                        const void* dout, void* dsrc, void* dtgt,
-                       float* dw_part, int B, int n_t, int n_s, int D,
+                       float* dtgt_part, float* dw_part, int B, int n_t,
+                       int n_s, int n_c, int chunk, int D,
                        cudaStream_t stream) {
     switch (D) {
-        case 64:  return launch<T, 2>(src, tgt, w, dout, dsrc, dtgt, dw_part, B, n_t, n_s, stream);
-        case 128: return launch<T, 4>(src, tgt, w, dout, dsrc, dtgt, dw_part, B, n_t, n_s, stream);
-        case 256: return launch<T, 8>(src, tgt, w, dout, dsrc, dtgt, dw_part, B, n_t, n_s, stream);
-        case 512: return launch<T, 16>(src, tgt, w, dout, dsrc, dtgt, dw_part, B, n_t, n_s, stream);
+        case 64:  return launch<T, 64>(src, tgt, w, dout, dsrc, dtgt, dtgt_part, dw_part, B, n_t, n_s, n_c, chunk, stream);
+        case 128: return launch<T, 128>(src, tgt, w, dout, dsrc, dtgt, dtgt_part, dw_part, B, n_t, n_s, n_c, chunk, stream);
+        case 256: return launch<T, 256>(src, tgt, w, dout, dsrc, dtgt, dtgt_part, dw_part, B, n_t, n_s, n_c, chunk, stream);
+        case 512: return launch<T, 512>(src, tgt, w, dout, dsrc, dtgt, dtgt_part, dw_part, B, n_t, n_s, n_c, chunk, stream);
         default:  return cudaErrorInvalidValue;
     }
 }
 
+// s values of a chunk: the chunks are as even as CHUNK_MAX allows
+int chunk_len(int n_s) {
+    const int n = (n_s + CHUNK_MAX - 1) / CHUNK_MAX;
+    return (n_s + n - 1) / n;
+}
+
 }  // namespace
 
-// Number of s-blocks of pass A: dw_part holds (B, this, D) f32 values.
-extern "C" int fira_copy_score_bwd_s_blocks(int n_s) {
-    return (n_s + WARPS - 1) / WARPS;
+// Number of s-chunks: the partials hold (B, this, T, D) and (B, this, D)
+// f32 values.
+extern "C" int fira_copy_score_bwd_chunks(int n_s) {
+    if (n_s <= 0) return 0;
+    const int chunk = chunk_len(n_s);
+    return (n_s + chunk - 1) / chunk;
 }
 
 // C entry point bound with ctypes. Pointers are device pointers to
 // contiguous src (B, S, D), tgt (B, T, D), w (D,) f32, dout (B, T, S),
-// dsrc (B, S, D), dtgt (B, T, D) and dw_part (B, s_blocks, D) f32; dtype
-// 0 = float32, 1 = bfloat16 for src, tgt, dout, dsrc and dtgt. Launches
-// both passes on ``stream`` without synchronising and returns
-// cudaGetLastError().
+// dsrc (B, S, D), dtgt (B, T, D), and the f32 partials dtgt_part
+// (B, n_chunks, T, D) (scratch) and dw_part (B, n_chunks, D), n_chunks =
+// fira_copy_score_bwd_chunks(S); dtype 0 = float32, 1 = bfloat16 for src,
+// tgt, dout, dsrc and dtgt. Launches both kernels on ``stream`` without
+// synchronising and returns cudaGetLastError().
 extern "C" int fira_copy_score_bwd(const void* src, const void* tgt,
                                    const void* w, const void* dout,
-                                   void* dsrc, void* dtgt, void* dw_part,
-                                   int B, int n_t, int n_s, int D, int dtype,
-                                   void* stream) {
+                                   void* dsrc, void* dtgt, void* dtgt_part,
+                                   void* dw_part, int B, int n_t, int n_s,
+                                   int D, int dtype, void* stream) {
     if (B <= 0 || n_t <= 0 || n_s <= 0) return (int)cudaErrorInvalidValue;
     if (B > 65535) return (int)cudaErrorInvalidValue;   // grid.y limit
+    const int chunk = chunk_len(n_s);
+    const int n_c = (n_s + chunk - 1) / chunk;
     const float* wf = static_cast<const float*>(w);
+    float* dtp = static_cast<float*>(dtgt_part);
     float* dwp = static_cast<float*>(dw_part);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) {
-        return (int)dispatch_d<float>(src, tgt, wf, dout, dsrc, dtgt, dwp, B,
-                                      n_t, n_s, D, st);
+        return (int)dispatch_d<float>(src, tgt, wf, dout, dsrc, dtgt, dtp, dwp,
+                                      B, n_t, n_s, n_c, chunk, D, st);
     }
     if (dtype == 1) {
         return (int)dispatch_d<__nv_bfloat16>(src, tgt, wf, dout, dsrc, dtgt,
-                                              dwp, B, n_t, n_s, D, st);
+                                              dtp, dwp, B, n_t, n_s, n_c,
+                                              chunk, D, st);
     }
     return (int)cudaErrorInvalidValue;
 }

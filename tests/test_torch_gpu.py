@@ -92,9 +92,9 @@ def test_copy_scores_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # the training shape's T and S at a small batch, then unaligned shapes at
-# every other supported width
+# every other supported width, and T above one tile of 32 t values
 BWD_SHAPES = [(3, 30, 370, 256), (2, 13, 37, 64), (2, 7, 130, 128),
-              (2, 17, 33, 512)]
+              (2, 17, 33, 512), (2, 70, 37, 256)]
 
 
 def _dout(B, T, S, device, seed=1):
@@ -127,6 +127,36 @@ def test_copy_scores_backward_kernel_matches_plain(cuda, shape):
                                 grads["kernel"], grads["plain"]):
         assert got.shape == want.shape and got.dtype == want.dtype, label
         torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-5,
+                                   msg=lambda m: f"{label}: {m}")
+
+
+def _large(x, seed, frac):
+    """x with a share ``frac`` of its entries replaced by values of both
+    signs: half of them of magnitude 25 to 60, half of 15 to 20 (float32,
+    same device)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.random(x.shape) < frac
+    mag = np.where(rng.random(x.shape) < 0.5, rng.uniform(25.0, 60.0, x.shape),
+                   rng.uniform(15.0, 20.0, x.shape))
+    big = mag * rng.choice([-1.0, 1.0], x.shape)
+    out = np.where(pick, big, x.cpu().numpy()).astype(np.float32)
+    return torch.from_numpy(out).to(x.device)
+
+
+@pytest.mark.gpu
+def test_copy_scores_backward_kernel_large_inputs(cuda):
+    """Entries of src and tgt of magnitude 15 to 60 (tanh saturated, and
+    above 20 its exponentials near or past f32's range) beside ordinary
+    ones: K2 against the plain version's autograd at the same f32
+    tolerance, rtol 5e-4 / atol 5e-5."""
+    src, tgt, w, _ = _inputs(3, 30, 370, 256, device=cuda)
+    src, tgt = _large(src, 2, 0.05), _large(tgt, 3, 0.02)
+    dout = _dout(3, 30, 370, cuda)
+    got = cs.copy_scores_backward(src, tgt, w, dout)
+    want = cs.copy_scores_backward_reference(src, tgt, w, dout)
+    for label, g, r in zip(("dsrc", "dtgt", "dw"), got, want):
+        assert bool(torch.isfinite(g).all()), label
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=5e-5,
                                    msg=lambda m: f"{label}: {m}")
 
 
