@@ -9,42 +9,62 @@
 //
 // Replaces the TPU kernel fira_tpu/ops/copy_score.py:_bwd_kernel (its
 // pl.pallas_call in _copy_scores_bwd at :148). Like it, this kernel never
-// writes the (B, T, S, D) intermediate: it recomputes x from src and tgt.
-// The TPU kernel walks S in chunks on one core and carries dtgt and dw from
-// chunk to chunk; here blocks run in parallel and nothing carries over.
+// writes the (B, T, S, D) intermediate: it recomputes x from src and tgt,
+// once per element. The TPU kernel walks S in chunks on one core and
+// carries dtgt and dw from chunk to chunk; here blocks run in parallel and
+// nothing carries over.
 //
 // Layout: the backward is separable in d. Every quantity at index d
 // depends only on src[.., d], tgt[.., d] and w[d], plus the scalar
 // dout[b, t, s]. So one thread owns one (b, d) column over one chunk of at
-// most 64 values of s, and a block is one b, one chunk and all D values of
-// d (D threads). A thread holds w[d], tgt[b, t, d] for a tile of up to 32
-// values of t and the matching dtgt accumulators in registers, and walks
-// its chunk once: for each s it loads src[b, s, d] (neighbouring threads
-// read neighbouring d), evaluates x once for every t of the tile, adds into
-// its dsrc, dtgt and dw accumulators, and writes dsrc[b, s, d]. dout[b, t, s]
-// is the same for every d, so the block stages its (t tile x chunk) piece
-// in shared memory s-major, and a thread reads four consecutive t with one
-// 16-byte broadcast load. No value is summed across threads, so there is
-// no shared-memory reduction and no float atomic.
+// most 128 values of s (3 chunks of 124 at S = 370), and a block is one b,
+// one chunk and all D values of d (D threads). A thread holds, for a tile
+// of up to 32 values of t, exp(2 tgt[b, t, d]) and the matching dtgt sums
+// in registers, and walks its chunk once: for each s it loads src[b, s, d]
+// (neighbouring threads read neighbouring d; the next s is loaded one step
+// ahead), evaluates x once for every t of the tile, adds into its dsrc,
+// dtgt and dw sums, and writes dsrc[b, s, d]. dout[b, t, s] is the same
+// for every d, so the block stages its (t tile x chunk) piece in shared
+// memory s-major, and a thread reads four consecutive t with one 16-byte
+// broadcast load. No value is summed across threads: there is no
+// shared-memory reduction and no float atomic.
 //
-// T above 32 is taken in tiles of 32; for each later tile a thread adds
-// into its own dsrc values, which it alone writes, in tile order. Each
-// block writes its dtgt sums as a partial (B, n_chunks, T, D) f32 and its
-// dw sums as a partial (B, n_chunks, D) f32. A second kernel of this file
-// sums the dtgt partials over the chunks in chunk order and writes dtgt in
-// src's type; the wrapper sums the dw partials. Every sum runs in an order
-// fixed by the shapes alone, so the same inputs give the same bits on every
-// run.
+// Determinism: T above 32 is taken in tiles of 32, and for each later tile
+// a thread adds into its own dsrc values, which it alone writes, in tile
+// order. Each block writes its dtgt sums as a partial (B, n_chunks, T, D)
+// f32 and its dw sums as a partial (B, n_chunks, D) f32. A second kernel of
+// this file sums the dtgt partials over the chunks in chunk order and
+// writes dtgt in src's type; the wrapper sums the dw partials. Every sum
+// runs in an order fixed by the shapes alone, so the same inputs give the
+// same bits on every run. dw sums some 3,700 products a chunk, so it is
+// summed over t first and then over s with a compensated (Kahan) sum.
+//
+// The tanh, once per element and cheaply: with P = e^(2 src) e^(2 tgt),
+//
+//     tanh(src + tgt) = 1 - 2 r,   r = 1 / (P + 1),   (1 - x^2) / 4 = r - r^2.
+//
+// e^(2 tgt) is computed (precise expf) once per tile, e^(2 src) once per s;
+// per element that leaves one FFMA for P + 1, one SFU reciprocal
+// (rcp.approx, about 1 ulp), one FFMA for x, one for
+// r - r^2 and three for the sums. r - r^2 loses relative accuracy where
+// x nears -1, but its absolute error (about 1e-7) is that of the plain
+// version's 1 - x * x there, and only absolute errors reach the sums. The
+// guard: P and P + 1 are finite normal floats while |src|, |tgt| <= 20
+// (e^80 < 2^116). A thread whose t tile holds a |tgt| above 20, or an s
+// whose |src| is above 20, takes the precise tanhf for that tile or that s
+// instead, so the result is exact to f32 either way.
 //
 // What bounds it on the H100: at the training shape (B, T, S, D) =
 // (170, 30, 370, 256), f32, it reads src, tgt and dout and writes dsrc and
 // dtgt, about 147 MB (0.044 ms at 3.35 TB/s), and does about 8 f32
 // operations on each of the 483 M (b, t, s, d) elements, 3.9 G operations
-// (0.058 ms at 67 TFLOP/s), counting the tanh as one: bound by operations.
-// The precise tanhf costs some 20 instructions; tanh.approx.f32 (~2^-11
-// relative error) would break the 5e-4 agreement with the plain version's
-// autograd, so it is not used. The dtgt partials add 2 x 31 MB of traffic
-// at that shape, most of it in L2.
+// (0.058 ms at 67 TFLOP/s) if the tanh counts as one: bound by operations.
+// The tanh costs more than one: its reciprocal runs on the SFU, 16 a clock
+// on each SM, so 483 M of them take 0.116 ms at 1.98 GHz, and the some 7
+// instructions an element issue at 128 a clock in 0.10 ms. The SFU and the
+// issue slots are both near full at about 0.12 ms, 2x the bound. At 128
+// registers (at D = 256) two blocks share an SM. The dtgt partials add
+// 2 x 16 MB of traffic, mostly in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,13 +73,22 @@
 namespace {
 
 constexpr int TT = 32;              // t values a thread holds in registers
-constexpr int CHUNK_MAX = 64;       // s values a block walks
+constexpr int CHUNK_MAX = 128;      // s values a block walks
 constexpr int DOUT_LD = TT + 4;     // row stride of the staged dout (floats)
+constexpr float GUARD = 20.f;       // |src|, |tgt| up to which the identity runs
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// 1 / x by the SFU's approximate reciprocal (one MUFU.RCP, about 1 ulp).
+// x lies in [1, 2^116) here, so flushing subnormals is moot.
+__device__ __forceinline__ float rcp_approx(float x) {
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+}
 
 // src (B, S, D), tgt (B, T, D), w (D,) f32, dout (B, T, S) -> dsrc (B, S, D)
 // and the partials dtgt_part (B, n_chunks, T, D) and dw_part (B, n_chunks,
@@ -79,22 +108,25 @@ copy_score_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
     const int b = blockIdx.y;
     const int s0 = c * chunk;
     const int ns = min(chunk, n_s - s0);
-    const float wd = w[d];
+    const float wd4 = 4.f * w[d];
     const T* src_col = src + ((size_t)b * n_s + s0) * D + d;
     T* dsrc_col = dsrc + ((size_t)b * n_s + s0) * D + d;
-    // dw sums some 2,000 products a chunk: a compensated (Kahan) sum over
-    // s keeps its rounding near that of the plain version's product
+    // dw: a compensated (Kahan) sum over s keeps its rounding near that of
+    // the plain version's product
     float dw = 0.f, dw_c = 0.f;
 
     for (int t0 = 0; t0 < n_t; t0 += TT) {
         const int tt = min(TT, n_t - t0);
         // t past the tile's end holds tgt 0 and dout 0: it adds 0 to every
         // sum, and its dtgt value is never written
-        float tv[TT], acc_t[TT];
+        const T* tgt_col = tgt + ((size_t)b * n_t + t0) * D + d;
+        float et[TT], acc_t[TT];
+        bool tile_fast = true;
 #pragma unroll
         for (int t = 0; t < TT; ++t) {
-            tv[t] = t < tt ? to_f32(tgt[((size_t)b * n_t + t0 + t) * D + d])
-                           : 0.f;
+            const float tv = t < tt ? to_f32(tgt_col[(size_t)t * D]) : 0.f;
+            tile_fast = tile_fast && fabsf(tv) <= GUARD;
+            et[t] = expf(2.f * tv);
             acc_t[t] = 0.f;
         }
         __syncthreads();                 // the previous tile's dout is consumed
@@ -112,28 +144,53 @@ copy_score_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
                                              : 0.f;
             const float4* drow =
                 reinterpret_cast<const float4*>(dsm + s * DOUT_LD);
-            // the sums over the tile's t run in 4 lanes, for the
-            // instructions' overlap and for shorter chains of additions
-            float acc_s[4] = {0.f, 0.f, 0.f, 0.f};
-            float dw_s[4] = {0.f, 0.f, 0.f, 0.f};
+            // the sums over the tile's t run in 2 lanes, for the
+            // instructions' overlap and for shorter chains of additions;
+            // h = (1 - x^2) / 4 * dout, scaled by 4 w[d] at the end
+            float acc_s[2] = {0.f, 0.f};
+            float dw_s[2] = {0.f, 0.f};
+            if (tile_fast && fabsf(sv) <= GUARD) {
+                const float es = expf(2.f * sv);
 #pragma unroll
-            for (int q = 0; q < TT / 4; ++q) {
-                const float4 g4 = drow[q];
-                const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+                for (int q = 0; q < TT / 4; ++q) {
+                    const float4 g4 = drow[q];
+                    const float g[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    const float x = tanhf(sv + tv[4 * q + k]);
-                    const float h = fmaf(-x, x, 1.f) * g[k];
-                    acc_s[k] += h;
-                    acc_t[4 * q + k] += h;
-                    dw_s[k] = fmaf(x, g[k], dw_s[k]);
+                    for (int k = 0; k < 4; ++k) {
+                        const int t = 4 * q + k;
+                        const float r = rcp_approx(fmaf(es, et[t], 1.f));
+                        const float x = fmaf(-2.f, r, 1.f);
+                        const float h = fmaf(-r, r, r);   // (1 - x^2) / 4
+                        acc_s[k & 1] = fmaf(h, g[k], acc_s[k & 1]);
+                        acc_t[t] = fmaf(h, g[k], acc_t[t]);
+                        dw_s[k & 1] = fmaf(x, g[k], dw_s[k & 1]);
+                    }
+                }
+            } else {
+                // |src| or a |tgt| of the tile above GUARD: precise tanhf,
+                // with tgt read again (from L1) instead of held
+#pragma unroll
+                for (int q = 0; q < TT / 4; ++q) {
+                    const float4 g4 = drow[q];
+                    const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        const int t = 4 * q + k;
+                        const float tv =
+                            t < tt ? to_f32(tgt_col[(size_t)t * D]) : 0.f;
+                        const float x = tanhf(sv + tv);
+                        const float h = 0.25f * fmaf(-x, x, 1.f);
+                        acc_s[k & 1] = fmaf(h, g[k], acc_s[k & 1]);
+                        acc_t[t] = fmaf(h, g[k], acc_t[t]);
+                        dw_s[k & 1] = fmaf(x, g[k], dw_s[k & 1]);
+                    }
                 }
             }
-            const float dw_y = ((dw_s[0] + dw_s[1]) + (dw_s[2] + dw_s[3])) - dw_c;
+            const float dw_y = (dw_s[0] + dw_s[1]) - dw_c;
             const float dw_t = dw + dw_y;
             dw_c = (dw_t - dw) - dw_y;
             dw = dw_t;
-            const float v = wd * ((acc_s[0] + acc_s[1]) + (acc_s[2] + acc_s[3]));
+            const float v = wd4 * (acc_s[0] + acc_s[1]);
             T* o = dsrc_col + (size_t)s * D;
             store(o, t0 == 0 ? v : to_f32(*o) + v);
             sv = sv_next;
@@ -148,7 +205,8 @@ copy_score_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
     dw_part[((size_t)b * n_c + c) * D + d] = dw;
 }
 
-// dtgt[b, t, d] = w[d] * sum over c, in order, of dtgt_part[b, c, t, d].
+// dtgt[b, t, d] = 4 w[d] * sum over c, in order, of dtgt_part[b, c, t, d]
+// (the partials hold (1 - x^2) / 4 * dout summed over s).
 template <typename T>
 __global__ void __launch_bounds__(256)
 copy_score_bwd_dtgt_kernel(const float* __restrict__ dtgt_part,
@@ -163,7 +221,7 @@ copy_score_bwd_dtgt_kernel(const float* __restrict__ dtgt_part,
     const int64_t stride = (int64_t)n_t * D;
     float sum = 0.f;
     for (int c = 0; c < n_c; ++c) sum += p[c * stride];
-    store(dtgt + i, w[d] * sum);
+    store(dtgt + i, 4.f * w[d] * sum);
 }
 
 template <typename T, int D>
