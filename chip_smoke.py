@@ -11,7 +11,8 @@ Phases, each printing its own line; any failure exits non-zero:
 3. kernels  each kernel against its plain PyTorch version on the card at
             the shapes the main path gives it, timed with CUDA events
             (L2 flushed between launches), beside its bound: K1 (copy-score
-            forward) and K2 (its backward);
+            forward) and K2 (its backward, also on inputs with entries of
+            magnitude 15-60, where it leaves its fast tanh);
 4. train    the training path at fira-full width on a synthetic corpus with
             the paper's vocabulary sizes and random seeded weights: one
             epoch through the CLI (``fira_tpu_torch.cli train`` on cuda),
@@ -29,7 +30,8 @@ Phases, each printing its own line; any failure exits non-zero:
             output file must be byte-identical; and on a small input the
             card's distributions must agree with the CPU's;
 8. profile  one warm training step (plain copy score, then the kernels)
-            and one decode batch under torch.profiler.
+            and one decode batch under torch.profiler, with the copy-score
+            kernels' device time in each.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or

@@ -31,7 +31,7 @@
 //
 // Determinism: T above 32 is taken in tiles of 32, and for each later tile
 // a thread adds into its own dsrc values, which it alone writes, in tile
-// order. Each block writes its dtgt sums as a partial (B, n_chunks, T, D)
+// order (in bf16 it adds to the rounded value it wrote). Each block writes its dtgt sums as a partial (B, n_chunks, T, D)
 // f32 and its dw sums as a partial (B, n_chunks, D) f32. A second kernel of
 // this file sums the dtgt partials over the chunks in chunk order and
 // writes dtgt in src's type; the wrapper sums the dw partials. Every sum
