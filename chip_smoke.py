@@ -10,9 +10,14 @@ Phases, each printing its own line; any failure exits non-zero:
             the sources in this checkout (registers, shared memory, spills);
 3. kernels  each kernel against its plain PyTorch version on the card at
             the shapes the main path gives it, timed with CUDA events
-            (L2 flushed between launches), beside its bound: K1 (copy-score
-            forward) and K2 (its backward, also on inputs with entries of
-            magnitude 15-60, where it leaves its fast tanh);
+            (L2 flushed by a read between launches; K1 at the decode step
+            also by a write), beside its bound and its share of it: K1
+            (copy-score forward) at the decode step (T=1, its bytes-first
+            kernel), the dev batch and the training batch (T=30, its tanh
+            from one reciprocal a pair of elements; there also on inputs
+            with entries of magnitude 15-60, where it leaves the identity,
+            and bitwise equal over two launches) and in bf16; K2 (its
+            backward, also on the inputs of magnitude 15-60);
 4. train    the training path at fira-full width on a synthetic corpus with
             the paper's vocabulary sizes and random seeded weights: one
             epoch through the CLI (``fira_tpu_torch.cli train`` on cuda),
@@ -45,7 +50,6 @@ import math
 import os
 import re
 import shutil
-import subprocess
 import sys
 import time
 
@@ -61,14 +65,6 @@ SEED = 0
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def smi_name_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_summary(log: str):
@@ -88,33 +84,6 @@ def ptxas_summary(log: str):
             spills = line.strip()
         elif "Used" in line and "registers" in line:
             yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
-
-
-def time_cold_ms(torch, fn, n: int = 50) -> float:
-    """Median device time of ``fn()`` in ms over ``n`` launches, each
-    after a 128 MB write that evicts the 50 MB L2 (the decode step finds
-    the copy head's inputs cold: the decoder's weights and caches pass
-    through L2 between two copy-score launches). A long matrix product
-    queued first keeps the device busy while the host queues every launch,
-    so the events time the device alone, not the host's launch overhead."""
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
-    hold = torch.ones((8192, 8192), device="cuda")
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    hold @ hold
-    for _ in range(n):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in events)
-    return times[len(times) // 2]
 
 
 def host_call_us(torch, fn, n: int = 200) -> float:
@@ -156,18 +125,38 @@ def copy_score_bwd_bound_ms(B: int, T: int, S: int, D: int, itemsize: int):
     return _bound(nbytes, 8 * B * T * S * D)
 
 
+def with_large(torch, x, frac: float, gen):
+    """x with a share ``frac`` of its entries replaced by values of both
+    signs at |value| 15-20 or 25-60 (half each): there the copy-score
+    kernels leave their fast tanh."""
+    mag = torch.where(
+        torch.rand(x.shape, device="cuda", generator=gen) < 0.5,
+        25 + 35 * torch.rand(x.shape, device="cuda", generator=gen),
+        15 + 5 * torch.rand(x.shape, device="cuda", generator=gen))
+    sign = torch.rand(x.shape, device="cuda", generator=gen) < 0.5
+    pick = torch.rand(x.shape, device="cuda", generator=gen) < frac
+    return torch.where(pick, torch.where(sign, mag, -mag), x)
+
+
 def phase_kernels(torch, cs, cfg):
-    """Copy score: kernel vs plain at the decode and training shapes (f32,
-    rtol/atol 1e-5: the kernel sums D in another order) and one bf16 case
-    (1e-2: one bf16 rounding of the result)."""
+    """Copy score: kernel vs plain at the decode, dev and training shapes
+    (f32, rtol/atol 1e-5: the kernel sums D in another order and, at T > 1,
+    takes tanh from one reciprocal a pair of elements), at the training
+    shape also with large magnitudes and over two launches (bitwise), and
+    one bf16 case (1e-2: one bf16 rounding of the result). Returns the
+    decode shape's numbers, with the dev and training shapes' under
+    ``dev_*`` and ``train_*``."""
+    from fira_tpu_torch.ops.timing import time_ms
+
     B, K = cfg.test_batch_size, cfg.beam_size
     S, D = cfg.sou_len + cfg.sub_token_len, cfg.embedding_dim
     cases = [("decode", (B * K, 1, S, D), torch.float32, 1e-5),
+             ("dev", (B, cfg.tar_len, S, D), torch.float32, 1e-5),
              ("train", (cfg.batch_size, cfg.tar_len, S, D), torch.float32,
               1e-5),
              ("decode_bf16", (B * K, 1, S, D), torch.bfloat16, 1e-2)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    record = None
+    record = {}
     for name, (b, t, s, d), dtype, tol in cases:
         src = torch.randn((b, s, d), device="cuda", generator=gen).to(dtype)
         tgt = torch.randn((b, t, d), device="cuda", generator=gen).to(dtype)
@@ -183,12 +172,28 @@ def phase_kernels(torch, cs, cfg):
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+        if name == "train":
+            check(torch.equal(got, cs.copy_scores(src, tgt, w, bias)),
+                  "copy_score train: two launches on the same inputs differ")
+            big_src = with_large(torch, src, 0.05, gen)
+            big_tgt = with_large(torch, tgt, 0.02, gen)
+            big = cs.copy_scores(big_src, big_tgt, w, bias)
+            big_want = cs.copy_scores_reference(big_src, big_tgt, w, bias)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(big).all()),
+                  "copy_score train, large magnitudes: non-finite output")
+            torch.testing.assert_close(big, big_want, rtol=tol, atol=tol)
+            print(f"[kernels] copy_score train shape, large magnitudes "
+                  f"(|src| or |tgt| 15-60 on 5 % / 2 % of entries): "
+                  f"max_abs_err {(big - big_want).abs().max().item():.3e} "
+                  f"(rtol/atol {tol}); bitwise equal over two launches",
+                  flush=True)
+            del big_src, big_tgt, big, big_want
         w32, out = w.reshape(-1).contiguous(), torch.empty_like(got)
-        ms = time_cold_ms(torch, lambda: cs.launch(src, tgt, w32, out))
-        wrapper_ms = time_cold_ms(torch,
-                                  lambda: cs.copy_scores(src, tgt, w, bias))
-        plain_ms = time_cold_ms(
-            torch, lambda: cs.copy_scores_reference(src, tgt, w, bias), n=10)
+        ms = time_ms(lambda: cs.launch(src, tgt, w32, out))
+        wrapper_ms = time_ms(lambda: cs.copy_scores(src, tgt, w, bias))
+        plain_ms = time_ms(
+            lambda: cs.copy_scores_reference(src, tgt, w, bias), n=10)
         if name == "decode":
             host_us = {label: host_call_us(torch, f) for label, f in (
                 ("wrapper", lambda: cs.copy_scores(src, tgt, w, bias)),
@@ -204,9 +209,21 @@ def phase_kernels(torch, cs, cfg):
               f"(wrapper with bias add {wrapper_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
+        if name in ("decode", "dev", "train"):
+            pre = "" if name == "decode" else f"{name}_"
+            record.update({f"{pre}max_abs_err": err, f"{pre}ms": ms,
+                           f"{pre}plain_ms": plain_ms,
+                           f"{pre}bound_ms": bound, f"{pre}bound_by": by})
         if name == "decode":
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by)
+            # bound by bytes, so the L2 flush's own write-back shows: the
+            # kernel after a flush that writes, as measured before
+            write_ms = time_ms(lambda: cs.launch(src, tgt, w32, out),
+                               flush="write")
+            record["write_flush_ms"] = write_ms
+            print(f"[kernels] copy_score decode after an L2 flush that "
+                  f"writes (dirty lines to write back): kernel "
+                  f"{write_ms:.4f} ms", flush=True)
+        del src, tgt, got, want
     return record
 
 
@@ -238,11 +255,12 @@ def phase_kernels_bwd(torch, cs, cfg):
     again = cs.copy_scores_backward(src, tgt, w, dout)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "copy_score_bwd: two runs on the same inputs differ")
+    from fira_tpu_torch.ops.timing import time_ms
+
     w32 = w.reshape(-1).contiguous()
-    ms = time_cold_ms(torch, lambda: cs.launch_backward(src, tgt, w32, dout))
-    wrapper_ms = time_cold_ms(
-        torch, lambda: cs.copy_scores_backward(src, tgt, w, dout))
-    plain_ms = time_cold_ms(torch, lambda: torch.autograd.grad(
+    ms = time_ms(lambda: cs.launch_backward(src, tgt, w32, dout))
+    wrapper_ms = time_ms(lambda: cs.copy_scores_backward(src, tgt, w, dout))
+    plain_ms = time_ms(lambda: torch.autograd.grad(
         out, leaves, dout, retain_graph=True), n=10)
     del out, leaves
     bound, by = copy_score_bwd_bound_ms(B, T, S, D, src.element_size())
@@ -253,17 +271,8 @@ def phase_kernels_bwd(torch, cs, cfg):
           f"{wrapper_ms:.4f} ms), plain backward {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.1f}% of "
           f"bound", flush=True)
-    # large magnitudes beside ordinary values: a share of the entries of
-    # src (5 %) and tgt (2 %) at |value| 15-20 or 25-60, both signs
-    big = []
-    for x, frac in ((src, 0.05), (tgt, 0.02)):
-        mag = torch.where(
-            torch.rand(x.shape, device="cuda", generator=gen) < 0.5,
-            25 + 35 * torch.rand(x.shape, device="cuda", generator=gen),
-            15 + 5 * torch.rand(x.shape, device="cuda", generator=gen))
-        sign = torch.rand(x.shape, device="cuda", generator=gen) < 0.5
-        pick = torch.rand(x.shape, device="cuda", generator=gen) < frac
-        big.append(torch.where(pick, torch.where(sign, mag, -mag), x))
+    # large magnitudes beside ordinary values
+    big = [with_large(torch, src, 0.05, gen), with_large(torch, tgt, 0.02, gen)]
     got = cs.copy_scores_backward(big[0], big[1], w, dout)
     want = cs.copy_scores_backward_reference(big[0], big[1], w, dout)
     torch.cuda.synchronize()
@@ -379,7 +388,8 @@ def profile_one(torch, label: str, fn, warm: int = 1) -> None:
     for key, us, n in top[:8] + [r for r in top[8:] if "copy_score" in r[0]]:
         print(f"[profile]   {us / 1e3:8.3f} ms  x{n:<5d} "
               f"{100 * us / device_us:5.1f}%  {key[:90]}", flush=True)
-    k1_us = sum(r[1] for r in rows if "copy_score_fwd" in r[0])
+    k1_us = sum(r[1] for r in rows if "copy_score_tile" in r[0]
+                or "copy_score_row" in r[0])
     k2_us = sum(r[1] for r in rows if "copy_score_bwd" in r[0])
     if k1_us or k2_us:
         print(f"[profile] {label}: copy-score kernels K1 {k1_us / 1e3:.4f} "
@@ -404,6 +414,7 @@ def main() -> int:
                                               run_test)
     from fira_tpu_torch.model.model import FiraModel
     from fira_tpu_torch.ops import build, copy_score as cs
+    from fira_tpu_torch.ops.timing import smi_name_power
     from fira_tpu_torch.train import loop as train_loop
     from fira_tpu_torch.train.state import CheckpointManager, init_state
     from fira_tpu_torch.train.step import train_step

@@ -6,7 +6,8 @@ Compiles ``csrc/copy_score_bwd.cu`` as it is and, beside it, copies with
 one choice reverted each (by text substitution on the source), all with
 ``nvcc`` at once. It then runs every build at the training shape
 (170, 30, 370, 256) f32, holds it against the plain autograd at rtol 5e-4 /
-atol 5e-5, and times it (median of 40 launches, L2 flushed before each).
+atol 5e-5, and times it (``timing.time_ms``: median of 40 launches, L2
+flushed by a read before each).
 It prints one JSON line per build: time, registers and spills of its f32
 D=256 kernel, and whether it agreed; for the source as it is, also the
 device time of each of its two kernels. Needs a CUDA card.
@@ -22,6 +23,7 @@ import sys
 import torch
 
 from fira_tpu_torch.ops import build, copy_score as cs
+from fira_tpu_torch.ops.timing import smi_name_power, time_ms
 
 SHAPE = (170, 30, 370, 256)
 OUT_DIR = build.BUILD_DIR / "ablate"
@@ -55,26 +57,32 @@ REVERSIONS = {
 }
 
 
-def variant_sources() -> dict:
-    src = (build.CSRC / "copy_score_bwd.cu").read_text()
+def variant_sources(kernel: str = "copy_score_bwd",
+                    reversions: dict = REVERSIONS) -> dict:
+    """build name -> source text: ``csrc/<kernel>.cu`` as it is
+    ("as_is") and with each reversion's substitutions applied."""
+    src = (build.CSRC / f"{kernel}.cu").read_text()
     out = {"as_is": src}
-    for name, subs in REVERSIONS.items():
+    for name, subs in reversions.items():
         text = src
         for old, new in subs:
             if old not in text:
-                raise SystemExit(f"ablate_bwd: {name}: source text not found: "
-                                 f"{old!r}")
+                raise SystemExit(f"ablate: {kernel} {name}: source text not "
+                                 f"found: {old!r}")
             text = text.replace(old, new)
         out[name] = text
     return out
 
 
-def compile_all(sources: dict) -> dict:
-    """name -> (library path, ptxas line of the f32 D=256 kernel)."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+def compile_all(sources: dict, symbols=("copy_score_bwd_kernelIfLi256E",),
+                out_dir=OUT_DIR) -> dict:
+    """name -> (library path, ptxas line of each kernel whose mangled name
+    holds one of ``symbols``), every source compiled by nvcc at once into
+    ``out_dir``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"lib{name}.so"
+        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -83,13 +91,12 @@ def compile_all(sources: dict) -> dict:
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"ablate_bwd: nvcc failed for {name}:\n{log}")
+            raise SystemExit(f"ablate: nvcc failed for {name}:\n{log}")
         lines = log.splitlines()
-        regs = next((f"{lines[i + 2].split(':', 1)[1].strip()}; "
-                     f"{lines[i + 1].strip()}"
-                     for i, line in enumerate(lines)
-                     if "Function properties for" in line
-                     and "copy_score_bwd_kernelIfLi256E" in line), "?")
+        regs = "; ".join(
+            f"{lines[i + 2].split(':', 1)[1].strip()}; {lines[i + 1].strip()}"
+            for sym in symbols for i, line in enumerate(lines)
+            if "Function properties for" in line and sym in line) or "?"
         built[name] = (so, regs)
     return built
 
@@ -108,7 +115,6 @@ def main() -> int:
     dout = torch.randn((B, T, S), device="cuda", generator=gen)
     want = cs.copy_scores_backward_reference(src, tgt, w.reshape(-1, 1), dout)
     flush = torch.empty(32 * 2**20, device="cuda")
-    hold = torch.ones((8192, 8192), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     for name, (so, regs) in built.items():
         lib = ctypes.CDLL(str(so))
@@ -133,22 +139,7 @@ def main() -> int:
         got = (dsrc, dtgt, dw_part.sum(dim=(0, 1)).reshape(-1, 1))
         agrees = all(torch.allclose(g, r, rtol=5e-4, atol=5e-5)
                      for g, r in zip(got, want))
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        events = []
-        hold @ hold
-        for _ in range(40):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            call()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        times = sorted(s.elapsed_time(e) for s, e in events)
-        row = dict(build=name, ms=times[len(times) // 2], agrees=agrees,
+        row = dict(build=name, ms=time_ms(call, n=40), agrees=agrees,
                    regs=regs)
         if name == "as_is":
             from torch.profiler import ProfilerActivity, profile
@@ -163,11 +154,8 @@ def main() -> int:
                     e.self_device_time_total / e.count / 1e3
                 for e in prof.key_averages() if "copy_score" in e.key}
         print(json.dumps(row), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: "
-          f"{smi.stdout.strip()}; shape {SHAPE} f32")
+          f"{smi_name_power()}; shape {SHAPE} f32")
     return 0
 
 

@@ -108,7 +108,10 @@ def _bwd_kernel():
 def launch(src, tgt, w, out) -> None:
     """Launch K1 on the current stream: out (B,T,S) = the scores without
     bias. Inputs as checked by ``copy_scores``; ``w`` is a contiguous f32
-    (D,). Counts the launch."""
+    (D,). The kernel reads src, tgt and w in 16-byte loads, so they must
+    start on 16-byte boundaries (fresh allocations do). Counts the launch."""
+    if (src.data_ptr() | tgt.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError("copy_scores: src, tgt and w must be 16-byte aligned")
     B, S, D = src.shape
     fn = _kernel()
     with torch.cuda.device(src.device):

@@ -32,9 +32,13 @@ def _inputs(B, T, S, D, dtype=torch.float32, device="cpu", seed=0):
             b.to(device))
 
 
-# decode (B=20x3 beams, T=1), unaligned S and T, every supported width
+# decode (B=20x3 beams, T=1), unaligned S and T, every supported width;
+# the dev batch (20) and the training batch (170) at the training T and S;
+# T above one tile of 32 t values
 SHAPES = [(60, 1, 370, 256), (2, 13, 37, 64), (2, 7, 130, 128),
-          (3, 30, 370, 256), (2, 17, 33, 512), (1, 40, 5, 256)]
+          (3, 30, 370, 256), (2, 17, 33, 512), (1, 40, 5, 256),
+          (20, 30, 370, 256), (170, 30, 370, 256), (2, 70, 37, 256),
+          (2, 33, 130, 128)]
 
 
 @pytest.mark.gpu
@@ -67,6 +71,45 @@ def test_copy_scores_kernel_matches_plain_bf16(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 30])
+def test_copy_scores_kernel_bf16_decode_and_train(cuda, T):
+    """bf16 at the decode step (T=1, 60 rows) and the training T (30): f32
+    math, bf16 output, 1e-2 as above."""
+    src, tgt, w, b = _inputs(60 if T == 1 else 3, T, 370, 256,
+                             dtype=torch.bfloat16, device=cuda)
+    got = cs.copy_scores(src, tgt, w, b)
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_copy_scores_kernel_large_inputs(cuda):
+    """Entries of src (5 %) and tgt (2 %) of magnitude 15 to 60 beside
+    ordinary ones: a pair of d with such an entry in its s or anywhere in
+    its t tile takes the precise tanhf, the others (about a quarter of the
+    pairs here) the identity; both against the plain version at f32's
+    rtol/atol 1e-5."""
+    src, tgt, w, b = _inputs(3, 30, 370, 256, device=cuda)
+    src, tgt = _large(src, 2, 0.05), _large(tgt, 3, 0.02)
+    got = cs.copy_scores(src, tgt, w, b)
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 30])
+def test_copy_scores_kernel_is_deterministic(cuda, T):
+    """No float atomics: two launches on the same inputs give the same
+    bits, at the decode T and the training T."""
+    src, tgt, w, b = _inputs(60 if T == 1 else 20, T, 370, 256, device=cuda)
+    assert torch.equal(cs.copy_scores(src, tgt, w, b),
+                       cs.copy_scores(src, tgt, w, b))
+
+
+@pytest.mark.gpu
 def test_copy_scores_kernel_refuses_what_it_does_not_take(cuda):
     """The wrapper refuses what the kernels do not take; an input that
     requires grad is taken (since K2), and its backward launches K2."""
@@ -89,6 +132,10 @@ def test_copy_scores_kernel_refuses_what_it_does_not_take(cuda):
         cs.copy_scores(s2, t2, w2, b2)
     with pytest.raises(ValueError, match="on cpu"):
         cs.copy_scores(src, tgt.cpu(), w, b)
+    shifted = torch.empty(src.numel() + 1, device=cuda)[1:].view_as(src)
+    shifted.copy_(src)
+    with pytest.raises(ValueError, match="aligned"):
+        cs.copy_scores(shifted, tgt, w, b)
 
 
 # the training shape's T and S at a small batch, then unaligned shapes at
@@ -184,6 +231,76 @@ def test_copy_scores_backward_kernel_bf16(cuda):
     assert got[0].dtype == got[1].dtype == torch.bfloat16
     for g, r in zip(got, want):
         torch.testing.assert_close(g.float(), r, rtol=2e-2, atol=2e-2)
+
+
+def emulate_tile_kernel(src, tgt, w, paired=True, perturb=None):
+    """The T > 1 kernel's arithmetic for f32 numpy inputs, in numpy f32:
+    e^(2 src) and e^(2 tgt) once each, then per pair of d (or per d when
+    not ``paired``) fmaf(es, et, 1), the pair's numerator and product, one
+    reciprocal, and the sum in d order; fmaf is rounded once (an f64
+    product of two f32 values is exact). ``perturb``, a numpy Generator,
+    moves each reciprocal by -1, 0 or +1 ulp, as rcp.approx may."""
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(f32)
+
+    def rcp(x):
+        r = (1.0 / x.astype(np.float64)).astype(f32)
+        if perturb is not None:
+            step = perturb.integers(-1, 2, size=r.shape)
+            r = np.where(step > 0, np.nextafter(r, f32(np.inf)),
+                         np.where(step < 0, np.nextafter(r, f32(-np.inf)), r))
+        return r
+
+    es = np.exp(2 * src)[:, None]          # (B, 1, S, D)
+    et = np.exp(2 * tgt)[:, :, None]       # (B, T, 1, D)
+    wn = (-2 * w).astype(f32)
+    acc = np.zeros((src.shape[0], tgt.shape[1], src.shape[1]), f32)
+    for d in range(0, w.size, 2 if paired else 1):
+        a = fma(es[..., d], et[..., d], f32(1))
+        if paired:
+            b = fma(es[..., d + 1], et[..., d + 1], f32(1))
+            num = fma(np.full_like(b, wn[d]), b, (wn[d + 1] * a).astype(f32))
+            acc = fma(num, rcp((a * b).astype(f32)), acc)
+        else:
+            acc = fma(np.full_like(a, wn[d]), rcp(a), acc)
+    wsum = f32(0)
+    for x in w:
+        wsum = f32(wsum + x)
+    return (wsum + acc).astype(f32)
+
+
+def emulated_errors(shape=(2, 30, 370, 256), seed=0):
+    """Largest absolute error against an f64 reference of the emulated
+    kernel with one reciprocal a pair of d and one a d, with correctly
+    rounded and with perturbed reciprocals, and of the plain f32 version,
+    on the GPU tests' inputs."""
+    src, tgt, w, _ = (x.numpy() for x in _inputs(*shape, seed=seed))
+    w = w[:, 0]
+    ref = np.einsum("btsd,d->bts", np.tanh(
+        src.astype(np.float64)[:, None] + tgt[:, :, None]), w)
+    plain = np.tanh(src[:, None] + tgt[:, :, None]) @ w
+    errs = {"plain": np.abs(plain - ref).max()}
+    for paired in (True, False):
+        for name, rng in (("exact", None),
+                          ("perturbed", np.random.default_rng(seed))):
+            got = emulate_tile_kernel(src, tgt, w, paired, rng)
+            errs[f"{'pairs' if paired else 'single'}_{name}"] = np.abs(
+                got - ref).max()
+    return errs
+
+
+def test_tile_kernel_arithmetic_emulated():
+    """The T > 1 kernel cannot run on the CPU; its arithmetic can. Emulated
+    in f32 at the training T, S and D, one reciprocal a pair of d stays
+    within half the kernel tests' 1e-5 tolerance of f64, with the
+    reciprocal exact or 1 ulp off, and rounds no worse than one
+    reciprocal a d."""
+    errs = emulated_errors()
+    for name in ("exact", "perturbed"):
+        assert errs[f"pairs_{name}"] < 5e-6, errs
+        assert errs[f"pairs_{name}"] <= errs[f"single_{name}"], errs
 
 
 def test_copy_scores_other_device_raises():
