@@ -10,14 +10,15 @@ Phases, each printing its own line; any failure exits non-zero:
             the sources in this checkout (registers, shared memory, spills);
 3. kernels  each kernel against its plain PyTorch version on the card at
             the shapes the main path gives it, timed with CUDA events
-            (L2 flushed by a read between launches; K1 at the decode step
-            also by a write), beside its bound and its share of it: K1
-            (copy-score forward) at the decode step (T=1, its bytes-first
-            kernel), the dev batch and the training batch (T=30, its tanh
-            from one reciprocal a pair of elements; there also on inputs
-            with entries of magnitude 15-60, where it leaves the identity,
-            and bitwise equal over two launches) and in bf16; K2 (its
-            backward, also on the inputs of magnitude 15-60);
+            (L2 flushed between launches), beside its bound and its share
+            of it: K1 (copy-score forward) at the decode step (T=1, its
+            bytes-first kernel), the dev batch and the training batch
+            (T=30, its tanh from one reciprocal a pair of elements; there
+            also on inputs with entries of magnitude 15-60, where it
+            leaves the identity, and bitwise equal over two launches), at
+            a batch of 85 (the tile kernel's third tiling, 64 s a block)
+            and in bf16; K2 (its backward, also on the inputs of
+            magnitude 15-60);
 4. train    the training path at fira-full width on a synthetic corpus with
             the paper's vocabulary sizes and random seeded weights: one
             epoch through the CLI (``fira_tpu_torch.cli train`` on cuda),
@@ -142,8 +143,8 @@ def phase_kernels(torch, cs, cfg):
     """Copy score: kernel vs plain at the decode, dev and training shapes
     (f32, rtol/atol 1e-5: the kernel sums D in another order and, at T > 1,
     takes tanh from one reciprocal a pair of elements), at the training
-    shape also with large magnitudes and over two launches (bitwise), and
-    one bf16 case (1e-2: one bf16 rounding of the result). Returns the
+    shape also with large magnitudes and over two launches (bitwise), at
+    a batch of 85, and one bf16 case (1e-2: one bf16 rounding of the result). Returns the
     decode shape's numbers, with the dev and training shapes' under
     ``dev_*`` and ``train_*``."""
     from fira_tpu_torch.ops.timing import time_ms
@@ -154,6 +155,10 @@ def phase_kernels(torch, cs, cfg):
              ("dev", (B, cfg.tar_len, S, D), torch.float32, 1e-5),
              ("train", (cfg.batch_size, cfg.tar_len, S, D), torch.float32,
               1e-5),
+             # the main path pads every batch to full size, so it gives the
+             # tile kernel 128 s a block (train) and 32 (dev); a batch of
+             # 85 takes the third tiling, 64 s a block and 2 slices of d
+             ("batch85", (85, cfg.tar_len, S, D), torch.float32, 1e-5),
              ("decode_bf16", (B * K, 1, S, D), torch.bfloat16, 1e-2)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     record = {}
@@ -214,15 +219,6 @@ def phase_kernels(torch, cs, cfg):
             record.update({f"{pre}max_abs_err": err, f"{pre}ms": ms,
                            f"{pre}plain_ms": plain_ms,
                            f"{pre}bound_ms": bound, f"{pre}bound_by": by})
-        if name == "decode":
-            # bound by bytes, so the L2 flush's own write-back shows: the
-            # kernel after a flush that writes, as measured before
-            write_ms = time_ms(lambda: cs.launch(src, tgt, w32, out),
-                               flush="write")
-            record["write_flush_ms"] = write_ms
-            print(f"[kernels] copy_score decode after an L2 flush that "
-                  f"writes (dirty lines to write back): kernel "
-                  f"{write_ms:.4f} ms", flush=True)
         del src, tgt, got, want
     return record
 

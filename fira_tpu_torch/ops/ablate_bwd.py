@@ -7,7 +7,7 @@ one choice reverted each (by text substitution on the source), all with
 ``nvcc`` at once. It then runs every build at the training shape
 (170, 30, 370, 256) f32, holds it against the plain autograd at rtol 5e-4 /
 atol 5e-5, and times it (``timing.time_ms``: median of 40 launches, L2
-flushed by a read before each).
+flushed before each).
 It prints one JSON line per build: time, registers and spills of its f32
 D=256 kernel, and whether it agreed; for the source as it is, also the
 device time of each of its two kernels. Needs a CUDA card.

@@ -6,10 +6,10 @@ Compiles ``csrc/copy_score.cu`` as it is and, beside it, copies with one
 choice reverted each (by text substitution on the source), all with
 ``nvcc`` at once (the machinery of ``ablate_bwd``). It then runs every
 build at the training shape (170, 30, 370, 256), the dev shape
-(20, 30, 370, 256) and the decode shape (60, 1, 370, 256), all f32, holds it against the plain version at rtol /
-atol 1e-5, and times it (``timing.time_ms``: median of 40 launches, L2
-flushed by a read before each; at the decode shape, which is bound by
-bytes, also by a write, as before). It prints one JSON line per build:
+(20, 30, 370, 256) and the decode shape (60, 1, 370, 256), all f32,
+holds it against the plain version at rtol / atol 1e-5, and times it
+(``timing.time_ms``: median of 40 launches, L2 flushed before each). It
+prints one JSON line per build:
 the time at each shape, registers and spills of its f32 D=256 kernels,
 and whether it agreed; first, as a yardstick for the decode shape, the
 time of ``torch.sum`` over the same src. Needs a CUDA card.
@@ -67,8 +67,6 @@ REVERSIONS = {
                      "            load_vec<T, 8>(row + d0, sv);\n")],
     # T > 1: one slice of d, 128 values of s a block, whatever the batch
     "one_d_slice": [("    while (ts > 32 && ", "    while (false && ")],
-    # T = 1: four rows a warp, loaded before any is reduced, not one
-    "four_rows_a_warp": [("constexpr int ROWS = 1;", "constexpr int ROWS = 4;")],
     # T = 1: 4-byte lanes, lane l on d = l + 32 k (the first design's loads)
     "scalar_row_loads": [(
         "constexpr int VEC = 16 / (int)sizeof(T) < D / 32 ? "
@@ -96,9 +94,7 @@ def main() -> int:
     src = cases["decode"][0]
     print(json.dumps(dict(
         build="reference: torch.sum(src, -1), the decode shape's bytes",
-        decode_ms=time_ms(lambda: src.sum(-1), n=40),
-        decode_write_flush_ms=time_ms(lambda: src.sum(-1), n=40,
-                                      flush="write"))), flush=True)
+        decode_ms=time_ms(lambda: src.sum(-1), n=40))), flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     for name, (so, regs) in built.items():
         fn = ctypes.CDLL(str(so)).fira_copy_score_fwd
@@ -121,9 +117,6 @@ def main() -> int:
                                                     atol=1e-5)
             row[f"{label}_max_abs_err"] = (out - want).abs().max().item()
             row[f"{label}_ms"] = time_ms(call, n=40)
-            if label == "decode":     # bound by bytes: the flush matters
-                row["decode_write_flush_ms"] = time_ms(call, n=40,
-                                                       flush="write")
         row["regs"] = regs
         print(json.dumps(row), flush=True)
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: "

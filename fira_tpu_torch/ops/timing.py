@@ -11,23 +11,15 @@ import torch
 FLUSH_BYTES = 128 * 2**20     # over twice the H100's 50 MB L2
 
 
-def time_ms(fn, n: int = 50, flush: str = "read") -> float:
+def time_ms(fn, n: int = 50) -> float:
     """Median device time of ``fn()`` in ms over ``n`` launches, each after
-    a pass over a 128 MB buffer that evicts the inputs from L2 (the decode
-    step finds the copy head's inputs cold: the decoder's weights and
-    caches pass through L2 between two copy-score launches). A long matrix
-    product queued first keeps the device busy while the host queues every
-    launch, so the events time the device alone, not the host's launch
-    overhead.
-
-    ``flush="read"`` reads the buffer: L2 is left holding clean lines, as
-    after a step whose kernels mostly read weights. ``flush="write"``
-    writes it, as the measurements before this module did: L2 is left
-    holding up to 50 MB of dirty lines, which a kernel's misses must first
-    write back, so a kernel bound by bytes pays for the flush's traffic as
-    well as its own."""
-    if flush not in ("read", "write"):
-        raise ValueError(f"flush={flush!r}: 'read' or 'write'")
+    a 128 MB write that evicts the inputs from L2 (the decode step finds
+    the copy head's inputs cold: the decoder's weights and caches pass
+    through L2 between two copy-score launches). The write leaves L2
+    holding dirty lines, which a kernel's misses first write back, as
+    after the activations a step writes. A long matrix product queued
+    first keeps the device busy while the host queues every launch, so the
+    events time the device alone, not the host's launch overhead."""
     buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
     hold = torch.ones((8192, 8192), device="cuda")
     for _ in range(3):
@@ -36,10 +28,7 @@ def time_ms(fn, n: int = 50, flush: str = "read") -> float:
     events = []
     hold @ hold
     for _ in range(n):
-        if flush == "read":
-            buf.sum()
-        else:
-            buf.zero_()
+        buf.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -34,11 +34,12 @@ def _inputs(B, T, S, D, dtype=torch.float32, device="cpu", seed=0):
 
 # decode (B=20x3 beams, T=1), unaligned S and T, every supported width;
 # the dev batch (20) and the training batch (170) at the training T and S;
-# T above one tile of 32 t values
+# a batch of 85, where the tile kernel takes 64 s a block and 2 slices of
+# d (20 takes 32 and 4, 170 takes 128 and 1); T above one tile of 32
 SHAPES = [(60, 1, 370, 256), (2, 13, 37, 64), (2, 7, 130, 128),
           (3, 30, 370, 256), (2, 17, 33, 512), (1, 40, 5, 256),
-          (20, 30, 370, 256), (170, 30, 370, 256), (2, 70, 37, 256),
-          (2, 33, 130, 128)]
+          (20, 30, 370, 256), (170, 30, 370, 256), (85, 30, 370, 256),
+          (2, 70, 37, 256), (2, 33, 130, 128)]
 
 
 @pytest.mark.gpu
@@ -231,76 +232,6 @@ def test_copy_scores_backward_kernel_bf16(cuda):
     assert got[0].dtype == got[1].dtype == torch.bfloat16
     for g, r in zip(got, want):
         torch.testing.assert_close(g.float(), r, rtol=2e-2, atol=2e-2)
-
-
-def emulate_tile_kernel(src, tgt, w, paired=True, perturb=None):
-    """The T > 1 kernel's arithmetic for f32 numpy inputs, in numpy f32:
-    e^(2 src) and e^(2 tgt) once each, then per pair of d (or per d when
-    not ``paired``) fmaf(es, et, 1), the pair's numerator and product, one
-    reciprocal, and the sum in d order; fmaf is rounded once (an f64
-    product of two f32 values is exact). ``perturb``, a numpy Generator,
-    moves each reciprocal by -1, 0 or +1 ulp, as rcp.approx may."""
-    f32 = np.float32
-
-    def fma(a, b, c):
-        return (a.astype(np.float64) * b + c).astype(f32)
-
-    def rcp(x):
-        r = (1.0 / x.astype(np.float64)).astype(f32)
-        if perturb is not None:
-            step = perturb.integers(-1, 2, size=r.shape)
-            r = np.where(step > 0, np.nextafter(r, f32(np.inf)),
-                         np.where(step < 0, np.nextafter(r, f32(-np.inf)), r))
-        return r
-
-    es = np.exp(2 * src)[:, None]          # (B, 1, S, D)
-    et = np.exp(2 * tgt)[:, :, None]       # (B, T, 1, D)
-    wn = (-2 * w).astype(f32)
-    acc = np.zeros((src.shape[0], tgt.shape[1], src.shape[1]), f32)
-    for d in range(0, w.size, 2 if paired else 1):
-        a = fma(es[..., d], et[..., d], f32(1))
-        if paired:
-            b = fma(es[..., d + 1], et[..., d + 1], f32(1))
-            num = fma(np.full_like(b, wn[d]), b, (wn[d + 1] * a).astype(f32))
-            acc = fma(num, rcp((a * b).astype(f32)), acc)
-        else:
-            acc = fma(np.full_like(a, wn[d]), rcp(a), acc)
-    wsum = f32(0)
-    for x in w:
-        wsum = f32(wsum + x)
-    return (wsum + acc).astype(f32)
-
-
-def emulated_errors(shape=(2, 30, 370, 256), seed=0):
-    """Largest absolute error against an f64 reference of the emulated
-    kernel with one reciprocal a pair of d and one a d, with correctly
-    rounded and with perturbed reciprocals, and of the plain f32 version,
-    on the GPU tests' inputs."""
-    src, tgt, w, _ = (x.numpy() for x in _inputs(*shape, seed=seed))
-    w = w[:, 0]
-    ref = np.einsum("btsd,d->bts", np.tanh(
-        src.astype(np.float64)[:, None] + tgt[:, :, None]), w)
-    plain = np.tanh(src[:, None] + tgt[:, :, None]) @ w
-    errs = {"plain": np.abs(plain - ref).max()}
-    for paired in (True, False):
-        for name, rng in (("exact", None),
-                          ("perturbed", np.random.default_rng(seed))):
-            got = emulate_tile_kernel(src, tgt, w, paired, rng)
-            errs[f"{'pairs' if paired else 'single'}_{name}"] = np.abs(
-                got - ref).max()
-    return errs
-
-
-def test_tile_kernel_arithmetic_emulated():
-    """The T > 1 kernel cannot run on the CPU; its arithmetic can. Emulated
-    in f32 at the training T, S and D, one reciprocal a pair of d stays
-    within half the kernel tests' 1e-5 tolerance of f64, with the
-    reciprocal exact or 1 ulp off, and rounds no worse than one
-    reciprocal a d."""
-    errs = emulated_errors()
-    for name in ("exact", "perturbed"):
-        assert errs[f"pairs_{name}"] < 5e-6, errs
-        assert errs[f"pairs_{name}"] <= errs[f"single_{name}"], errs
 
 
 def test_copy_scores_other_device_raises():
