@@ -10,11 +10,15 @@
 ``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
 (``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
 the CUDA card unless ``--device cpu`` is given; with no card it raises
-instead of carrying on on the CPU.
+instead of carrying on on the CPU. ``--dtype bfloat16`` computes in bf16
+(training and decoding; parameters, Adam and checkpoints stay f32, so an
+f32 ``best.pt`` decodes in bf16). A config the port does not run, or a
+bad knob, exits 2 with the knob named.
 
 Example:
     python -m fira_tpu_torch.cli train --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli test --config fira-full --data-dir DataSet
+    python -m fira_tpu_torch.cli train --dtype bfloat16 --feeder-workers 2
 """
 
 from __future__ import annotations
@@ -51,6 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ignore an existing latest checkpoint")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype override (params stay f32)")
+    p.add_argument("--feeder-workers", type=int, default=None, metavar="N",
+                   help="threads assembling batches ahead of the loop "
+                        "(0: on the loop's thread); must be >= 0")
     return p
 
 
@@ -80,9 +89,8 @@ def _load_var_maps(data_dir: str) -> Optional[List[dict]]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
 
-    from fira_tpu_torch.config import apply_ablation, get_config
+    from fira_tpu_torch.config import apply_ablation, get_config, unsupported
     from fira_tpu_torch.data.dataset import FiraDataset
     from fira_tpu_torch.decode.runner import output_name, run_test
     from fira_tpu_torch.model.model import FiraModel
@@ -94,6 +102,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = cfg.replace(batch_size=args.batch_size)
     if args.test_batch_size:
         cfg = cfg.replace(test_batch_size=args.test_batch_size)
+    if args.dtype:
+        cfg = cfg.replace(compute_dtype=args.dtype)
+    if args.feeder_workers is not None:
+        cfg = cfg.replace(feeder_workers=args.feeder_workers)
+    errs = unsupported(cfg)
+    if errs:
+        for e in errs:
+            print(f"fira_tpu_torch: config error: {e}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
     suffix = f"_{args.ablation}" if args.ablation else ""
     ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, f"ckpt{suffix}")
 
@@ -130,7 +148,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     dataset = FiraDataset(args.data_dir, cfg)
     cfg = dataset.cfg
-    model = FiraModel(cfg, device=device)
+    model = FiraModel(cfg, device=device, dtype=cfg.compute_dtype)
     model.load_state_dict(state_dict)
     metrics = run_test(model, dataset, cfg, out_dir=args.out_dir,
                        ablation=args.ablation,

@@ -61,7 +61,11 @@ class FiraConfig:
     # CPU tensors, whatever this field says.
     copy_head_impl: str = "xla"
 
-    # --- precision (the port runs float32 with stable residuals only) ---
+    # --- precision: parameters, Adam state and checkpoints stay float32;
+    # "bfloat16" runs the matmuls, the copy score and the stored
+    # activations in bf16, with LayerNorm and the softmaxes in float32.
+    # stable_residual=False also stores the post-LN residual stream in the
+    # compute dtype (a no-op in float32) ---
     compute_dtype: str = "float32"
     stable_residual: bool = True
     copy_head_remat: bool = True
@@ -74,8 +78,8 @@ class FiraConfig:
     beam_early_exit: bool = False
 
     # --- knobs of JAX-package paths the port does not run yet (engine,
-    # serving, ingest, fault injection, the threaded input pipeline,
-    # grouped and accumulated steps, buckets, ring attention); kept so
+    # serving, ingest, fault injection, grouped and accumulated steps,
+    # buckets, ring attention); kept so
     # configs read alike ---
     decode_engine: bool = False
     engine_slots: int = 0
@@ -120,6 +124,9 @@ class FiraConfig:
     rng_impl: str = "threefry"
     accum_steps: int = 1
     fused_steps: int = 1
+    # data/feeder.Feeder: threads assembling batches ahead of the train
+    # loop, the dev gate and the test decode (0 = on the consumer thread),
+    # and the most batches in flight
     feeder_workers: int = 2
     feeder_depth: int = 4
     buckets: tuple = ()
@@ -218,8 +225,6 @@ _PORTED_PATH = {
     "adjacency_impl": "dense",
     "flat_scatter": False,
     "encoder_buffer": "single",
-    "compute_dtype": "float32",
-    "stable_residual": True,
     "beam_compat_prob_space": True,
     "beam_kv_cache": True,
     "beam_factored_topk": False,
@@ -233,10 +238,22 @@ _PORTED_PATH = {
 }
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 def unsupported(cfg: FiraConfig) -> List[str]:
-    """Knobs set to a path the port does not run, one message each."""
+    """Knobs set to a path the port does not run, or to a value no path
+    takes, one message each."""
     errs = [f"{k}={getattr(cfg, k)!r} (the port runs {v!r} only)"
             for k, v in _PORTED_PATH.items() if getattr(cfg, k) != v]
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        errs.append(f"compute_dtype={cfg.compute_dtype!r} (choose from "
+                    f"{', '.join(COMPUTE_DTYPES)})")
+    if cfg.feeder_workers < 0:
+        errs.append(f"feeder_workers={cfg.feeder_workers} (must be >= 0; "
+                    f"0 assembles batches on the consumer thread)")
+    if cfg.feeder_depth < 1:
+        errs.append(f"feeder_depth={cfg.feeder_depth} (must be >= 1)")
     if cfg.seq_shards > 1:
         errs.append(f"seq_shards={cfg.seq_shards} (the port runs dense "
                     f"cross-attention only)")

@@ -40,6 +40,18 @@ def sort_edge_rows(senders, receivers, values, kinds, graph_len: int):
     return senders, receivers, values, kinds
 
 
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 bit patterns as uint16: round to nearest, ties to even,
+    on the uint32 view, then keep the high 16 bits (the rounding of
+    ``ml_dtypes.bfloat16`` and of the device cast); NaN stays a quiet
+    NaN of its sign."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    rounded = (u + (np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))) >> 16
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    quiet = (u >> 16) | np.uint32(0x40)
+    return np.where(nan, quiet, rounded).astype(np.uint16)
+
+
 # Mean-edges-per-row crossover between the two vectorized-gather regimes,
 # measured with numpy on a CPU host: a numpy fancy
 # gather/scatter costs a few ns/ELEMENT plus ~10 bytes/element of
@@ -173,6 +185,16 @@ def make_batch(split: ProcessedSplit, indices: np.ndarray, cfg: FiraConfig,
 
     batch["senders"] = senders
     batch["receivers"] = receivers
+    if (cfg.compute_dtype == "bfloat16" and cfg.adjacency_impl == "dense"
+            and not cfg.typed_edges):
+        # Ship edge values in the compute dtype, as the JAX package does
+        # under exactly these conditions: the dense path scatters them
+        # straight into a bf16 adjacency, and rounding on the host is the
+        # rounding the device cast performs, so the adjacency is
+        # bit-identical while the largest wire field halves. The bits
+        # travel as uint16 (numpy has no bf16); the copy to the device
+        # views them as torch.bfloat16 (data/feeder.batch_to_device).
+        values = bf16_bits(values)
     batch["values"] = values
     if kinds is not None:
         # only shipped when the typed-edge extension is on — the flattened

@@ -5,11 +5,12 @@ the argmax-probability beam, cook text, score in-loop sentence BLEU, and
 write one prediction per line to OUTPUT/output_fira (ablations write their
 own suffixed files).
 
-A plain loop over the split's ``epoch_index_chunks`` batches: each batch is
-assembled on the host, copied to the device from pinned memory without
-blocking, and beam-decoded; its tokens come back to the host to be cooked
-into text. Lines stream to disk in split order through the ordered writer
-(decode/stream.py).
+The split's ``epoch_index_chunks`` batches come from a ``data.feeder.Feeder``
+(``cfg.feeder_workers`` threads assemble them and queue their copies to the
+device ahead of the beam, ``cfg.feeder_depth`` at most in flight); each is
+beam-decoded in the model's compute dtype, and its tokens come back to the
+host to be cooked into text. Lines stream to disk in split order through
+the ordered writer (decode/stream.py).
 """
 
 from __future__ import annotations
@@ -18,24 +19,17 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from fira_tpu_torch.config import FiraConfig
-from fira_tpu_torch.data.batching import epoch_index_chunks, make_batch
+from fira_tpu_torch.data.batching import epoch_index_chunks
 from fira_tpu_torch.data.dataset import FiraDataset
+from fira_tpu_torch.data.feeder import Feeder, assembly_tasks
 from fira_tpu_torch.decode.beam import beam_search_cached
 from fira_tpu_torch.decode.stream import OrderedStreamWriter
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
 from fira_tpu_torch.model.model import FiraModel
-
-# batch fields the decode needs on the device (valid stays on the host,
-# and so do msg/msg_tar, which only training and the dev gate read there)
-DEVICE_FIELDS = ("diff", "diff_mark", "ast_change", "sub_token",
-                 "senders", "receivers", "values")
-TRAIN_FIELDS = DEVICE_FIELDS + ("msg", "msg_tar")
-
 
 def output_name(ablation: Optional[str]) -> str:
     """OUTPUT file naming per paper ablation (BASELINE.md rows)."""
@@ -70,22 +64,6 @@ def sample_emitter(writer, *, vocab, cfg: FiraConfig, bleu_by_pos: Dict,
     return emit
 
 
-def batch_to_device(host: Dict[str, np.ndarray], device: torch.device,
-                    fields=DEVICE_FIELDS) -> Dict[str, torch.Tensor]:
-    """Copy ``fields`` of a host batch; ids and edge indices travel in
-    their narrow wire types and are upcast to int64 on the device. On a
-    CUDA device the copies come from pinned memory and do not block."""
-    cuda = device.type == "cuda"
-    out = {}
-    for f in fields:
-        t = torch.from_numpy(host[f])
-        if cuda:
-            t = t.pin_memory()
-        t = t.to(device, non_blocking=cuda)
-        out[f] = t if f == "values" else t.long()
-    return out
-
-
 def run_test(model: FiraModel, dataset: FiraDataset,
              cfg: Optional[FiraConfig] = None, *,
              out_dir: str = "OUTPUT",
@@ -93,7 +71,8 @@ def run_test(model: FiraModel, dataset: FiraDataset,
              var_maps: Optional[List[Dict[str, str]]] = None,
              split: str = "test") -> Dict[str, float]:
     """Decode ``split`` with the batched KV-cached beam on the model's
-    device. Returns mean sentence BLEU, the sample count and the path."""
+    device, in the model's compute dtype. Returns mean sentence BLEU, the
+    sample count and the path."""
     cfg = cfg or dataset.cfg
     device = next(model.parameters()).device
     data = dataset.splits[split]
@@ -107,17 +86,20 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     n_total = len(data)
     model.eval()
     cursor = 0
-    with OrderedStreamWriter(out_path, expected=n_total) as writer:
+    tasks = assembly_tasks(data, epoch_index_chunks(n_total, cfg,
+                                                    batch_size=bs),
+                           cfg, batch_size=bs)
+    with OrderedStreamWriter(out_path, expected=n_total) as writer, \
+            Feeder(tasks, num_workers=cfg.feeder_workers,
+                   depth=cfg.feeder_depth, device=device) as feed:
         emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
                               bleu_by_pos=bleu_by_pos, n_total=n_total,
                               var_maps=var_maps, indices=indices)
-        for chunk in epoch_index_chunks(n_total, cfg, batch_size=bs):
-            host = make_batch(data, chunk, cfg, batch_size=bs)
-            tokens, probs = beam_search_cached(
-                model, batch_to_device(host, device), cfg)
+        for item in feed:
+            tokens, probs = beam_search_cached(model, item.device, cfg)
             tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
-            for i in np.flatnonzero(host["valid"]):
-                emit(cursor, host, i, tokens[i], probs[i])
+            for i in np.flatnonzero(item.host["valid"]):
+                emit(cursor, item.host, i, tokens[i], probs[i])
                 cursor += 1
     n = len(bleu_by_pos)
     total_bleu = sum(bleu_by_pos[p] for p in sorted(bleu_by_pos))

@@ -17,6 +17,15 @@ passes the config's (0.1, and 0.2 for the GCN, as the JAX package).
 
 Parameters are created on ``device`` and left uninitialised; the model's
 ``init_parameters`` fills them from an explicit ``torch.Generator``.
+
+Precision follows the JAX layers' contract, with the casts written out (not
+``torch.autocast``, whose op lists are not flax's): parameters stay f32;
+each ``dense`` casts its input, weight and bias to the module's compute
+``dtype``; LayerNorm, the attention softmax and the combination gate's
+sigmoid run in ``stable_dtype`` (f32 for bf16 compute); a post-LN output
+stays in the stable dtype unless ``residual_dtype`` (the
+``stable_residual=False`` knob) narrows it (``PostLN``). Mixed operands promote as
+JAX's do: bf16 with f32 gives f32. In f32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
@@ -32,15 +42,73 @@ NEG_INF = -1e9   # the reference's additive mask fill (never -inf: a fully
                  # masked row stays uniform instead of turning NaN)
 
 
-def dense(d_in: int, d_out: int, *, bias: bool = True, device=None) -> nn.Linear:
-    """``nn.Linear`` (weight (out, in)), left uninitialised (no draw from
-    the global generator); ``init_parameters`` fills it."""
-    return skip_init(nn.Linear, d_in, d_out, bias=bias,
-                     device=device or "cpu")
+def stable_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Numerics-sensitive ops (LayerNorm, softmax, log) run in at least
+    f32: bf16 compute promotes to f32 (``fira_tpu/model/layers.py``'s
+    ``stable_dtype``)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
-def layer_norm(d: int, device=None) -> nn.LayerNorm:
-    return skip_init(nn.LayerNorm, d, eps=1e-5, device=device or "cpu")
+def matmul(a, b):
+    """``a @ b`` with JAX's promotion of mixed operands (bf16 with f32
+    gives f32; torch's matmul refuses mixed types)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+class Dense(nn.Linear):
+    """Counterpart of the JAX package's ``TorchDense``: f32 parameters
+    (weight (out, in)); the input, weight and bias are cast to
+    ``compute_dtype``, multiplied, and the bias added in that dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, device=None,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-5) in the stable dtype of its input; the output
+    stays there."""
+
+    def forward(self, x):
+        dt = stable_dtype(x.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt), self.eps)
+
+
+class PostLN(nn.Module):
+    """Base of the post-LN blocks: ``post_ln(x, residual)`` is
+    LayerNorm(x + residual) in the stable dtype. The sum is taken in the
+    stable dtype, so two bf16 operands are not rounded to bf16 first (XLA
+    fuses the sum into the f32 LayerNorm). The output stays in the stable
+    dtype unless ``residual_dtype`` (``stable_residual=False``) narrows
+    the stored residual stream."""
+
+    residual_dtype = None
+
+    def post_ln(self, x, residual):
+        sd = stable_dtype(x.dtype)
+        y = self.norm(x.to(sd) + residual.to(sd))
+        return y if self.residual_dtype is None else y.to(self.residual_dtype)
+
+
+def dense(d_in: int, d_out: int, *, bias: bool = True, device=None,
+          dtype: torch.dtype = torch.float32) -> Dense:
+    """A :class:`Dense` computing in ``dtype``, left uninitialised (no draw
+    from the global generator); ``init_parameters`` fills it."""
+    return skip_init(Dense, d_in, d_out, bias=bias, device=device or "cpu",
+                     compute_dtype=dtype)
+
+
+def layer_norm(d: int, device=None) -> LayerNorm:
+    return skip_init(LayerNorm, d, eps=1e-5, device=device or "cpu")
 
 
 def embedding(n: int, d: int, device=None) -> nn.Embedding:
@@ -79,12 +147,18 @@ def dropout(x, p: float, generator, *, training: bool = True):
 def combination_gate(query, key, value, *, scale: float):
     """combination_layer.py:6-17: per element, softmax over the pair
     (q*k*scale, q*v*scale) weights k and v. The two-way softmax is written
-    in closed form: softmax([a, b]) = (sigmoid(a-b), sigmoid(b-a))."""
-    diff = query * key * scale - query * value * scale
-    return torch.sigmoid(diff) * key + torch.sigmoid(-diff) * value
+    in closed form: softmax([a, b]) = (sigmoid(a-b), sigmoid(b-a)).
+
+    Products, difference and sigmoids run in the stable dtype, and so does
+    the output: the JAX package's numpy-float64 ``scale`` promotes bf16 to
+    f32 there, and XLA fuses the bf16 products into that f32 work."""
+    sd = stable_dtype(query.dtype)
+    q, k, v = query.to(sd), key.to(sd), value.to(sd)
+    diff = q * k * scale - q * v * scale
+    return torch.sigmoid(diff) * k + torch.sigmoid(-diff) * v
 
 
-class Combination(nn.Module):
+class Combination(PostLN):
     """Multi-head combination (gnn_transformer.py:176-205): three input
     projections, the gate with scale 1/sqrt(d_head) in the merged
     (B, S, d_model) layout (the gate is elementwise, so the head split is a
@@ -92,17 +166,19 @@ class Combination(nn.Module):
     Dropout inside the gate and after the output projection."""
 
     def __init__(self, num_heads: int, d_model: int,
-                 dropout_rate: float = 0.0, device=None):
+                 dropout_rate: float = 0.0, device=None,
+                 dtype: torch.dtype = torch.float32, residual_dtype=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} not divisible by "
                              f"num_heads={num_heads}")
         self.dropout_rate = dropout_rate
+        self.residual_dtype = residual_dtype
         self.scale = 1.0 / math.sqrt(d_model // num_heads)
-        self.q_proj = dense(d_model, d_model, device=device)
-        self.k_proj = dense(d_model, d_model, device=device)
-        self.v_proj = dense(d_model, d_model, device=device)
-        self.out_proj = dense(d_model, d_model, device=device)
+        self.q_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.k_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.v_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.out_proj = dense(d_model, d_model, device=device, dtype=dtype)
         self.norm = layer_norm(d_model, device)
 
     def forward(self, query, key, value, generator=None):
@@ -111,29 +187,31 @@ class Combination(nn.Module):
                              self.v_proj(value), scale=self.scale)
         x = dropout(x, p, generator, training=on)
         out = dropout(self.out_proj(x), p, generator, training=on)
-        return self.norm(out + query)
+        return self.post_ln(out, query)
 
 
-class GCN(nn.Module):
+class GCN(PostLN):
     """One graph-convolution round (gnn_transformer.py:64-86):
     fc1 -> A.x -> fc2 -> dropout -> residual -> LayerNorm, over a dense
-    (B, N, N) normalized adjacency."""
+    (B, N, N) normalized adjacency, cast to the compute dtype."""
 
-    def __init__(self, d_model: int, dropout_rate: float = 0.0, device=None):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0, device=None,
+                 dtype: torch.dtype = torch.float32, residual_dtype=None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.fc1 = dense(d_model, d_model, device=device)
-        self.fc2 = dense(d_model, d_model, device=device)
+        self.dtype, self.residual_dtype = dtype, residual_dtype
+        self.fc1 = dense(d_model, d_model, device=device, dtype=dtype)
+        self.fc2 = dense(d_model, d_model, device=device, dtype=dtype)
         self.norm = layer_norm(d_model, device)
 
     def forward(self, graph_em, adj, generator=None):
-        x = torch.bmm(adj, self.fc1(graph_em))
+        x = torch.bmm(adj.to(self.dtype), self.fc1(graph_em))
         x = dropout(self.fc2(x), self.dropout_rate, generator,
                     training=self.training)
-        return self.norm(x + graph_em)
+        return self.post_ln(x, graph_em)
 
 
-class Attention(nn.Module):
+class Attention(PostLN):
     """Post-LN multi-head attention (gnn_transformer.py:124-161): additive
     -1e9 masking where mask==0, softmax, output projection, dropout,
     residual on the original query, LayerNorm. ``project_kv`` and
@@ -141,15 +219,17 @@ class Attention(nn.Module):
     once and attends over the cache."""
 
     def __init__(self, num_heads: int, d_model: int,
-                 dropout_rate: float = 0.0, device=None):
+                 dropout_rate: float = 0.0, device=None,
+                 dtype: torch.dtype = torch.float32, residual_dtype=None):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.d_model = d_model
-        self.q_proj = dense(d_model, d_model, device=device)
-        self.k_proj = dense(d_model, d_model, device=device)
-        self.v_proj = dense(d_model, d_model, device=device)
-        self.out_proj = dense(d_model, d_model, device=device)
+        self.dtype, self.residual_dtype = dtype, residual_dtype
+        self.q_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.k_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.v_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.out_proj = dense(d_model, d_model, device=device, dtype=dtype)
         self.norm = layer_norm(d_model, device)
 
     def _split_heads(self, x):
@@ -167,11 +247,15 @@ class Attention(nn.Module):
         """Attention over pre-projected K/V. ``mask``: (B, kv_len) key
         padding or a (B, 1, q_len|1, kv_len) mask, nonzero = attend.
         ``causal`` adds the lower-triangular mask (q_len must equal kv_len:
-        offset decode goes through the cache path)."""
+        offset decode goes through the cache path). K and V may be in the
+        stable dtype (the decode caches); the logits, the mask fill and the
+        softmax run in the stable dtype, as the JAX package's numpy-float64
+        ``1/sqrt(d_head)`` promotes them there."""
         B, q_len = query.shape[0], query.shape[1]
         d_head = self.d_model // self.num_heads
         q = self._split_heads(self.q_proj(query))
-        weight = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d_head)
+        weight = matmul(q, k.transpose(-1, -2))
+        weight = weight.to(stable_dtype(weight.dtype)) / math.sqrt(d_head)
         if mask.dim() < 4:
             mask = mask[:, None, None, :]
         weight = weight.masked_fill(mask == 0, NEG_INF)
@@ -183,11 +267,11 @@ class Attention(nn.Module):
             tri = torch.ones(q_len, q_len, dtype=torch.bool,
                              device=query.device).tril()
             weight = weight.masked_fill(~tri, NEG_INF)
-        out = torch.matmul(torch.softmax(weight, dim=-1), v)
+        out = matmul(torch.softmax(weight, dim=-1).to(self.dtype), v)
         out = out.transpose(1, 2).reshape(B, q_len, self.d_model)
         out = dropout(self.out_proj(out), self.dropout_rate, generator,
                       training=self.training)
-        return self.norm(out + query)
+        return self.post_ln(out, query)
 
     def forward(self, query, key, value, mask, *, causal: bool = False,
                 generator=None):
@@ -196,22 +280,24 @@ class Attention(nn.Module):
                            generator=generator)
 
 
-class FeedForward(nn.Module):
+class FeedForward(PostLN):
     """Post-LN 4x ReLU FFN (gnn_transformer.py:163-174), dropout after
     fc2."""
 
     def __init__(self, d_model: int, mult: int = 4,
-                 dropout_rate: float = 0.0, device=None):
+                 dropout_rate: float = 0.0, device=None,
+                 dtype: torch.dtype = torch.float32, residual_dtype=None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.fc1 = dense(d_model, mult * d_model, device=device)
-        self.fc2 = dense(mult * d_model, d_model, device=device)
+        self.residual_dtype = residual_dtype
+        self.fc1 = dense(d_model, mult * d_model, device=device, dtype=dtype)
+        self.fc2 = dense(mult * d_model, d_model, device=device, dtype=dtype)
         self.norm = layer_norm(d_model, device)
 
     def forward(self, x, generator=None):
         h = dropout(self.fc2(torch.relu(self.fc1(x))), self.dropout_rate,
                     generator, training=self.training)
-        return self.norm(h + x)
+        return self.post_ln(h, x)
 
 
 @torch.no_grad()

@@ -14,13 +14,17 @@ Reference semantics kept, as in the JAX package:
 
 Each epoch walks the JAX loop's batch order with buckets off and one step
 per batch: ``epoch_index_chunks(n, shuffle=True, seed=cfg.seed,
-epoch=epoch)``. A plain loop: the host assembles each batch and copies it
-from pinned memory without blocking, then queues the step. The host waits
-for the device only at the 10-batch loss line, at a dev gate and at an
-epoch's end; throughput is measured between those points, with the dev
+epoch=epoch)``. The batches come from a ``data.feeder.Feeder`` with
+``cfg.feeder_workers`` threads, which assemble them and queue their copies
+to the device ahead of the step (``feeder_workers=0``: on the loop's own
+thread); the dev gate takes its batches the same way. The model computes in
+``cfg.compute_dtype``; parameters, Adam and checkpoints stay f32. The host
+waits for the device only at the 10-batch loss line, at a dev gate and at
+an epoch's end; throughput is measured between those points, with the dev
 gates and the checkpoint writes excluded, and the first interval (the
 kernels' first build and launch) dropped, as the JAX loop's
-``Meter(warmup=1)``.
+``Meter(warmup=1)``. The feed share is the time the loop waited for the
+Feeder, over the measured wall.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import numpy as np
 import torch
 
 from fira_tpu_torch.config import FiraConfig
-from fira_tpu_torch.data.batching import epoch_index_chunks, make_batch
+from fira_tpu_torch.data.batching import epoch_index_chunks
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.decode.runner import TRAIN_FIELDS, batch_to_device
+from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder, assembly_tasks
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
@@ -82,20 +86,22 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
     total_bleu = 0.0
     lines: List[str] = []
     chunks = epoch_index_chunks(len(data), cfg, batch_size=bs)
-    for chunk in chunks:
-        host = make_batch(data, chunk, cfg, batch_size=bs)
-        ids = step_lib.dev_step(
-            model, batch_to_device(host, device, TRAIN_FIELDS)).cpu().numpy()
-        for i in np.flatnonzero(host["valid"]):
-            hyp = cook_prediction(ids[i].tolist(), host["diff"][i],
-                                  host["sub_token"][i], vocab, cfg)
-            ref = reference_words(host["msg"][i], vocab)
-            b = nltk_sentence_bleu([ref], hyp)
-            total_bleu += b
-            pos = len(lines)
-            var_map = (var_maps[indices[pos]]
-                       if var_maps is not None else None)
-            lines.append(" ".join(deanonymize(hyp, var_map)) + f",{b}")
+    with Feeder(assembly_tasks(data, chunks, cfg, batch_size=bs),
+                num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
+                device=device, fields=TRAIN_FIELDS) as feed:
+        for item in feed:
+            host = item.host
+            ids = step_lib.dev_step(model, item.device).cpu().numpy()
+            for i in np.flatnonzero(host["valid"]):
+                hyp = cook_prediction(ids[i].tolist(), host["diff"][i],
+                                      host["sub_token"][i], vocab, cfg)
+                ref = reference_words(host["msg"][i], vocab)
+                b = nltk_sentence_bleu([ref], hyp)
+                total_bleu += b
+                pos = len(lines)
+                var_map = (var_maps[indices[pos]]
+                           if var_maps is not None else None)
+                lines.append(" ".join(deanonymize(hyp, var_map)) + f",{b}")
     return (total_bleu / max(len(data), 1), "\n".join(lines) + "\n",
             len(chunks))
 
@@ -109,14 +115,18 @@ class TrainResult:
     # the first interval out)
     commits_per_sec: float
     steps_per_sec: float
-    # share of the measured train wall clock the host spent assembling
-    # batches and queueing their copies to the device
+    # share of the measured train wall clock the loop waited for the
+    # Feeder's next batch (with feeder_workers=0: assembling it and
+    # queueing its copies)
     feed_stall_frac: float
     steps: int          # optimizer steps taken by this call
     gates: int          # dev gates run
     dev_batches: int    # dev_predict calls over all gates
     dev_seconds: float  # wall clock of the gates
     losses: List[float] = dataclasses.field(default_factory=list)
+    # the training Feeders' stats summed over the epochs: batches,
+    # feed_stall_s, queue_depth_mean/min, num_workers, depth
+    feeder: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 class _Meter:
@@ -157,7 +167,8 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
           state: Optional[TrainState] = None) -> TrainResult:
     """Full training run on ``device`` (``cuda`` by default, which raises
     without a card; ``cpu`` on request). ``state``: a prepared
-    ``TrainState`` to train (default: ``init_state(cfg, device)``)."""
+    ``TrainState`` to train (default: ``init_state(cfg, device)``, the
+    model at ``cfg.compute_dtype``)."""
     from fira_tpu_torch.cli import resolve_device
 
     cfg = cfg or dataset.cfg   # dataset.cfg has the vocabulary sizes
@@ -182,6 +193,8 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
     losses: List[torch.Tensor] = []
     gates = dev_batches = steps = 0
     dev_seconds = 0.0
+    feed_totals = {"batches": 0.0, "feed_stall_s": 0.0,
+                   "queue_depth_sum": 0.0, "queue_depth_min": float("inf")}
 
     def sync_tick(loss: Optional[torch.Tensor]) -> None:
         if loss is not None:
@@ -194,39 +207,50 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         last = None
         chunks = epoch_index_chunks(len(train_split), cfg, shuffle=True,
                                     seed=cfg.seed, epoch=epoch)
-        for idx, chunk in enumerate(chunks):
-            if (epoch >= cfg.dev_start_epoch
-                    and idx % cfg.dev_every_batches == 0):
-                sync_tick(last)
-                meter.pause()   # dev time is not train time
-                t0 = time.perf_counter()
-                bleu, text, n_batches = run_dev(model, dataset, cfg, var_maps)
-                better = bleu > best_bleu
-                log.gate(epoch, idx, bleu, better)
-                if better:
-                    best_bleu = bleu
-                    ckpt.save_best(model)
-                    log.dev_output(text)
-                dev_seconds += time.perf_counter() - t0
-                gates += 1
-                dev_batches += n_batches
-                meter.start()
+        with Feeder(assembly_tasks(train_split, chunks, cfg,
+                                   batch_size=cfg.batch_size),
+                    num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
+                    device=device, fields=TRAIN_FIELDS) as feed:
+            for idx in range(len(chunks)):
+                if (epoch >= cfg.dev_start_epoch
+                        and idx % cfg.dev_every_batches == 0):
+                    sync_tick(last)
+                    meter.pause()   # dev time is not train time
+                    t0 = time.perf_counter()
+                    bleu, text, n_batches = run_dev(model, dataset, cfg,
+                                                    var_maps)
+                    better = bleu > best_bleu
+                    log.gate(epoch, idx, bleu, better)
+                    if better:
+                        best_bleu = bleu
+                        ckpt.save_best(model)
+                        log.dev_output(text)
+                    dev_seconds += time.perf_counter() - t0
+                    gates += 1
+                    dev_batches += n_batches
+                    meter.start()
 
-            t0 = time.perf_counter()
-            host = make_batch(train_split, chunk, cfg,
-                              batch_size=cfg.batch_size)
-            batch = batch_to_device(host, device, TRAIN_FIELDS)
-            pending["feed_s"] += time.perf_counter() - t0
-            last = step_lib.train_step(model, optimizer, batch, gen)
-            state.step += 1
-            steps += 1
-            losses.append(last)
-            pending["commits"] += len(chunk)
-            pending["steps"] += 1
-            if idx % 10 == 0:
-                sync_tick(last)
-                log.console(f"epoch: {epoch} batch: {idx} loss: "
-                            f"{last.item():.4f}")
+                # fetched after the gate, inside the measured interval (the
+                # workers keep assembling while a gate runs)
+                item = next(feed)
+                pending["feed_s"] += item.stall_s
+                last = step_lib.train_step(model, optimizer, item.device, gen)
+                state.step += 1
+                steps += 1
+                losses.append(last)
+                pending["commits"] += item.n_valid
+                pending["steps"] += 1
+                if idx % 10 == 0:
+                    sync_tick(last)
+                    log.console(f"epoch: {epoch} batch: {idx} loss: "
+                                f"{last.item():.4f}")
+            fs = feed.stats()
+        feed_totals["batches"] += fs["batches"]
+        feed_totals["feed_stall_s"] += fs["feed_stall_s"]
+        feed_totals["queue_depth_sum"] += fs["queue_depth_sum"]
+        if fs["batches"]:
+            feed_totals["queue_depth_min"] = min(
+                feed_totals["queue_depth_min"], fs["queue_depth_min"])
         if last is not None:
             sync_tick(last)
         ckpt.save_latest(state, best_bleu=best_bleu, epoch=epoch + 1)
@@ -234,10 +258,23 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
 
     secs = meter.seconds
     cps = meter.commits / secs if secs else 0.0
+    n_fed = feed_totals["batches"]
+    feeder = {
+        "batches": n_fed,
+        "feed_stall_s": feed_totals["feed_stall_s"],
+        "queue_depth_mean": (feed_totals["queue_depth_sum"] / n_fed
+                             if n_fed else 0.0),
+        "queue_depth_min": feed_totals["queue_depth_min"] if n_fed else 0.0,
+        "num_workers": float(cfg.feeder_workers),
+        "depth": float(cfg.feeder_depth),
+    }
     if meter.steps:
         log.console(f"throughput: {cps:.2f} commits/sec over {meter.steps} "
                     f"measured steps ({1e3 * secs / meter.steps:.1f} "
-                    f"ms/step), dev gates {dev_seconds:.2f} s")
+                    f"ms/step), dev gates {dev_seconds:.2f} s | feeder "
+                    f"queue depth mean {feeder['queue_depth_mean']:.1f} min "
+                    f"{feeder['queue_depth_min']:.0f} (workers "
+                    f"{cfg.feeder_workers}, depth {cfg.feeder_depth})")
     return TrainResult(
         state=state, best_bleu=best_bleu,
         epochs_run=max(0, n_epochs - start_epoch),
@@ -246,4 +283,5 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         feed_stall_frac=min(1.0, meter.feed_seconds / secs) if secs else 0.0,
         steps=steps, gates=gates, dev_batches=dev_batches,
         dev_seconds=dev_seconds,
-        losses=(torch.stack(losses).cpu().tolist() if losses else []))
+        losses=(torch.stack(losses).cpu().tolist() if losses else []),
+        feeder=feeder)

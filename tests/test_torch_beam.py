@@ -21,8 +21,8 @@ from fira_tpu.model.model import FiraModel as JaxModel
 from fira_tpu_torch import convert
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data.batching import make_batch
+from fira_tpu_torch.data.feeder import batch_to_device
 from fira_tpu_torch.decode import beam
-from fira_tpu_torch.decode.runner import batch_to_device
 from fira_tpu_torch.model.model import FiraModel
 
 GEOM = dict(embedding_dim=32, num_head=4, num_layers=2, sou_len=24,

@@ -86,6 +86,22 @@ def test_copy_scores_kernel_bf16_decode_and_train(cuda, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [170, 20], ids=["train", "dev"])
+def test_copy_scores_kernel_bf16_train_and_dev_shapes(cuda, B):
+    """bf16 at the main path's shapes of the tile kernel, the training
+    batch (170, 30, 370, 256) and the dev batch (20, ...): f32 math, bf16
+    output, 1e-2 as above; bitwise equal over two launches."""
+    src, tgt, w, b = _inputs(B, 30, 370, 256, dtype=torch.bfloat16,
+                             device=cuda)
+    got = cs.copy_scores(src, tgt, w, b)
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, 30, 370)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert torch.equal(got, cs.copy_scores(src, tgt, w, b))
+
+
+@pytest.mark.gpu
 def test_copy_scores_kernel_large_inputs(cuda):
     """Entries of src (5 %) and tgt (2 %) of magnitude 15 to 60 beside
     ordinary ones: a pair of d with such an entry in its s or anywhere in
@@ -232,6 +248,25 @@ def test_copy_scores_backward_kernel_bf16(cuda):
     assert got[0].dtype == got[1].dtype == torch.bfloat16
     for g, r in zip(got, want):
         torch.testing.assert_close(g.float(), r, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_copy_scores_backward_kernel_bf16_train_shape(cuda):
+    """K2 in bf16 at the training shape (170, 30, 370, 256), as the bf16
+    training step runs it: against the plain f32 autograd on the same
+    bf16 values at 2e-2, as above; bitwise equal over two runs."""
+    src, tgt, w, _ = _inputs(170, 30, 370, 256, dtype=torch.bfloat16,
+                             device=cuda)
+    dout = _dout(170, 30, 370, cuda).bfloat16()
+    got = cs.copy_scores_backward(src, tgt, w, dout)
+    want = cs.copy_scores_backward_reference(src.float(), tgt.float(), w,
+                                             dout.float())
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    assert got[2].dtype == torch.float32
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g.float(), r, rtol=2e-2, atol=2e-2)
+    again = cs.copy_scores_backward(src, tgt, w, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_copy_scores_other_device_raises():

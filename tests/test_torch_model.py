@@ -21,7 +21,7 @@ from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import synthetic
 from fira_tpu_torch.data.batching import make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.decode.runner import batch_to_device
+from fira_tpu_torch.data.feeder import batch_to_device
 from fira_tpu_torch.model.model import FiraModel
 
 TOL = dict(rtol=1e-5, atol=1e-5)

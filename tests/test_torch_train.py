@@ -37,7 +37,7 @@ from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import synthetic
 from fira_tpu_torch.data.batching import epoch_index_chunks, make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.decode.runner import TRAIN_FIELDS, batch_to_device
+from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
 from fira_tpu_torch.model.model import FiraModel
 from fira_tpu_torch.train import state as state_lib
 from fira_tpu_torch.train import step as step_lib
