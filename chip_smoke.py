@@ -29,10 +29,10 @@ Phases, each printing its own line; any failure exits non-zero:
             per step and per dev batch;
 5. train plain  the same steps from the same weights and dropout seed with
             the plain copy score swapped in by this script (no entry point
-            does): the per-step losses must agree (f32 1e-4, bf16 2^-6);
-6. feed     who issues the copy of a batch to the card, in turns: the
-            loop's own thread, the Feeder's workers on a side stream, the
-            loop after the workers assembled it;
+            does): the per-step losses must agree (f32 1e-4; bf16 within
+            the plain bf16 run's gap to the plain f32 run);
+6. feed     the same training steps with the Feeder's 2 workers and with
+            0 (the loop's own thread assembles), in turns;
 7. dev gate ``dev_predict`` ids and ``dev_output`` under K1 against the
             plain copy score on the trained weights (f32 must be equal);
 8. profile  one warm training step of each dtype under torch.profiler
@@ -69,11 +69,13 @@ PEAK_F32_OPS_PER_S = 67e12
 N_COMMITS = 720            # -> a test split of ~60 commits
 WORD_VOCAB, AST_VOCAB = 24_650, 71   # the paper's vocabulary sizes
 SEED = 0
-# the kernels' launches may differ between a kernel and its plain version
-# in bf16 by one rounding of a score (2^-8 of its size); 12 Adam steps
-# carry such differences on, so the per-step losses of the two bf16 runs
-# are held to 4 bf16 steps, 2^-6 relative (f32: 1e-4)
-BF16_LOSS_RTOL = 2.0 ** -6
+# per-step losses of the kernel run against the plain run, f32: 1e-4
+# relative. In bf16 a kernel's output may differ from its plain version's
+# by one rounding of a score (2^-8 of its size), one of the roundings bf16
+# makes everywhere in the model; so the bf16 runs are held to the gap
+# between the plain bf16 and the plain f32 runs over the same steps (the
+# largest per-step relative difference): a copy-score fault that moves
+# training by more than all of bf16's roundings together fails
 F32_LOSS_RTOL = 1e-4
 
 
@@ -574,10 +576,17 @@ def train_path(torch, ctx, dtype: str, cli_workers: int) -> dict:
                 state_dict=sd)
 
 
-def train_plain(torch, ctx, run: dict, rtol: float) -> None:
+def max_rel(a, b) -> float:
+    """Largest per-step relative difference of losses ``a`` from ``b``."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def train_plain(torch, ctx, run: dict, rtol=None, f32_plain=None) -> list:
     """The same steps from the same weights and dropout seed with the
     plain copy score swapped in by this script (no entry point does): the
-    per-step losses must agree within ``rtol`` relative."""
+    per-step losses must agree within ``rtol`` relative, or (bf16, ``rtol``
+    None) within this plain run's gap to the plain f32 run's losses
+    ``f32_plain``. Returns the plain run's losses."""
     from fira_tpu_torch.train import loop as train_loop
     from fira_tpu_torch.train.state import init_state
 
@@ -595,31 +604,35 @@ def train_plain(torch, ctx, run: dict, rtol: float) -> None:
     peak = torch.cuda.max_memory_allocated()
     n_mallocs = device_mallocs(torch) - mallocs
     check(len(plain.losses) == len(result.losses), "plain step count")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(result.losses,
-                                                  plain.losses))
+    rel = max_rel(result.losses, plain.losses)
+    limit = "fixed"
+    if rtol is None:
+        check(len(f32_plain) == len(plain.losses), "f32 plain step count")
+        rtol = max_rel(plain.losses, f32_plain)
+        limit = "the plain bf16 run's gap to the plain f32 run"
     check(rel <= rtol, f"{dtype} train losses kernel vs plain: largest "
-          f"relative difference {rel:.3e} > {rtol:.3e}")
+          f"relative difference {rel:.3e} > {rtol:.3e} ({limit})")
     print(f"[train plain {dtype}] same steps, weights and dropout seed with "
           f"the plain copy score: losses agree to {rel:.3e} relative (limit "
-          f"{rtol:.3e}); steps/s {plain.steps_per_sec:.3f} (kernel "
+          f"{rtol:.3e}, {limit}); steps/s {plain.steps_per_sec:.3f} (kernel "
           f"{result.steps_per_sec:.3f}), training commits/s "
           f"{plain.commits_per_sec:.2f} (kernel {result.commits_per_sec:.2f});"
           f" peak device memory {peak / 2**20:.1f} MiB (kernel "
           f"{run['peak'] / 2**20:.1f}); {n_mallocs} device allocations "
           f"in {plain.steps} steps (kernel path: {run['mallocs']} in "
           f"{run['steps']} steps and {result.gates} gates)", flush=True)
+    return plain.losses
 
 
 def feed_designs(torch, ctx, dtype: str) -> None:
-    """Who issues the copy to the card, measured in turns on the same
-    steps: the loop's own thread assembling and copying (workers 0), the
-    Feeder's 2 workers copying on a side stream (the loop's design), and
-    2 workers assembling with the loop issuing the copy on its own stream.
-    Each: 16 steps (4 epochs of 4) after a warm epoch, host wall to a
-    synchronise, and the share of it the loop waited for its batch."""
+    """The same training steps with the Feeder's 2 workers assembling (the
+    path's design) and with 0 (the loop's own thread assembles), in turns
+    a b b a; the loop issues the copies to the card in both. Each: 16
+    steps (4 epochs of 4) after a warm epoch, host wall to a synchronise,
+    and the share of it the loop spent in the Feeder."""
     from fira_tpu_torch.data.batching import epoch_index_chunks
     from fira_tpu_torch.data.feeder import (TRAIN_FIELDS, Feeder,
-                                            assembly_tasks, batch_to_device)
+                                            assembly_tasks)
     from fira_tpu_torch.train.state import init_state
     from fira_tpu_torch.train.step import train_step
 
@@ -627,8 +640,8 @@ def feed_designs(torch, ctx, dtype: str) -> None:
     split, dev = ds.splits["train"], torch.device("cuda")
     state = init_state(cfg, dev)
 
-    def run(workers: int, worker_copies: bool, epochs) -> tuple:
-        stall = wait = 0.0
+    def run(workers: int, epochs) -> tuple:
+        stall = 0.0
         n = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -638,32 +651,25 @@ def feed_designs(torch, ctx, dtype: str) -> None:
             with Feeder(assembly_tasks(split, chunks, cfg,
                                        batch_size=cfg.batch_size),
                         num_workers=workers, depth=cfg.feeder_depth,
-                        put=worker_copies, device=dev,
-                        fields=TRAIN_FIELDS) as feed:
+                        device=dev, fields=TRAIN_FIELDS) as feed:
                 for item in feed:
-                    t1 = time.perf_counter()
-                    batch = (item.device if worker_copies else
-                             batch_to_device(item.host, dev, TRAIN_FIELDS))
-                    wait += time.perf_counter() - t1
                     stall += item.stall_s
-                    train_step(state.model, state.optimizer, batch,
+                    train_step(state.model, state.optimizer, item.device,
                                state.generator)
                     n += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return n / wall, (stall + wait) / wall
+        return n / wall, stall / wall
 
-    designs = (("workers 0 (loop assembles and copies)", 0, True),
-               ("workers 2, copies on a side stream", 2, True),
-               ("workers 2, loop issues the copies", 2, False))
-    run(2, True, [0])   # warm: kernels built and launched, allocator filled
-    got = {d[0]: [] for d in designs}
-    for label, workers, wc in designs + designs[::-1]:
-        got[label].append(run(workers, wc, [1, 2, 3, 4]))
-    print(f"[feed {dtype}] who copies the batch to the card, 16 steps each, "
-          f"in turns a b c c b a: "
-          + "; ".join(f"{k}: steps/s " + " ".join(f"{r[0]:.3f}" for r in v)
-                      + ", feed share " + " ".join(f"{r[1]:.4f}" for r in v)
+    run(2, [0])   # warm: kernels built and launched, allocator filled
+    got = {2: [], 0: []}
+    for workers in (2, 0, 0, 2):
+        got[workers].append(run(workers, [1, 2, 3, 4]))
+    print(f"[feed {dtype}] the same 16 steps with 2 Feeder workers and with "
+          f"0, in turns a b b a: "
+          + "; ".join(f"workers {k}: steps/s "
+                      + " ".join(f"{r[0]:.3f}" for r in v) + ", feed share "
+                      + " ".join(f"{r[1]:.4f}" for r in v)
                       for k, v in got.items()), flush=True)
     del state
 
@@ -864,9 +870,9 @@ def main() -> int:
     # --- the training paths: f32 (its CLI epoch on the loop's own thread,
     # feeder_workers=0), then bf16 (this slice's path, 2 workers) ---
     run32 = train_path(torch, ctx, "float32", cli_workers=0)
-    train_plain(torch, ctx, run32, F32_LOSS_RTOL)
+    plain32 = train_plain(torch, ctx, run32, F32_LOSS_RTOL)
     run16 = train_path(torch, ctx, "bfloat16", cli_workers=2)
-    train_plain(torch, ctx, run16, BF16_LOSS_RTOL)
+    train_plain(torch, ctx, run16, f32_plain=plain32)
     r32, r16 = run32["result"], run16["result"]
     print(f"[train] bf16 beside f32 (train.loop.train, 2 feeder workers): "
           f"steps/s {r16.steps_per_sec:.3f} vs {r32.steps_per_sec:.3f}, "

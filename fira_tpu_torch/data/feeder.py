@@ -1,5 +1,6 @@
-"""Asynchronous host input pipeline: batch assembly and the copy to the card
-off the consumer's thread (counterpart of ``fira_tpu/data/feeder.py``).
+"""Asynchronous host input pipeline: batch assembly off the consumer's
+thread, then the copy to the card (counterpart of
+``fira_tpu/data/feeder.py``).
 
 ``Feeder`` is a bounded pool of worker threads that runs assembly tasks
 ahead of the training loop, the dev gate and the test decode:
@@ -11,16 +12,12 @@ ahead of the training loop, the dev gate and the test decode:
   worker count.
 - **bounding**: at most ``depth`` tasks are in flight (dispatched but not
   yet consumed), so host memory stays O(depth * batch_bytes).
-- **transfer** (``put=True``): a worker ends its task by copying the
-  batch's ``fields`` to ``device`` (``batch_to_device``: pinned memory,
-  ids upcast to int64 on the device). On a CUDA device a worker issues
-  the copies on a side ``torch.cuda.Stream`` and records an event after
-  them; the consumer makes its current stream wait on that event before
-  it hands the batch out, and marks every tensor with ``record_stream``
-  so the caching allocator does not give its memory back while the
-  consumer's stream may still read it. The copy of batch i+1 then runs
-  beside the step of batch i. With ``num_workers=0`` the copies queue on
-  the consumer's own stream, as an inline loop's would.
+- **transfer** (``put=True``): the consumer copies each batch's
+  ``fields`` to ``device`` as it takes the batch (``batch_to_device``:
+  pinned memory, ids upcast to int64 on the device), on its own current
+  stream, so the copies queue behind the steps already issued and need no
+  cross-stream ordering. Workers only assemble. (Copying from the workers
+  on a side stream gave no more steps/s on the card: see ``PERF.md``.)
 - **errors**: every task exception is wrapped in :class:`FeederTaskError`
   with the task's sequence number and its ``note`` (split positions). A
   failing task is retried up to ``retries`` times with a linear backoff
@@ -32,10 +29,10 @@ ahead of the training loop, the dev gate and the test decode:
 - **shutdown**: ``close()`` (also called by the context manager, at the
   end of the stream and on an error) stops dispatch and joins every
   thread.
-- **observability**: each item carries ``stall_s`` (how long the consumer
-  waited for it, the numerator of the loop's feed share) and
-  ``queue_depth`` (ready batches when the consumer arrived); ``stats()``
-  sums them.
+- **observability**: each item carries ``stall_s`` (the consumer's time
+  in ``__next__`` for it: waiting, and queueing its copies; the numerator
+  of the loop's feed share) and ``queue_depth`` (ready batches when the
+  consumer arrived); ``stats()`` sums them.
 
 ``num_workers=0`` is the synchronous mode: the same interface, the tasks
 run on the consumer's thread (their time is then all stall), and no thread
@@ -122,13 +119,11 @@ class FedBatch:
                         # error-carrying item (record mode)
     device: Any         # the fields on the device (== host when put=False)
     n_valid: int        # real (non-pad) rows, counted before the transfer
-    stall_s: float      # consumer time blocked waiting for THIS item
+    stall_s: float      # consumer time in __next__ for THIS item
     queue_depth: int    # ready-but-unconsumed items when consumer arrived
     error: Optional[BaseException] = None  # FeederTaskError in record mode
     retries: int = 0    # assembly attempts beyond the first this item took
-    task_s: float = 0.0  # worker-side seconds of the successful attempt
-                        # (assembly and queueing the copy)
-    ready: Any = None   # CUDA event after a worker's side-stream copies
+    task_s: float = 0.0  # seconds of the successful assembly attempt
 
 
 class Feeder:
@@ -143,7 +138,7 @@ class Feeder:
     def __init__(self, tasks: Iterable[Task], *, num_workers: int = 2,
                  depth: int = 4, put: bool = True, device="cuda",
                  fields=DEVICE_FIELDS, on_error: str = "raise",
-                 retries: int = 0, retry_backoff_s: Optional[float] = None):
+                 retries: int = 0):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if num_workers < 0:
@@ -160,7 +155,6 @@ class Feeder:
         self._depth = depth
         self._on_error = on_error
         self._retries = retries
-        self._retry_backoff_s = retry_backoff_s
         self._next = 0                 # next sequence number to emit
         self._n_stalls = 0
         self._stall_s = 0.0
@@ -171,10 +165,6 @@ class Feeder:
         self._n_task_retries = 0
         self._task_s = 0.0
         self._closed = False
-        # workers copy on a side stream; the sync mode on the consumer's
-        self._stream = (torch.cuda.Stream(self._device)
-                        if put and num_workers and self._device.type == "cuda"
-                        else None)
 
         if num_workers == 0:
             self._task_iter: Iterator[Task] = iter(tasks)
@@ -252,35 +242,19 @@ class Feeder:
                 # counted on the host before the transfer: reading it back
                 # from the device would wait for the queued steps
                 n_valid = int(host["valid"].sum())
-                device, ready = self._device_put(host)
-                return FedBatch(seq, host, device, n_valid, 0.0, 0,
+                return FedBatch(seq, host, host, n_valid, 0.0, 0,
                                 retries=attempt,
-                                task_s=time.perf_counter() - t0, ready=ready)
+                                task_s=time.perf_counter() - t0)
             except Exception as e:
                 if attempt < self._retries:
                     attempt += 1
-                    time.sleep(backoff_s(attempt)
-                               if self._retry_backoff_s is None
-                               else self._retry_backoff_s * attempt)
+                    time.sleep(backoff_s(attempt))
                     continue
                 err = FeederTaskError(seq, getattr(task, "note", None), e)
                 if self._on_error == "record":
                     return FedBatch(seq, None, None, 0, 0.0, 0, error=err,
                                     retries=attempt)
                 raise err from e
-
-    def _device_put(self, host: Batch):
-        """(device batch, event or None). Keys starting with "_" are
-        host-only metadata and never ship."""
-        if not self._put:
-            return host, None
-        if self._stream is None:
-            return batch_to_device(host, self._device, self._fields), None
-        with torch.cuda.stream(self._stream):
-            dev = batch_to_device(host, self._device, self._fields)
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
-        return dev, ready
 
     def _poison(self, e: BaseException) -> None:
         with self._cond:
@@ -315,17 +289,10 @@ class Feeder:
         if err is not None:
             self.close()
             raise err
-        stall = time.perf_counter() - t0
         self._next += 1
         self._inflight.release()
-        if item.ready is not None:
-            # the consumer's stream reads these tensors: order it after
-            # the side-stream copies, and keep their memory from being
-            # reused until its queued work is done
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(item.ready)
-            for t in item.device.values():
-                t.record_stream(stream)
+        self._device_put(item)
+        stall = time.perf_counter() - t0
         item.stall_s = stall
         item.queue_depth = depth_seen
         self._record(item, stall, depth_seen)
@@ -339,11 +306,20 @@ class Feeder:
             self._closed = True
             raise
         item = self._execute(self._next, task)
+        self._device_put(item)
         stall = time.perf_counter() - t0
         self._next += 1
         item.stall_s = stall
         self._record(item, stall, 0)
         return item
+
+    def _device_put(self, item: FedBatch) -> None:
+        """Queue the copies of ``fields`` to the device on the consumer's
+        current stream. Keys starting with "_" are host-only metadata and
+        never ship."""
+        if self._put and item.error is None:
+            item.device = batch_to_device(item.host, self._device,
+                                          self._fields)
 
     def _record(self, item: FedBatch, stall: float, depth_seen: int) -> None:
         self._n_stalls += 1

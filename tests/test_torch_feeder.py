@@ -165,8 +165,7 @@ def test_retries_absorb_transient_failures(corpora, workers):
     _, tds = corpora
     calls = {}
     with Feeder(_failing_tasks(tds, 1, 2, calls), num_workers=workers,
-                depth=2, put=False, retries=2,
-                retry_backoff_s=0.001) as feed:
+                depth=2, put=False, retries=2) as feed:
         items = list(feed)
         stats = feed.stats()
     assert calls["n"] == 3

@@ -275,39 +275,3 @@ def test_copy_scores_other_device_raises():
         cs.copy_scores(src, tgt, w, b)
     with pytest.raises(ValueError, match="no kernel"):
         cs.copy_scores_backward(src, tgt, w, _dout(2, 3, 37, "meta"))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_feeder_side_stream_batches_equal_inline_copies(cuda, tmp_path, dtype):
-    """Two Feeder workers copy each batch on the Feeder's side stream; the
-    batches the consumer receives (after its stream waited on the copies'
-    event) equal ``batch_to_device`` on the consumer's own stream, bf16
-    edge values included, in order."""
-    from fira_tpu_torch.config import FiraConfig
-    from fira_tpu_torch.data import synthetic
-    from fira_tpu_torch.data.batching import epoch_index_chunks, make_batch
-    from fira_tpu_torch.data.dataset import FiraDataset
-    from fira_tpu_torch.data.feeder import (TRAIN_FIELDS, Feeder,
-                                            assembly_tasks, batch_to_device)
-
-    synthetic.write_corpus_dir(str(tmp_path), n_commits=40, seed=3)
-    ds = FiraDataset(str(tmp_path), FiraConfig(
-        embedding_dim=32, num_head=4, num_layers=2, sou_len=24, tar_len=8,
-        att_len=6, ast_change_len=16, sub_token_len=16, max_edges=256,
-        batch_size=4, compute_dtype=dtype))
-    cfg, split = ds.cfg, ds.splits["train"]
-    chunks = epoch_index_chunks(len(split), cfg, shuffle=True, seed=0)
-    hold = torch.ones((4096, 4096), device=cuda)
-    with Feeder(assembly_tasks(split, chunks, cfg, batch_size=4),
-                num_workers=2, depth=3, device=cuda,
-                fields=TRAIN_FIELDS) as feed:
-        for item in feed:
-            hold @ hold          # keep the consumer's stream busy
-            want = batch_to_device(
-                make_batch(split, chunks[item.index], cfg, batch_size=4),
-                cuda, TRAIN_FIELDS)
-            for k, t in item.device.items():
-                assert t.device.type == "cuda" and t.dtype == want[k].dtype
-                assert torch.equal(t, want[k]), k
-    assert item.device["values"].dtype == getattr(torch, dtype)
