@@ -8,7 +8,10 @@ Phases, each printing its own line; any failure exits non-zero:
 1. device   the card's name, count, and nvidia-smi's name and power limit;
 2. build    every hand-written kernel compiled with nvcc for sm_90a from
             the sources in this checkout (registers, shared memory, spills);
-3. kernels  each kernel against its plain PyTorch version on the card at
+3. buckets  the ``auto`` bucket tables of the train, valid and test splits
+            (as ``cli --buckets auto`` chooses them), each bucket's commits
+            and the padded-cost shares;
+4. kernels  each kernel against its plain PyTorch version on the card at
             the shapes the main path gives it, timed with CUDA events
             (L2 flushed between launches), beside its bound and its share
             of it: K1 (copy-score forward) at the decode step (T=1, its
@@ -16,10 +19,12 @@ Phases, each printing its own line; any failure exits non-zero:
             (T=30, its tanh from one reciprocal a pair of elements; there
             also on inputs with entries of magnitude 15-60 and bitwise
             equal over two launches), at a batch of 85 (the tile kernel's
-            third tiling), and the three path shapes in bf16; K2 (its
-            backward) at the training shape in f32 (also at magnitudes
-            15-60) and in bf16;
-4. train    for f32 and then bf16, the training path at fira-full width
+            third tiling), at the bucketed training shape (T = the main
+            train bucket's tar_len), and those shapes but 85 in bf16; K2
+            (its backward) at the training shape in f32 (also at
+            magnitudes 15-60) and in bf16, and at the bucketed shape in
+            both;
+5. train    for f32 and then bf16, the training path at fira-full width
             on a synthetic corpus with the paper's vocabulary sizes and
             random seeded weights, counts from zero around each: one epoch
             through ``cli train --dtype`` (f32 with ``--feeder-workers 0``,
@@ -27,25 +32,40 @@ Phases, each printing its own line; any failure exits non-zero:
             batches from epoch 0) through ``train.loop.train`` with the
             Feeder's 2 workers; K2 must launch once per step and K1 once
             per step and per dev batch;
-5. train plain  the same steps from the same weights and dropout seed with
+6. train plain  the same steps from the same weights and dropout seed with
             the plain copy score swapped in by this script (no entry point
             does): the per-step losses must agree (f32 1e-4; bf16 within
             the plain bf16 run's gap to the plain f32 run);
-6. feed     the same training steps with the Feeder's 2 workers and with
+7. feed     the same training steps with the Feeder's 2 workers and with
             0 (the loop's own thread assembles), in turns;
-7. dev gate ``dev_predict`` ids and ``dev_output`` under K1 against the
+8. dev gate ``dev_predict`` ids and ``dev_output`` under K1 against the
             plain copy score on the trained weights (f32 must be equal);
-8. profile  one warm training step of each dtype under torch.profiler
-            (f32 also with the plain copy score), device busy summed over
-            kernels, memcpy and memset;
-9. main     for f32 and then bf16, the test path through ``cli test
+9. train buckets  for f32 and then bf16: one epoch through ``cli train
+            --buckets auto``, then ``train.loop.train`` with the buckets and
+            ``fused_steps=3`` (a group must form) and with ``accum_steps=2``
+            (a tail padded with an all-invalid micro-batch); K2 must launch
+            once a forward/backward, K1 also once a dev batch;
+10. bucket checks  on one chunk, bucket geometry against full padding
+            (f32 loss 1e-5, gradients 1e-4 of their norms); 3 fused steps
+            against 3 steps (f32 losses 1e-6); accumulation over 2 x 85
+            against one batch of 170 (loss 1e-5, weights rtol 5e-3 / atol
+            1e-5); then full geometry, buckets and buckets with fused steps
+            timed in turns;
+11. profile one warm training step of each dtype under torch.profiler
+            (f32 also with the plain copy score), and one at the main train
+            bucket's geometry, device busy summed over kernels, memcpy and
+            memset;
+12. main    for f32 and then bf16, the test path through ``cli test
             --dtype``, decoding that dtype's trained checkpoint; the K1
             launch count must match the path; B-Norm BLEU, Penalty-BLEU
             and ROUGE-L of its output;
-10. plain   the same decodes with the plain copy score: f32 byte-identical,
-            bf16 lines that differ counted; one decode batch of each dtype
-            profiled; on a small input the card's f32 distributions must
-            agree with the CPU's.
+13. plain   the same decodes with the plain copy score: f32 byte-identical,
+            bf16 lines that differ counted; then ``cli test --buckets auto``
+            of the same checkpoint against the unbucketed decode (f32: at
+            most one line may differ, and only at a near-tie of best-beam
+            probabilities, 1e-5; bf16 counted), both decodes timed in turns;
+            one decode batch of each dtype profiled; on a small input the
+            card's f32 distributions must agree with the CPU's.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -61,6 +81,8 @@ import re
 import shutil
 import sys
 import time
+
+import numpy as np
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32
 # operations/s outside the tensor cores (the copy score's tanh/add/mul)
@@ -160,15 +182,16 @@ def with_large(torch, x, frac: float, gen):
     return torch.where(pick, torch.where(sign, mag, -mag), x)
 
 
-def phase_kernels(torch, cs, cfg):
+def phase_kernels(torch, cs, cfg, bucket_t: int):
     """Copy score: kernel vs plain at the decode, dev and training shapes
     (f32, rtol/atol 1e-5: the kernel sums D in another order and, at T > 1,
     takes tanh from one reciprocal a pair of elements), at the training
     shape also with large magnitudes and over two launches (bitwise), at
-    a batch of 85, and the same three shapes in bf16 (1e-2: one bf16
-    rounding of the result). Returns the f32 and the bf16 record: the
-    decode shape's numbers, with the dev and training shapes' under
-    ``dev_*`` and ``train_*``."""
+    a batch of 85, at the bucketed training shape (T = the main train
+    bucket's ``bucket_t``), and the decode, dev, training and bucket shapes
+    in bf16 (1e-2: one bf16 rounding of the result). Returns the f32 and
+    the bf16 record: the decode shape's numbers, with the dev, training and
+    bucket shapes' under ``dev_*``, ``train_*`` and ``bucket_*``."""
     from fira_tpu_torch.ops.timing import time_ms
 
     B, K = cfg.test_batch_size, cfg.beam_size
@@ -181,9 +204,12 @@ def phase_kernels(torch, cs, cfg):
              # tile kernel 128 s a block (train) and 32 (dev); a batch of
              # 85 takes the third tiling, 64 s a block and 2 slices of d
              ("batch85", (85, cfg.tar_len, S, D), f32, 1e-5),
+             # buckets keep S and the batch and shrink T: one partial tile
+             ("bucket", (cfg.batch_size, bucket_t, S, D), f32, 1e-5),
              ("decode", (B * K, 1, S, D), bf16, 1e-2),
              ("dev", (B, cfg.tar_len, S, D), bf16, 1e-2),
-             ("train", (cfg.batch_size, cfg.tar_len, S, D), bf16, 1e-2)]
+             ("train", (cfg.batch_size, cfg.tar_len, S, D), bf16, 1e-2),
+             ("bucket", (cfg.batch_size, bucket_t, S, D), bf16, 1e-2)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = {f32: {}, bf16: {}}
     for name, (b, t, s, d), dtype, tol in cases:
@@ -202,7 +228,7 @@ def phase_kernels(torch, cs, cfg):
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-        if name == "train":
+        if name in ("train", "bucket"):
             check(torch.equal(got, cs.copy_scores(src, tgt, w, bias)),
                   f"copy_score {label}: two launches on the same inputs "
                   f"differ")
@@ -241,25 +267,46 @@ def phase_kernels(torch, cs, cfg):
               f"(wrapper with bias add {wrapper_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
-        if name in ("decode", "dev", "train"):
+        if name in ("decode", "dev", "train", "bucket"):
             pre = "" if name == "decode" else f"{name}_"
             records[dtype].update({
-                f"{pre}max_abs_err": err, f"{pre}ms": ms,
-                f"{pre}plain_ms": plain_ms, f"{pre}bound_ms": bound,
-                f"{pre}bound_by": by})
+                f"{pre}shape": [b, t, s, d], f"{pre}max_abs_err": err,
+                f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+                f"{pre}bound_ms": bound, f"{pre}bound_by": by})
         del src, tgt, got, want
     return records[f32], records[bf16]
 
 
-def phase_kernels_bwd(torch, cs, cfg, dtype):
+def copy_score_bwd_f64(torch, src, tgt, w, dout):
+    """(dsrc, dtgt, dw) of sum(dout * copy score) in f64, written out: with
+    x = tanh(src[b,s] + tgt[b,t]), dsrc and dtgt sum dout w (1 - x^2) over
+    t and s, and dw sums dout x over (b, t, s). One batch row at a time."""
+    dsrc, dtgt, dw = [], [], 0.0
+    wd = w.double().reshape(-1)
+    for b in range(src.shape[0]):
+        x = torch.tanh(src[b].double()[None] + tgt[b].double()[:, None])
+        d = dout[b].double()[..., None]
+        gx = d * wd * (1 - x * x)
+        dsrc.append(gx.sum(0))
+        dtgt.append(gx.sum(1))
+        dw = dw + (d * x).sum((0, 1))
+    return torch.stack(dsrc), torch.stack(dtgt), dw.reshape(w.shape)
+
+
+def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
     """Copy-score backward (K2) against the plain autograd backward at the
-    training shape. f32: rtol 5e-4 / atol 5e-5 (the JAX package's gradient
-    tolerance), also on inputs of magnitude 15-60. bf16: the plain f32
-    autograd on the same bf16 values at 2e-2 (dsrc and dtgt round once to
-    bf16). The plain backward is timed on a retained graph of the plain
-    version on the same inputs, so it runs from the saved (B, T, S, D)
-    intermediate, without the forward."""
-    B, T = cfg.batch_size, cfg.tar_len
+    training shape (``T``: default the full tar_len; the bucketed training
+    shape passes its bucket's), computed in f64 on the same values: dw sums
+    B x T x S terms of both signs, and an f32 plain sum rounds near-zero
+    entries by more than the tolerance below (its own error against f64
+    is printed beside the kernel's). f32: rtol 5e-4 / atol 5e-5 (the JAX
+    package's gradient tolerance), at the full T also on inputs of
+    magnitude 15-60. bf16: 2e-2 (dsrc and dtgt round once to bf16). The
+    plain backward is timed in the kernel's type on a retained graph of the
+    plain version on the same inputs, so it runs from the saved (B, T, S,
+    D) intermediate, without the forward."""
+    full_t = T is None
+    B, T = cfg.batch_size, cfg.tar_len if full_t else T
     S, D = cfg.sou_len + cfg.sub_token_len, cfg.embedding_dim
     bf16 = dtype == torch.bfloat16
     rtol, atol = (2e-2, 2e-2) if bf16 else (5e-4, 5e-5)
@@ -269,19 +316,21 @@ def phase_kernels_bwd(torch, cs, cfg, dtype):
     w = torch.randn((D, 1), device="cuda", generator=gen) * 0.1
     dout = torch.randn((B, T, S), device="cuda", generator=gen).to(dtype)
     got = cs.copy_scores_backward(src, tgt, w, dout)
-    want = cs.copy_scores_backward_reference(src.float(), tgt.float(), w,
-                                             dout.float())
+    want = copy_score_bwd_f64(torch, src, tgt, w, dout)
+    plain32 = cs.copy_scores_backward_reference(src.float(), tgt.float(), w,
+                                                dout.float())
     torch.cuda.synchronize()
-    errs = {}
-    for name, g, r, want_dtype in zip(("dsrc", "dtgt", "dw"), got, want,
-                                      (dtype, dtype, w.dtype)):
+    errs, plain_errs = {}, {}
+    for name, g, r, p, want_dtype in zip(("dsrc", "dtgt", "dw"), got, want,
+                                         plain32, (dtype, dtype, w.dtype)):
         check(g.shape == r.shape and g.dtype == want_dtype,
               f"copy_score_bwd {name}: {tuple(g.shape)} {g.dtype}")
         check(bool(torch.isfinite(g).all()), f"copy_score_bwd {name}: "
               "non-finite")
-        errs[name] = (g.float() - r).abs().max().item()
-        torch.testing.assert_close(g.float(), r, rtol=rtol, atol=atol)
-    del want
+        errs[name] = (g.double() - r).abs().max().item()
+        plain_errs[name] = (p.double() - r).abs().max().item()
+        torch.testing.assert_close(g.double(), r, rtol=rtol, atol=atol)
+    del want, plain32
     again = cs.copy_scores_backward(src, tgt, w, dout)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "copy_score_bwd: two runs on the same inputs differ")
@@ -296,33 +345,37 @@ def phase_kernels_bwd(torch, cs, cfg, dtype):
         out, leaves, dout, retain_graph=True), n=10)
     del out, leaves
     bound, by = copy_score_bwd_bound_ms(B, T, S, D, src.element_size())
-    print(f"[kernels] copy_score_bwd train ({B},{T},{S},{D}) "
-          f"{dname(dtype)}: max_abs_err "
+    print(f"[kernels] copy_score_bwd {'train' if full_t else 'bucket'} "
+          f"({B},{T},{S},{D}) "
+          f"{dname(dtype)}: max_abs_err against f64 "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (rtol {rtol}, atol {atol}), bitwise equal over two runs; "
+          + f" (rtol {rtol}, atol {atol}; the plain f32 backward's: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in plain_errs.items())
+          + "), bitwise equal over two runs; "
           f"kernel (both launches) {ms:.4f} ms (wrapper with the dw sum "
           f"{wrapper_ms:.4f} ms), plain backward {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.1f}% of "
           f"bound", flush=True)
-    if not bf16:
+    if not bf16 and full_t:
         # large magnitudes beside ordinary values
         big = [with_large(torch, src, 0.05, gen),
                with_large(torch, tgt, 0.02, gen)]
         got = cs.copy_scores_backward(big[0], big[1], w, dout)
-        want = cs.copy_scores_backward_reference(big[0], big[1], w, dout)
+        want = copy_score_bwd_f64(torch, big[0], big[1], w, dout)
         torch.cuda.synchronize()
         big_errs = {}
         for name, g, r in zip(("dsrc", "dtgt", "dw"), got, want):
             check(bool(torch.isfinite(g).all()),
                   f"copy_score_bwd large {name}: non-finite")
-            big_errs[name] = (g - r).abs().max().item()
-            torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+            big_errs[name] = (g.double() - r).abs().max().item()
+            torch.testing.assert_close(g.double(), r, rtol=rtol, atol=atol)
         print(f"[kernels] copy_score_bwd train shape, large magnitudes "
               f"(|src| or |tgt| 15-60 on 5 % / 2 % of entries): max_abs_err "
+              f"against f64 "
               + ", ".join(f"{k} {v:.3e}" for k, v in big_errs.items())
               + f" (rtol {rtol}, atol {atol})", flush=True)
-    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by)
+    return dict(shape=[B, T, S, D], max_abs_err=max(errs.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
 def write_corpus(data_dir: str) -> None:
@@ -812,6 +865,442 @@ def dev_gate_check(torch, ctx, run: dict) -> None:
               f"differ between K1 and the plain copy score")
 
 
+# gradients that are zero in exact arithmetic: a softmax ignores a constant
+# shift of its logits, and these biases add one; their values are rounding
+# noise, so they are held relative to the whole gradient's norm
+SHIFT_ONLY = re.compile(r"(k_proj\.bias|^copy_net\.score\.bias)$")
+
+
+def phase_buckets(ctx) -> dict:
+    """The ``auto`` bucket tables of the three splits (as ``cli --buckets
+    auto`` chooses them from the split it reads), each bucket's sample
+    count and the padded-cost shares (the JAX package's analytic cost
+    proxy, not a time): train as it trains (the train table, messages
+    admitted), valid and test as they decode (the decode table, tar
+    full)."""
+    from fira_tpu_torch.data import buckets as B
+
+    ds, cfg = ctx["ds"], ctx["cfg"]
+    tables = {}
+    for split in ("train", "valid", "test"):
+        data = ds.splits[split]
+        table = B.choose_buckets(data, cfg)
+        c = cfg.replace(buckets=table)
+        train = split == "train"
+        geoms = B.bucket_table(c) if train else B.decode_table(c)
+        rep = B.padding_report(data, c, geoms, use_msg=train)
+        print(f"[buckets] {split} ({len(data)} commits): auto table "
+              f"{' '.join(':'.join(map(str, g)) for g in table)} (+ full); "
+              f"{'train' if train else 'decode'} geometries "
+              + ", ".join(f"{r['geom']} n={r['n']}"
+                          + (f" pad {r['padding_frac']}" if r["n"] else "")
+                          for r in rep["buckets"])
+              + f"; padded-cost share single {rep['padding_frac_single']} "
+              f"-> bucketed {rep['padding_frac_bucketed']}, cost ratio "
+              f"{rep['flops_ratio_bucketed_vs_single']}", flush=True)
+        tables[split] = table
+    check(len(tables["train"]) >= 1, "no train bucket chosen")
+    table = B.bucket_table(cfg.replace(buckets=tables["train"]))
+    counts = np.bincount(B.assign_buckets(
+        B.sample_extents(ds.splits["train"], cfg), table),
+        minlength=len(table))
+    tables["main"] = table[int(np.argmax(counts))]
+    check(tables["main"] != B.full_geom(cfg),
+          "most train commits need the full geometry")
+    return tables
+
+
+def bucket_steps(cfg, split, fused: int = 1, accum: int = 1, epochs=(0,)):
+    """The grouped plans of ``epochs`` for ``cfg`` (its buckets, seed and
+    batch size), as ``train.loop.train`` walks them."""
+    from fira_tpu_torch.data import grouping
+
+    group = fused if fused > 1 else accum
+    return [grouping.grouped_plan(split, cfg, group_size=group,
+                                  accum=accum > 1, shuffle=True,
+                                  seed=cfg.seed, epoch=e) for e in epochs]
+
+
+def train_buckets(torch, ctx, dtype: str, tables: dict) -> dict:
+    """One dtype's bucketed training paths, counts from zero around them
+    only: one epoch through ``cli train --buckets auto``; then
+    ``train.loop.train`` with the train table and ``fused_steps=3`` (gate
+    every 3 batches from epoch 0), and with ``accum_steps=2`` (gate every 2
+    batches): at least one fused group must form, and the accum plan must
+    hold a tail padded with an all-invalid micro-batch. K2 must launch once
+    a forward/backward (steps x micro-batches) and K1 once a
+    forward/backward and once a dev batch."""
+    from fira_tpu_torch import cli
+    from fira_tpu_torch.train import loop as train_loop
+
+    cs, ds, work, cfg = ctx["cs"], ctx["ds"], ctx["work"], ctx["cfg"]
+    split = ds.splits["train"]
+    bcfg = cfg.replace(buckets=tables["train"], compute_dtype=dtype)
+    (cli_plan,) = bucket_steps(bcfg, split)
+    cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--config", "fira-full", "--data-dir",
+                   ctx["data_dir"], "--out-dir",
+                   os.path.join(work, f"train_cli_buckets_{dtype}"),
+                   "--epochs", "1", "--dtype", dtype, "--buckets", "auto"])
+    check(rc == 0, f"cli train --buckets auto --dtype {dtype} exited {rc}")
+    cli_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    k1, k2 = cs.copy_scores.launches, cs.copy_scores_backward.launches
+    check(k1 == k2 == len(cli_plan),
+          f"{dtype} cli train --buckets: copy_score {k1}, copy_score_bwd "
+          f"{k2} launches, expected {len(cli_plan)} steps (no gate)")
+    print(f"[train buckets {dtype}] cli train fira-full --buckets auto "
+          f"--dtype {dtype}: 1 epoch, {len(cli_plan)} steps ("
+          + ", ".join(f"{sum(e.geom == g for e in cli_plan)} at "
+                      f"{':'.join(map(str, g))}"
+                      for g in dict.fromkeys(e.geom for e in cli_plan))
+          + f"), wall {cli_wall:.2f} s incl. data load; launches copy_score "
+          f"{k1}, copy_score_bwd {k2} (expected {len(cli_plan)}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB", flush=True)
+    total = {"k1": k1, "k2": k2}
+    runs = {}
+    for label, knobs in (("fused", dict(fused_steps=3, dev_every_batches=3)),
+                         ("accum", dict(accum_steps=2, dev_every_batches=2))):
+        c = bcfg.replace(dev_start_epoch=0, **knobs)
+        plans = bucket_steps(c, split, c.fused_steps, c.accum_steps,
+                             epochs=(0, 1))
+        entries = [e for p in plans for e in p]
+        groups = sum(e.pad_to > 1 for e in entries)
+        padded = sum(len(e.chunks) < e.pad_to for e in entries)
+        check(groups > 0, f"{dtype} {label}: no group formed")
+        if label == "accum":
+            check(padded > 0, f"{dtype} accum: no tail padded with an "
+                  f"all-invalid micro-batch")
+        cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        r = train_loop.train(ds, c, device="cuda",
+                             out_dir=os.path.join(work, f"{label}_{dtype}"),
+                             epochs=2, var_maps=ctx["var_maps"], resume=False)
+        torch.cuda.synchronize()
+        k1, k2 = cs.copy_scores.launches, cs.copy_scores_backward.launches
+        peak = torch.cuda.max_memory_allocated()
+        want_batches = sum(e.pad_to for e in entries)
+        check(r.groups == groups and r.batches == want_batches,
+              f"{dtype} {label}: {r.groups} groups / {r.batches} batches, "
+              f"expected {groups} / {want_batches}")
+        check(k2 == r.batches, f"{dtype} {label}: copy_score_bwd launched "
+              f"{k2} times, expected {r.batches} (steps x micro-batches)")
+        check(k1 == r.batches + r.dev_batches,
+              f"{dtype} {label}: copy_score launched {k1} times, expected "
+              f"{r.batches} + {r.dev_batches} dev batches")
+        check(all(math.isfinite(x) for x in r.losses),
+              f"{dtype} {label}: non-finite loss {r.losses}")
+        check(not r.warnings, f"{dtype} {label}: {r.warnings}")
+        total["k1"] += k1
+        total["k2"] += k2
+        runs[label] = r
+        print(f"[train buckets {dtype}] train.loop.train buckets + "
+              f"{'fused_steps=3' if label == 'fused' else 'accum_steps=2'} "
+              f"(gate every {c.dev_every_batches} batches from epoch 0), 2 "
+              f"epochs: {len(entries)} dispatches, {groups} groups "
+              f"({padded} padded with all-invalid micro-batches), "
+              f"{r.steps} optimizer steps, {r.batches} forward/backward "
+              f"passes; steps/s {r.steps_per_sec:.3f}, training commits/s "
+              f"{r.commits_per_sec:.2f} (gates, checkpoints and the first "
+              f"interval excluded), feed share {r.feed_stall_frac:.4f}; "
+              f"{r.gates} gates x {r.dev_batches // max(r.gates, 1)} dev "
+              f"batches; peak device memory {peak / 2**20:.1f} MiB; "
+              f"launches copy_score {k1}, copy_score_bwd {k2}; losses "
+              + " ".join(f"{x:.4f}" for x in r.losses), flush=True)
+    return dict(total, runs=runs)
+
+
+def _loss_grads(torch, model, batch):
+    model.zero_grad(set_to_none=True)
+    nll, cnt = model(batch)
+    (nll / cnt.clamp(min=1)).backward()
+    return (nll.item(), int(cnt),
+            {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()})
+
+
+def grad_rel_err(torch, got: dict, want: dict) -> tuple:
+    """(largest relative error of a gradient to its norm, its name); the
+    ``SHIFT_ONLY`` gradients relative to the whole gradient's norm."""
+    total = math.sqrt(sum(float((w.double() ** 2).sum())
+                          for w in want.values()))
+    worst = (0.0, "")
+    for name, w in want.items():
+        scale = total if SHIFT_ONLY.search(name) else float(w.norm())
+        worst = max(worst, (float((got[name] - w).norm()) / scale, name))
+    return worst
+
+
+def bucket_checks(torch, ctx, tables: dict) -> None:
+    """Hard checks of the bucketed and grouped steps on the card, f32 (bf16
+    reported): one full chunk of the main train bucket at its geometry
+    against full padding (same weights, dropout off: loss 1e-5 relative,
+    each gradient 1e-4 of its norm); K = 3 fused steps against 3
+    ``train_step`` calls from the same state and generator state (losses
+    1e-6 relative); ``accum_step`` over two micro-batches of 85 against one
+    step on the 170 (dropout off: loss 1e-5 relative, weights rtol 5e-3 /
+    atol 1e-5)."""
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.train import step as step_lib
+    from fira_tpu_torch.train.state import init_state
+
+    ds, cfg = ctx["ds"], ctx["cfg"]
+    split, geom, bs = ds.splits["train"], tables["main"], cfg.batch_size
+    dev = torch.device("cuda")
+    idx = np.where(B.sample_extents(split, cfg).admissible(geom))[0]
+    check(len(idx) >= 3 * bs, f"main bucket holds {len(idx)} commits")
+
+    def on_card(c, chunk, n=bs, g=geom):
+        return batch_to_device(make_batch(split, chunk, c, batch_size=n,
+                                          geom=g), dev, TRAIN_FIELDS)
+
+    quiet = dict(dropout_rate=0.0, gcn_dropout_rate=0.0)
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dtype, **quiet)
+        model = FiraModel(c, device=dev).init_parameters(
+            torch.Generator().manual_seed(SEED)).eval()
+        full = _loss_grads(torch, model, on_card(c, idx[:bs], g=None))
+        buck = _loss_grads(torch, model, on_card(c, idx[:bs]))
+        check(full[1] == buck[1], f"{dtype}: token counts {full[1]} vs "
+              f"{buck[1]}")
+        rel = abs(buck[0] - full[0]) / abs(full[0])
+        g_err, g_name = grad_rel_err(torch, buck[2], full[2])
+        f32 = dtype == "float32"
+        if f32:
+            check(rel <= 1e-5, f"bucket vs full padding loss {rel:.3e}")
+            check(g_err <= 1e-4, f"bucket vs full padding gradient {g_name} "
+                  f"{g_err:.3e}")
+        print(f"[bucket checks {dtype}] one chunk of {bs} at "
+              f"{':'.join(map(str, geom))} vs full padding, same weights, "
+              f"dropout off: loss {buck[0]:.6f} vs {full[0]:.6f} ({rel:.3e} "
+              f"relative{', limit 1e-5' if f32 else ', reported'}), worst "
+              f"gradient {g_name} {g_err:.3e} of its norm"
+              f"{' (limit 1e-4)' if f32 else ' (reported)'}", flush=True)
+        del model, full, buck
+
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dtype)
+        members = [on_card(c, idx[i * bs:(i + 1) * bs]) for i in range(3)]
+        stacked = {k: torch.stack([m[k] for m in members])
+                   for k in members[0]}
+        a, b, again = (init_state(c, dev) for _ in range(3))
+        fused = step_lib.multi_step(a.model, a.optimizer, stacked,
+                                    a.generator).tolist()
+        single = [step_lib.train_step(b.model, b.optimizer, m,
+                                      b.generator).item() for m in members]
+        for m in members:   # the per-step run once more: its own spread
+            step_lib.train_step(again.model, again.optimizer, m,
+                                again.generator)
+        rel = max_rel(fused, single)
+        same, twice = (all(torch.equal(p, q) for p, q in zip(
+            x.model.parameters(), b.model.parameters())) for x in (a, again))
+        if dtype == "float32":
+            check(rel <= 1e-6, f"fused vs per-step losses {rel:.3e}")
+        print(f"[bucket checks {dtype}] 3 fused steps vs 3 train_step calls "
+              f"from the same state and generator state (dropout on): losses "
+              f"{' '.join(f'{x:.6f}' for x in fused)} vs "
+              f"{' '.join(f'{x:.6f}' for x in single)}, {rel:.3e} relative"
+              f"{' (limit 1e-6)' if dtype == 'float32' else ' (reported)'}; "
+              f"weights bitwise equal: {same} (per-step run twice: "
+              f"{twice})", flush=True)
+        del a, b, again, stacked, members
+
+    c = cfg.replace(**quiet)
+    half = bs // 2
+    micro = [on_card(c, idx[:half], n=half),
+             on_card(c, idx[half:2 * half], n=half)]
+    big = on_card(c, idx[:2 * half], n=2 * half)
+    a, b = init_state(c, dev), init_state(c, dev)
+    got = step_lib.accum_step(a.model, a.optimizer,
+                              {k: torch.stack([m[k] for m in micro])
+                               for k in big}, a.generator).item()
+    want = step_lib.train_step(b.model, b.optimizer, big, b.generator).item()
+    rel = abs(got - want) / abs(want)
+    check(rel <= 1e-5, f"accum vs one batch loss {rel:.3e}")
+    worst = 0.0
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        excess = ((p - q).abs() - (1e-5 + 5e-3 * q.abs())).max().item()
+        check(excess <= 0, f"accum vs one batch weight {name} beyond rtol "
+              f"5e-3 / atol 1e-5 by {excess:.3e}")
+        worst = max(worst, (p - q).abs().max().item())
+    print(f"[bucket checks float32] accum_step over 2 micro-batches of {half} "
+          f"vs one step on the {2 * half}, dropout off: loss {got:.6f} vs "
+          f"{want:.6f} ({rel:.3e} relative, limit 1e-5); weights within rtol "
+          f"5e-3 / atol 1e-5 (largest difference {worst:.3e})", flush=True)
+
+
+def bucket_turns(torch, ctx, dtype: str, tables: dict) -> None:
+    """The same two epochs of training steps at the full geometry one step
+    a batch, with the train buckets one step a batch, and with the buckets
+    and fused_steps=3, in turns a b c c b a: steps/s and commits/s on the
+    host clock to a synchronise (no gate), after a warm epoch of each."""
+    from fira_tpu_torch.data import grouping
+    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder
+    from fira_tpu_torch.train import step as step_lib
+    from fira_tpu_torch.train.state import init_state
+
+    ds, cfg = ctx["ds"], ctx["cfg"].replace(compute_dtype=dtype)
+    split, dev = ds.splits["train"], torch.device("cuda")
+    state = init_state(cfg, dev)
+    modes = {"single": (cfg, 1), "buckets": (
+        cfg.replace(buckets=tables["train"]), 1), "fused3": (
+        cfg.replace(buckets=tables["train"], fused_steps=3), 3)}
+
+    def run(mode: str, epochs) -> tuple:
+        c, k = modes[mode]
+        steps = commits = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for plan in bucket_steps(c, split, fused=k, epochs=epochs):
+            with Feeder(grouping.grouped_assembly_tasks(
+                    split, plan, c, bucketed=bool(c.buckets)),
+                    num_workers=c.feeder_workers, depth=c.feeder_depth,
+                    device=dev, fields=TRAIN_FIELDS) as feed:
+                for entry, item in zip(plan, feed):
+                    fn = (step_lib.train_step if entry.pad_to == 1
+                          else step_lib.multi_step)
+                    fn(state.model, state.optimizer, item.device,
+                       state.generator)
+                    steps += entry.pad_to
+                    commits += item.n_valid
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return steps / wall, commits / wall
+
+    for mode in modes:
+        run(mode, [0])
+    got = {m: [] for m in modes}
+    for mode in ("single", "buckets", "fused3", "fused3", "buckets",
+                 "single"):
+        got[mode].append(run(mode, [1, 2]))
+    print(f"[turns {dtype}] the same 2 epochs, in turns a b c c b a: "
+          + "; ".join(f"{m}: steps/s "
+                      + " ".join(f"{r[0]:.3f}" for r in v)
+                      + ", commits/s " + " ".join(f"{r[1]:.1f}" for r in v)
+                      for m, v in got.items()), flush=True)
+    del state
+
+
+def decode_best_probs(torch, ctx, dtype: str, state_dict, positions,
+                      cfg) -> dict:
+    """Each test position's best-beam probability as ``run_test`` over
+    ``cfg`` (buckets or not) computes it: the position's batch rebuilt as
+    that run packs it and beam-decoded again."""
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import batch_to_device
+    from fira_tpu_torch.decode.beam import beam_search_cached
+    from fira_tpu_torch.model.model import FiraModel
+
+    data, bs = ctx["ds"].splits["test"], cfg.test_batch_size
+    if cfg.buckets:
+        plan = B.decode_plan(data, cfg)
+    else:
+        plan = [(np.arange(i, min(i + bs, len(data))), None)
+                for i in range(0, len(data), bs)]
+    model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
+    model.load_state_dict(state_dict)
+    out = {}
+    for chunk, geom in plan:
+        rows = [r for r, p in enumerate(chunk) if int(p) in positions]
+        if not rows:
+            continue
+        batch = batch_to_device(make_batch(data, chunk, cfg, batch_size=bs,
+                                           geom=geom), torch.device("cuda"))
+        _, probs = beam_search_cached(model, batch, cfg)
+        for r in rows:
+            out[int(chunk[r])] = float(probs[r].max())
+    return out
+
+
+def test_buckets(torch, ctx, run: dict, main: dict) -> dict:
+    """One dtype's bucketed test path, counts from zero around it only:
+    ``cli test --buckets auto`` of the checkpoint the main path decoded,
+    against that unbucketed decode. f32: each line that differs must be a
+    near-tie (the two runs' best-beam probabilities for the sample within
+    1e-5 relative), and at most 1 of them; bf16: the count is reported.
+    Then the decode loop with and without buckets in turns, and the paper's
+    metrics of both."""
+    from fira_tpu_torch import cli
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.decode.runner import run_test
+    from fira_tpu_torch.model.model import FiraModel
+
+    cs, ds, work, cfg = ctx["cs"], ctx["ds"], ctx["work"], ctx["cfg"]
+    dtype = run["gated"].compute_dtype
+    data = ds.splits["test"]
+    n_test = len(data)
+    bcfg = cfg.replace(buckets=B.choose_buckets(data, cfg),
+                       compute_dtype=dtype)
+    plan = B.decode_plan(data, bcfg)
+    out_dir = os.path.join(work, f"out_buckets_{dtype}")
+    cs.copy_scores.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["test", "--config", "fira-full", "--data-dir",
+                   ctx["data_dir"], "--out-dir", out_dir, "--ckpt-dir",
+                   run["ckpt_dir"], "--dtype", dtype, "--buckets", "auto"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = cs.copy_scores.launches
+    check(rc == 0, f"cli test --buckets auto --dtype {dtype} exited {rc}")
+    want = len(plan) * (cfg.tar_len - 1)
+    check(k1 == want, f"{dtype}: copy_score launched {k1} times on the "
+          f"bucketed test path, expected {want}")
+    out_file = os.path.join(out_dir, "output_fira")
+    with open(out_file, "rb") as f:
+        out_bytes = f.read()
+    a = main["out_bytes"].decode().split("\n")
+    b = out_bytes.decode().split("\n")
+    check(len(a) == len(b) == n_test + 1, f"{len(b) - 1} lines for {n_test}")
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    note = ""
+    if diff:
+        ties = [decode_best_probs(torch, ctx, dtype, run["state_dict"],
+                                  set(diff), c)
+                for c in (cfg.replace(compute_dtype=dtype), bcfg)]
+        rels = [abs(ties[1][i] - ties[0][i]) / abs(ties[0][i]) for i in diff]
+        note = (" (best-beam probabilities of those samples, unbucketed vs "
+                "bucketed: " + ", ".join(
+                    f"#{i} {ties[0][i]:.8g} vs {ties[1][i]:.8g}"
+                    for i in diff) + ")")
+        if dtype == "float32":
+            check(len(diff) <= 1 and max(rels) <= 1e-5,
+                  f"f32 bucketed decode: {len(diff)} lines differ{note}")
+    print(f"[main buckets {dtype}] cli test --buckets auto --dtype {dtype}: "
+          f"{len(plan)} batches at "
+          + ", ".join(f"{sum(g == h for _, h in plan)} x "
+                      f"{':'.join(map(str, g))}"
+                      for g in dict.fromkeys(g for _, g in plan))
+          + f"; copy_score launches {k1} (expected {want}); wall "
+          f"{wall:.2f} s incl. data and weight load = {n_test / wall:.2f} "
+          f"commits/s; {len(diff)} of {n_test} lines differ from the "
+          f"unbucketed decode{note}", flush=True)
+    model = FiraModel(cfg, device="cuda", dtype=dtype)
+    model.load_state_dict(run["state_dict"])
+    rates = {"unbucketed": [], "bucketed": []}
+    for label in ("unbucketed", "bucketed", "bucketed", "unbucketed"):
+        c = bcfg if label == "bucketed" else cfg.replace(compute_dtype=dtype)
+        t0 = time.perf_counter()
+        run_test(model, ds, c, out_dir=os.path.join(work, f"turn_{dtype}"),
+                 var_maps=ctx["var_maps"])
+        torch.cuda.synchronize()
+        rates[label].append(n_test / (time.perf_counter() - t0))
+    print(f"[main buckets {dtype}] decode loop commits/s in turns u b b u: "
+          + "; ".join(f"{k} " + " ".join(f"{r:.2f}" for r in v)
+                      for k, v in rates.items())
+          + f"; metrics of the bucketed output_fira: "
+          f"{paper_metrics(out_file, ctx['gt_file'])} (unbucketed: "
+          f"{paper_metrics(main['out_file'], ctx['gt_file'])})", flush=True)
+    return dict(k1=k1)
+
+
+
 def main() -> int:
     import torch
 
@@ -863,9 +1352,14 @@ def main() -> int:
     ctx = dict(cs=cs, ds=ds, cfg=cfg, work=work, data_dir=data_dir,
                var_maps=var_maps, kind=kind, gt_file=gt_file)
 
-    fwd32, fwd16 = phase_kernels(torch, cs, cfg)
+    tables = phase_buckets(ctx)
+    bucket_t = tables["main"].tar_len
+    fwd32, fwd16 = phase_kernels(torch, cs, cfg, bucket_t)
     bwd32 = phase_kernels_bwd(torch, cs, cfg, torch.float32)
     bwd16 = phase_kernels_bwd(torch, cs, cfg, torch.bfloat16)
+    for rec, dt in ((bwd32, torch.float32), (bwd16, torch.bfloat16)):
+        rec.update({f"bucket_{k}": v for k, v in phase_kernels_bwd(
+            torch, cs, cfg, dt, T=bucket_t).items()})
 
     # --- the training paths: f32 (its CLI epoch on the loop's own thread,
     # feeder_workers=0), then bf16 (this slice's path, 2 workers) ---
@@ -886,17 +1380,34 @@ def main() -> int:
     for run in (run32, run16):
         dev_gate_check(torch, ctx, run)
 
+    # --- bucketed geometry and grouped steps ---
+    tb32 = train_buckets(torch, ctx, "float32", tables)
+    tb16 = train_buckets(torch, ctx, "bfloat16", tables)
+    bucket_checks(torch, ctx, tables)
+    for dtype in ("float32", "bfloat16"):
+        bucket_turns(torch, ctx, dtype, tables)
+
     # --- profile one warm training step: f32 plain copy score, f32
-    # kernels, bf16 kernels ---
+    # kernels, bf16 kernels; then one at the main train bucket's geometry
+    # (a full chunk of its commits) in each dtype ---
+    from fira_tpu_torch.data import buckets as B
+
+    geom = tables["main"]
+    in_bucket = np.where(B.sample_extents(ds.splits["train"], cfg)
+                         .admissible(geom))[0][:cfg.batch_size]
     for dtype in ("float32", "bfloat16"):
         c = cfg.replace(compute_dtype=dtype)
         state = init_state(c, "cuda")
-        host = make_batch(ds.splits["train"], list(range(cfg.batch_size)), c,
-                          batch_size=cfg.batch_size)
-        batch = batch_to_device(host, torch.device("cuda"), TRAIN_FIELDS)
-        fns = ((("plain copy score", cs.copy_scores_reference),)
-               if dtype == "float32" else ()) + (("kernels", cs.copy_scores),)
-        for label, fn in fns:
+        cases = [(None, list(range(cfg.batch_size)), "plain copy score",
+                  cs.copy_scores_reference)] if dtype == "float32" else []
+        cases += [(None, list(range(cfg.batch_size)), "kernels",
+                   cs.copy_scores),
+                  (geom, in_bucket, f"kernels, bucket "
+                   f"{':'.join(map(str, geom))}", cs.copy_scores)]
+        for g, chunk, label, fn in cases:
+            host = make_batch(ds.splits["train"], chunk, c,
+                              batch_size=cfg.batch_size, geom=g)
+            batch = batch_to_device(host, torch.device("cuda"), TRAIN_FIELDS)
             state.model.copy_net.score_fn = fn
             profile_one(torch, f"one training step (batch {cfg.batch_size}, "
                         f"{dtype}, {label})", lambda: train_step(
@@ -907,8 +1418,10 @@ def main() -> int:
     # --- the test paths: each dtype's CLI decodes its trained checkpoint ---
     main32 = test_path(torch, ctx, run32)
     decode_plain(torch, ctx, run32, main32)
+    mb32 = test_buckets(torch, ctx, run32, main32)
     main16 = test_path(torch, ctx, run16)
     decode_plain(torch, ctx, run16, main16)
+    mb16 = test_buckets(torch, ctx, run16, main16)
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -931,14 +1444,15 @@ def main() -> int:
                replaces="fira_tpu/ops/copy_score.py:148", **common)
     kernels = [
         dict(name="copy_score_fwd", dtype="float32",
-             launches=run32["k1"] + main32["k1"], **fwd, **fwd32),
+             launches=run32["k1"] + main32["k1"] + tb32["k1"] + mb32["k1"],
+             **fwd, **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
-             launches=run16["k1"] + main16["k1"], **fwd, **fwd16),
-        dict(name="copy_score_bwd", dtype="float32", launches=run32["k2"],
-             **bwd, **bwd32),
+             launches=run16["k1"] + main16["k1"] + tb16["k1"] + mb16["k1"],
+             **fwd, **fwd16),
+        dict(name="copy_score_bwd", dtype="float32",
+             launches=run32["k2"] + tb32["k2"], **bwd, **bwd32),
         dict(name="copy_score_bwd_bf16", dtype="bfloat16",
-             launches=run16["k2"],
-             **bwd, **bwd16)]
+             launches=run16["k2"] + tb16["k2"], **bwd, **bwd16)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,18 @@
 the CUDA card unless ``--device cpu`` is given; with no card it raises
 instead of carrying on on the CPU. ``--dtype bfloat16`` computes in bf16
 (training and decoding; parameters, Adam and checkpoints stay f32, so an
-f32 ``best.pt`` decodes in bf16). A config the port does not run, or a
-bad knob, exits 2 with the knob named.
+f32 ``best.pt`` decodes in bf16). ``--buckets auto`` pads each batch to
+the smallest of a few geometries chosen from the split the command reads
+(``train``: the train split; ``test``: the test split); ``--fused-steps
+K`` runs K training steps from one stacked copy to the card and
+``--accum-steps A`` makes one optimizer step from A batches. A config the
+port does not run, or a bad knob, exits 2 with the knob named.
 
 Example:
     python -m fira_tpu_torch.cli train --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli test --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli train --dtype bfloat16 --feeder-workers 2
+    python -m fira_tpu_torch.cli train --buckets auto --fused-steps 2
 """
 
 from __future__ import annotations
@@ -60,6 +65,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feeder-workers", type=int, default=None, metavar="N",
                    help="threads assembling batches ahead of the loop "
                         "(0: on the loop's thread); must be >= 0")
+    p.add_argument("--fused-steps", type=int, default=None, metavar="K",
+                   help="train: K steps from one stacked copy of K "
+                        "same-geometry batches (1 = a step a batch); the "
+                        "dev gate and the log line round to group edges")
+    p.add_argument("--accum-steps", type=int, default=None, metavar="A",
+                   help="train: one optimizer step from A micro-batches, "
+                        "normalised over their summed token count (A=4 at "
+                        "batch 170 is the reference's 4-GPU batch 680)")
+    p.add_argument("--buckets", default=None, metavar="SPEC",
+                   help="padding geometries: 'off' (default: every batch "
+                        "at the full geometry), 'auto' (3 chosen from the "
+                        "split's length histograms) or "
+                        "'AST:EDGES:TAR[,AST:EDGES:TAR...]', each at most "
+                        "the config's full values; each sample packs into "
+                        "its smallest admissible bucket")
     return p
 
 
@@ -87,6 +107,31 @@ def _load_var_maps(data_dir: str) -> Optional[List[dict]]:
     return None
 
 
+def resolve_buckets(spec: str, cfg, split):
+    """``--buckets`` for ``cfg`` (with its vocabulary sizes) and the split
+    the command reads: a table of (ast, edges, tar) tuples, () for 'off',
+    or a message naming the bad entry."""
+    from fira_tpu_torch.data import buckets as buckets_lib
+
+    if spec == "off":
+        return ()
+    if spec == "auto":
+        return buckets_lib.choose_buckets(split, cfg)
+    entries = []
+    for entry in spec.split(","):
+        fields = entry.split(":")
+        if len(fields) != 3 or not all(f.strip().isdigit() for f in fields):
+            return (f"--buckets entry {entry!r} is not AST:EDGES:TAR "
+                    f"(three integers)")
+        entries.append(tuple(int(f) for f in fields))
+    table = tuple(entries)
+    try:
+        buckets_lib.bucket_table(cfg.replace(buckets=table))
+    except ValueError as e:
+        return f"--buckets invalid: {e}"
+    return table
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -106,6 +151,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = cfg.replace(compute_dtype=args.dtype)
     if args.feeder_workers is not None:
         cfg = cfg.replace(feeder_workers=args.feeder_workers)
+    if args.fused_steps is not None:
+        cfg = cfg.replace(fused_steps=args.fused_steps)
+    if args.accum_steps is not None:
+        cfg = cfg.replace(accum_steps=args.accum_steps)
+    # an accum request drops a fused value the config carries, unless
+    # --fused-steps pinned it (then the two conflict and exit 2 below)
+    if (cfg.accum_steps > 1 and cfg.fused_steps > 1
+            and args.fused_steps is None):
+        cfg = cfg.replace(fused_steps=1)
     errs = unsupported(cfg)
     if errs:
         for e in errs:
@@ -115,11 +169,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     suffix = f"_{args.ablation}" if args.ablation else ""
     ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, f"ckpt{suffix}")
 
+    def load_data():
+        """The corpus, and the config with its vocabulary sizes and
+        ``--buckets`` resolved (from the split the command reads: auto
+        reads its length histograms), or an exit code."""
+        dataset = FiraDataset(args.data_dir, cfg)
+        if not args.buckets:
+            return dataset, dataset.cfg
+        split = dataset.splits["train" if args.command == "train" else "test"]
+        table = resolve_buckets(args.buckets, dataset.cfg, split)
+        if isinstance(table, str):
+            print(f"fira_tpu_torch: config error: {table}", file=sys.stderr)
+            return 2
+        if table:
+            print(f"buckets: {', '.join(f'{a}:{e}:{t}' for a, e, t in table)}"
+                  f" (+ full fallback)")
+        return dataset, dataset.cfg.replace(buckets=table)
+
     if args.command == "train":
         from fira_tpu_torch.train.loop import train
 
-        dataset = FiraDataset(args.data_dir, cfg)
-        result = train(dataset, dataset.cfg, device=device,
+        loaded = load_data()
+        if not isinstance(loaded, tuple):
+            return loaded
+        dataset, cfg = loaded
+        result = train(dataset, cfg, device=device,
                        out_dir=args.out_dir, ckpt_dir=ckpt_dir,
                        epochs=args.epochs,
                        var_maps=_load_var_maps(args.data_dir),
@@ -146,8 +220,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               "decoding the LATEST training state", file=sys.stderr)
         state_dict = ckpt.load_latest()["model"]
 
-    dataset = FiraDataset(args.data_dir, cfg)
-    cfg = dataset.cfg
+    loaded = load_data()
+    if not isinstance(loaded, tuple):
+        return loaded
+    dataset, cfg = loaded
     model = FiraModel(cfg, device=device, dtype=cfg.compute_dtype)
     model.load_state_dict(state_dict)
     metrics = run_test(model, dataset, cfg, out_dir=args.out_dir,

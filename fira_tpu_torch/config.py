@@ -68,6 +68,10 @@ class FiraConfig:
     # compute dtype (a no-op in float32) ---
     compute_dtype: str = "float32"
     stable_residual: bool = True
+    # Selects whether the JAX package recomputes the copy head's
+    # intermediate in the backward. In the port it selects nothing: K2
+    # always recomputes it from the saved (src, tgt, w), whatever this
+    # field says.
     copy_head_remat: bool = True
 
     # --- decode (the port runs the cached, prob-space, fused, full-scan
@@ -78,9 +82,9 @@ class FiraConfig:
     beam_early_exit: bool = False
 
     # --- knobs of JAX-package paths the port does not run yet (engine,
-    # serving, ingest, fault injection, grouped and accumulated steps,
-    # buckets, ring attention); kept so
-    # configs read alike ---
+    # serving, ingest, fault injection, ring attention); kept so configs
+    # read alike. decode_tar_buckets is the engine's tar-bucketed decode:
+    # refused until the engine is ported ---
     decode_engine: bool = False
     engine_slots: int = 0
     engine_prefill_depth: int = 2
@@ -122,6 +126,13 @@ class FiraConfig:
     # selects nothing: dropout draws from a torch.Generator
     # (train/state.init_state), whatever this field says.
     rng_impl: str = "threefry"
+    # train/loop.py: A > 1 accumulates A micro-batches of batch_size into
+    # one optimizer step normalised over their summed token count
+    # (train/step.accum_step; epoch tails pad to A with all-invalid
+    # micro-batches). K > 1 runs K steps from one stacked copy to the
+    # card (train/step.multi_step; tails of fewer than K run a step at a
+    # time); the dev gate fires before a group, so pick K dividing
+    # dev_every_batches. At most one of the two may exceed 1.
     accum_steps: int = 1
     fused_steps: int = 1
     # data/feeder.Feeder: threads assembling batches ahead of the train
@@ -129,6 +140,9 @@ class FiraConfig:
     # and the most batches in flight
     feeder_workers: int = 2
     feeder_depth: int = 4
+    # data/buckets.py: padding geometries (ast_change_len, max_edges,
+    # tar_len), each at most the full values; the full geometry is the
+    # implicit fallback. () = off: every batch at the full geometry.
     buckets: tuple = ()
     seq_shards: int = 0
 
@@ -231,7 +245,7 @@ _PORTED_PATH = {
     "beam_early_exit": False,
     "decode_engine": False,
     "typed_edges": False,
-    "buckets": (),
+    "decode_tar_buckets": False,
     "kv_dtype": "f32",
     "serve_precision": "f32",
     "spec_decode": "off",
@@ -257,8 +271,13 @@ def unsupported(cfg: FiraConfig) -> List[str]:
     if cfg.seq_shards > 1:
         errs.append(f"seq_shards={cfg.seq_shards} (the port runs dense "
                     f"cross-attention only)")
-    for knob in ("accum_steps", "fused_steps"):
-        if getattr(cfg, knob) != 1:
-            errs.append(f"{knob}={getattr(cfg, knob)} (the port runs one "
-                        f"optimizer step per batch only)")
+    for knob, what in (("fused_steps", "steps a stacked group"),
+                       ("accum_steps", "micro-batches an optimizer step")):
+        if getattr(cfg, knob) < 1:
+            errs.append(f"{knob}={getattr(cfg, knob)} (must be >= 1: the "
+                        f"{what}; 1 = one step a batch)")
+    if cfg.fused_steps > 1 and cfg.accum_steps > 1:
+        errs.append(f"fused_steps={cfg.fused_steps} and accum_steps="
+                    f"{cfg.accum_steps} (mutually exclusive: one stacks "
+                    f"steps, one accumulates gradients; set one to 1)")
     return errs

@@ -1,8 +1,10 @@
 """Fixed-shape batch assembly (the JAX package's ``data/batching.py``).
 
-Every batch has the single full config geometry. The final partial batch of
-a split is padded with zeroed samples whose labels are all <pad>; a
-``valid`` bool array marks real rows for eval bookkeeping. COO edges are
+Every batch has the full config geometry, or, under ``cfg.buckets``
+(data/buckets.py), one of a declared set of smaller padding geometries
+through ``make_batch(..., geom=...)``. The final partial batch of a split
+is padded with zeroed samples whose labels are all <pad>; a ``valid`` bool
+array marks real rows for eval bookkeeping. COO edges are
 padded per-sample to cfg.max_edges (pad entries scatter zero, a no-op on
 the device). Ids travel int16/int8 and edge indices int16 to keep the
 host->device copy small; the model upcasts them on the device.
@@ -68,9 +70,12 @@ _VEC_EDGE_CROSSOVER = 64
 
 
 def _gather_edges_vectorized(split: ProcessedSplit, indices: np.ndarray,
-                             cfg: FiraConfig, bs: int):
+                             cfg: FiraConfig, bs: int, drop: int = 0):
     """Vectorized COO gather of each sample's ragged edge slice into the
-    padded (bs, max_edges) wire arrays.
+    padded (bs, max_edges) wire arrays. ``drop``: trailing entries to shed
+    from every slice: under a bucketed geometry the truncated pad nodes'
+    self-loops sit exactly there (``build_adjacency`` appends one
+    self-loop per full-geometry node, ascending, after all family edges).
 
     Addressing (offsets, counts, the overflow check) is always vectorized.
     The copies pick a regime by mean edges per row (see
@@ -81,7 +86,12 @@ def _gather_edges_vectorized(split: ProcessedSplit, indices: np.ndarray,
     idx = np.asarray(indices, dtype=np.intp)
     offsets = split.arrays["edge_offsets"]
     lo = offsets[idx]
-    counts = (offsets[idx + 1] - lo).astype(np.intp)
+    counts = (offsets[idx + 1] - lo - drop).astype(np.intp)
+    if counts.size and counts.min() < 0:
+        row = int(np.argmax(counts < 0))
+        raise ValueError(
+            f"sample {idx[row]}: {counts[row] + drop} edges < geometry "
+            f"drop {drop} — not a self-looped adjacency")
     if counts.size and counts.max() > cfg.max_edges:
         row = int(np.argmax(counts > cfg.max_edges))  # first offender
         raise ValueError(
@@ -129,15 +139,45 @@ def _gather_edges_vectorized(split: ProcessedSplit, indices: np.ndarray,
 
 
 def make_batch(split: ProcessedSplit, indices: np.ndarray, cfg: FiraConfig,
-               batch_size: Optional[int] = None) -> Batch:
-    """Gather + pad a batch. ``indices`` may be shorter than batch_size."""
+               batch_size: Optional[int] = None, *, geom=None) -> Batch:
+    """Gather + pad a batch. ``indices`` may be shorter than batch_size.
+
+    ``geom``: an optional ``data.buckets.BucketGeom`` to pad to in place of
+    the config's full geometry: the ast_change node tail, msg/msg_tar
+    positions and the COO pad shrink to the bucket's (ast_len, max_edges,
+    tar_len), and the truncated pad nodes' self-loops (the trailing
+    ``graph_len - bucket_graph_len`` entries of each ragged slice) go with
+    them. Exact for every real value. A sample that does not fit the
+    geometry (nonzero data in a truncated region, an edge into a truncated
+    node) raises ``ValueError``: the packer owns admissibility, this
+    function enforces it."""
+    drop = 0
+    if geom is not None:
+        from fira_tpu_torch.data.buckets import BucketGeom, _validated
+
+        g = _validated(cfg, BucketGeom(*geom))
+        drop = cfg.ast_change_len - g.ast_len
+        cfg = cfg.replace(ast_change_len=g.ast_len, max_edges=g.max_edges,
+                          tar_len=g.tar_len)
     bs = batch_size or len(indices)
     n_real = len(indices)
     if n_real > bs:
         raise ValueError(f"{n_real} indices exceed batch_size={bs}")
+    # per-field bucketed width (absent = the full width stays)
+    widths = ({"ast_change": cfg.ast_change_len, "msg": cfg.tar_len,
+               "msg_tar": cfg.tar_len} if geom is not None else {})
     batch: Batch = {}
     for f in ARRAY_FIELDS:
         src = split.arrays[f][indices]
+        w = widths.get(f)
+        if w is not None and w < src.shape[1]:
+            tail = src[:, w:]
+            if tail.any():
+                row = int(np.argmax(tail.any(axis=1)))
+                raise ValueError(
+                    f"sample {indices[row]}: nonzero {f!r} data beyond "
+                    f"bucket width {w} — sample does not fit the geometry")
+            src = src[:, :w]
         if n_real < bs:
             pad = np.zeros((bs - n_real,) + src.shape[1:], dtype=src.dtype)
             src = np.concatenate([src, pad])
@@ -178,7 +218,15 @@ def make_batch(split: ProcessedSplit, indices: np.ndarray, cfg: FiraConfig,
             f"graph_len={cfg.graph_len} exceeds int16 edge-index range "
             f"(max index {np.iinfo(np.int16).max}); widen the edge dtype")
     senders, receivers, values, kinds = _gather_edges_vectorized(
-        split, indices, cfg, bs)
+        split, indices, cfg, bs, drop)
+    if geom is not None and len(indices):
+        # admissibility backstop: an edge into a truncated node would
+        # scatter outside the bucket's adjacency
+        hi = max(int(senders.max()), int(receivers.max()))
+        if hi >= cfg.graph_len:
+            raise ValueError(
+                f"edge references node {hi} >= bucketed graph_len "
+                f"{cfg.graph_len} — sample does not fit the geometry")
     if cfg.sort_edges:
         senders, receivers, values, kinds = sort_edge_rows(
             senders, receivers, values, kinds, cfg.graph_len)

@@ -17,7 +17,10 @@ ahead of the training loop, the dev gate and the test decode:
   pinned memory, ids upcast to int64 on the device), on its own current
   stream, so the copies queue behind the steps already issued and need no
   cross-stream ordering. Workers only assemble. (Copying from the workers
-  on a side stream gave no more steps/s on the card: see ``PERF.md``.)
+  on a side stream gave no more steps/s on the card: see ``PERF.md``.) A
+  stacked group (data/grouping.py: leading axis K or A, ``valid`` 2-D)
+  goes as one copy per field. Keys starting with "_" (``_positions``,
+  ``_tag``) are host-only and never ship.
 - **errors**: every task exception is wrapped in :class:`FeederTaskError`
   with the task's sequence number and its ``note`` (split positions). A
   failing task is retried up to ``retries`` times with a linear backoff
@@ -66,7 +69,8 @@ TRAIN_FIELDS = DEVICE_FIELDS + ("msg", "msg_tar")
 
 def batch_to_device(host: Dict[str, np.ndarray], device: torch.device,
                     fields=DEVICE_FIELDS) -> Dict[str, torch.Tensor]:
-    """Copy ``fields`` of a host batch to ``device`` on the current
+    """Copy ``fields`` of a host batch (or of a stacked group, every
+    field with a leading group axis) to ``device`` on the current
     stream. Ids and edge indices travel in their narrow wire types and are
     upcast to int64 on the device; edge values stay f32, or arrive as bf16
     bits in uint16 (``batching.bf16_bits``) and are viewed as
@@ -119,6 +123,7 @@ class FedBatch:
                         # error-carrying item (record mode)
     device: Any         # the fields on the device (== host when put=False)
     n_valid: int        # real (non-pad) rows, counted before the transfer
+                        # (over every member of a stacked group)
     stall_s: float      # consumer time in __next__ for THIS item
     queue_depth: int    # ready-but-unconsumed items when consumer arrived
     error: Optional[BaseException] = None  # FeederTaskError in record mode
@@ -387,14 +392,18 @@ class Feeder:
         }
 
 
-def task_note(positions, *, site: Optional[str] = None) -> str:
+def task_note(positions, *, geom_tag: Optional[str] = None,
+              site: Optional[str] = None) -> str:
     """Task identity for FeederTaskError: the split positions the task
-    assembles (the first six), and the call site when known."""
+    assembles (the first six), and the bucket geometry and call site when
+    known."""
     pos = [int(p) for p in positions]
     shown = ", ".join(str(p) for p in pos[:6])
     if len(pos) > 6:
         shown += f", ... {len(pos) - 6} more"
     parts = [f"split positions [{shown}]"]
+    if geom_tag:
+        parts.append(f"bucket {geom_tag}")
     if site:
         parts.append(site)
     return "; ".join(parts)

@@ -12,12 +12,23 @@ Reference semantics kept, as in the JAX package:
   ``train_process`` line per gate (run_model.py:92);
 - ``latest.pt`` at every epoch's end, and resume from it.
 
-Each epoch walks the JAX loop's batch order with buckets off and one step
-per batch: ``epoch_index_chunks(n, shuffle=True, seed=cfg.seed,
-epoch=epoch)``. The batches come from a ``data.feeder.Feeder`` with
-``cfg.feeder_workers`` threads, which assemble them and queue their copies
-to the device ahead of the step (``feeder_workers=0``: on the loop's own
-thread); the dev gate takes its batches the same way. The model computes in
+Each epoch walks the JAX loop's batch order through one scheduler,
+``data.grouping.grouped_plan`` (``seed=cfg.seed``, the epoch's
+permutation): one step a batch by default; under ``cfg.buckets`` each
+batch at its bucket's geometry (data/buckets.py); under ``fused_steps=K``
+groups of K same-geometry batches run as K steps from one stacked copy
+(``step.multi_step``; tails a step at a time); under ``accum_steps=A``
+groups of A micro-batches make one optimizer step (``step.accum_step``;
+tails padded with all-invalid micro-batches). The gate and the log line
+count real batches, as the JAX loop: an item of k real batches starting at
+batch ``idx`` is due a gate when ``[idx, idx + k)`` holds a multiple of
+``dev_every_batches``, and the gate runs before the item. The dev gate
+packs with the decode table (``tar_len`` full) and restores split order.
+
+The batches come from a ``data.feeder.Feeder`` with ``cfg.feeder_workers``
+threads, which assemble them and queue their copies to the device ahead
+of the step (``feeder_workers=0``: on the loop's own thread); the dev gate
+takes its batches the same way. The model computes in
 ``cfg.compute_dtype``; parameters, Adam and checkpoints stay f32. The host
 waits for the device only at the 10-batch loss line, at a dev gate and at
 an epoch's end; throughput is measured between those points, with the dev
@@ -38,6 +49,8 @@ import numpy as np
 import torch
 
 from fira_tpu_torch.config import FiraConfig
+from fira_tpu_torch.data import buckets as buckets_lib
+from fira_tpu_torch.data import grouping
 from fira_tpu_torch.data.batching import epoch_index_chunks
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder, assembly_tasks
@@ -74,23 +87,35 @@ class TrainLog:
 
 def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
             var_maps: Optional[List[Dict[str, str]]] = None,
-            split: str = "valid") -> tuple:
+            split: str = "valid", plan=None) -> tuple:
     """Greedy teacher-forced validation (run_model.py:118-184). Returns
     (mean sentence BLEU over the split, dev_output text in split order,
-    number of dev batches)."""
+    number of dev batches). Under ``cfg.buckets`` the batches follow
+    ``plan`` (default ``buckets.decode_plan``; it never changes, so
+    ``train`` computes it once) and each line goes to its ``_positions``
+    place."""
     data = dataset.splits[split]
     vocab = dataset.word_vocab
     indices = dataset.split_indices[split]
     device = next(model.parameters()).device
     bs = cfg.test_batch_size
     total_bleu = 0.0
-    lines: List[str] = []
-    chunks = epoch_index_chunks(len(data), cfg, batch_size=bs)
-    with Feeder(assembly_tasks(data, chunks, cfg, batch_size=bs),
-                num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
-                device=device, fields=TRAIN_FIELDS) as feed:
+    lines: List[tuple] = []   # (split position, line)
+    if cfg.buckets:
+        plan = plan if plan is not None else buckets_lib.decode_plan(data,
+                                                                     cfg)
+        tasks, n_batches = (buckets_lib.bucketed_assembly_tasks(
+            data, plan, cfg, batch_size=bs), len(plan))
+    else:
+        chunks = epoch_index_chunks(len(data), cfg, batch_size=bs)
+        tasks, n_batches = (assembly_tasks(data, chunks, cfg, batch_size=bs),
+                            len(chunks))
+    with Feeder(tasks, num_workers=cfg.feeder_workers,
+                depth=cfg.feeder_depth, device=device,
+                fields=TRAIN_FIELDS) as feed:
         for item in feed:
             host = item.host
+            positions = host.get("_positions")   # bucketed stream only
             ids = step_lib.dev_step(model, item.device).cpu().numpy()
             for i in np.flatnonzero(host["valid"]):
                 hyp = cook_prediction(ids[i].tolist(), host["diff"][i],
@@ -98,12 +123,14 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
                 ref = reference_words(host["msg"][i], vocab)
                 b = nltk_sentence_bleu([ref], hyp)
                 total_bleu += b
-                pos = len(lines)
+                pos = len(lines) if positions is None else int(positions[i])
                 var_map = (var_maps[indices[pos]]
                            if var_maps is not None else None)
-                lines.append(" ".join(deanonymize(hyp, var_map)) + f",{b}")
-    return (total_bleu / max(len(data), 1), "\n".join(lines) + "\n",
-            len(chunks))
+                lines.append(
+                    (pos, " ".join(deanonymize(hyp, var_map)) + f",{b}"))
+    lines.sort(key=lambda r: r[0])
+    return (total_bleu / max(len(data), 1),
+            "\n".join(line for _, line in lines) + "\n", n_batches)
 
 
 @dataclasses.dataclass
@@ -123,10 +150,18 @@ class TrainResult:
     gates: int          # dev gates run
     dev_batches: int    # dev_predict calls over all gates
     dev_seconds: float  # wall clock of the gates
+    # one loss an optimizer step (a fused group gives one a step, an
+    # accumulated group one for the group)
     losses: List[float] = dataclasses.field(default_factory=list)
     # the training Feeders' stats summed over the epochs: batches,
     # feed_stall_s, queue_depth_mean/min, num_workers, depth
     feeder: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # forward and backward passes (a step each; under accum_steps every
+    # micro-batch, the tails' all-invalid ones too) and stacked groups run
+    batches: int = 0
+    groups: int = 0
+    # conditions a reader of this run's numbers must know (printed too)
+    warnings: List[str] = dataclasses.field(default_factory=list)
 
 
 class _Meter:
@@ -172,6 +207,11 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
     from fira_tpu_torch.cli import resolve_device
 
     cfg = cfg or dataset.cfg   # dataset.cfg has the vocabulary sizes
+    fused, accum = cfg.fused_steps, cfg.accum_steps
+    if fused > 1 and accum > 1:
+        raise ValueError("fused_steps and accum_steps are mutually "
+                         "exclusive (one stacks steps, one accumulates "
+                         "gradients); set at most one > 1")
     device = resolve_device(device) if isinstance(device, str) else device
     log = TrainLog(out_dir)
     if state is None:
@@ -188,10 +228,30 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
 
     n_epochs = epochs if epochs is not None else cfg.epochs
     train_split = dataset.splits["train"]
+    bs = cfg.batch_size
+    warnings: List[str] = []
+    if fused > 1 and cfg.dev_every_batches % fused:
+        # gates due inside a group collapse to one, run before the group
+        w = (f"fused_steps={fused} does not divide dev_every_batches="
+             f"{cfg.dev_every_batches}: dev gates due inside a fused group "
+             f"collapse to one gate run before the group (weights up to "
+             f"{fused - 1} steps stale); pick K dividing the cadence")
+        log.console(f"WARNING: {w}")
+        warnings.append(w)
+    group_size = fused if fused > 1 else accum
+    # the bucket table, the train split's assignment and the dev plan are
+    # the same every epoch: computed once
+    table = assignment = eval_plan = None
+    if cfg.buckets:
+        table = buckets_lib.bucket_table(cfg)
+        assignment = buckets_lib.assign_buckets(
+            buckets_lib.sample_extents(train_split, cfg), table)
+        eval_plan = buckets_lib.decode_plan(dataset.splits["valid"], cfg)
+
     meter = _Meter(warmup=1)
     pending = {"commits": 0, "steps": 0, "feed_s": 0.0}
     losses: List[torch.Tensor] = []
-    gates = dev_batches = steps = 0
+    gates = dev_batches = steps = batches = groups = 0
     dev_seconds = 0.0
     feed_totals = {"batches": 0.0, "feed_stall_s": 0.0,
                    "queue_depth_sum": 0.0, "queue_depth_min": float("inf")}
@@ -205,20 +265,28 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
     meter.start()
     for epoch in range(start_epoch, n_epochs):
         last = None
-        chunks = epoch_index_chunks(len(train_split), cfg, shuffle=True,
-                                    seed=cfg.seed, epoch=epoch)
-        with Feeder(assembly_tasks(train_split, chunks, cfg,
-                                   batch_size=cfg.batch_size),
+        idx = 0   # batch index of the next item's first batch
+        plan = grouping.grouped_plan(
+            train_split, cfg, batch_size=bs, group_size=group_size,
+            accum=accum > 1, shuffle=True, seed=cfg.seed, epoch=epoch,
+            table=table, assignment=assignment)
+        with Feeder(grouping.grouped_assembly_tasks(
+                        train_split, plan, cfg, batch_size=bs,
+                        bucketed=table is not None),
                     num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
                     device=device, fields=TRAIN_FIELDS) as feed:
-            for idx in range(len(chunks)):
+            for entry in plan:
+                # real batches in the item: only a group's last chunk can
+                # be partial, and the accum tail's pad micro-batches are
+                # not batches of the split
+                k = len(entry.chunks)
                 if (epoch >= cfg.dev_start_epoch
-                        and idx % cfg.dev_every_batches == 0):
+                        and (-idx) % cfg.dev_every_batches < k):
                     sync_tick(last)
                     meter.pause()   # dev time is not train time
                     t0 = time.perf_counter()
                     bleu, text, n_batches = run_dev(model, dataset, cfg,
-                                                    var_maps)
+                                                    var_maps, plan=eval_plan)
                     better = bleu > best_bleu
                     log.gate(epoch, idx, bleu, better)
                     if better:
@@ -234,16 +302,29 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                 # workers keep assembling while a gate runs)
                 item = next(feed)
                 pending["feed_s"] += item.stall_s
-                last = step_lib.train_step(model, optimizer, item.device, gen)
-                state.step += 1
-                steps += 1
-                losses.append(last)
+                if entry.pad_to == 1:
+                    loss = step_lib.train_step(model, optimizer, item.device,
+                                               gen)[None]
+                elif accum > 1:
+                    loss = step_lib.accum_step(model, optimizer, item.device,
+                                               gen)[None]
+                else:
+                    loss = step_lib.multi_step(model, optimizer, item.device,
+                                               gen)
+                n_steps = len(loss)
+                state.step += n_steps
+                steps += n_steps
+                batches += entry.pad_to
+                groups += entry.pad_to > 1
+                losses.append(loss)
+                last = loss[-1]
                 pending["commits"] += item.n_valid
-                pending["steps"] += 1
-                if idx % 10 == 0:
+                pending["steps"] += n_steps
+                if (-idx) % 10 < k:
                     sync_tick(last)
                     log.console(f"epoch: {epoch} batch: {idx} loss: "
                                 f"{last.item():.4f}")
+                idx += k
             fs = feed.stats()
         feed_totals["batches"] += fs["batches"]
         feed_totals["feed_stall_s"] += fs["feed_stall_s"]
@@ -283,5 +364,5 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         feed_stall_frac=min(1.0, meter.feed_seconds / secs) if secs else 0.0,
         steps=steps, gates=gates, dev_batches=dev_batches,
         dev_seconds=dev_seconds,
-        losses=(torch.stack(losses).cpu().tolist() if losses else []),
-        feeder=feeder)
+        losses=(torch.cat(losses).cpu().tolist() if losses else []),
+        feeder=feeder, batches=batches, groups=groups, warnings=warnings)

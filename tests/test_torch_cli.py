@@ -11,7 +11,14 @@ Without a checkpoint it exits 1 with the JAX CLI's message; asked for
 format, at the same (epoch, batch) gates as the JAX package's ``train()``
 on the same corpus and config, plus ``latest.pt`` (and ``best.pt`` when dev
 BLEU improved); a second call resumes and runs no epoch; ``test`` then
-decodes the trained checkpoint."""
+decodes the trained checkpoint.
+
+``--buckets`` with a malformed or out-of-range entry exits 2 naming it;
+``--accum-steps`` drops a fused value the named config carries unless
+``--fused-steps`` pins it; ``train --buckets auto`` runs with
+``--fused-steps 2`` and with ``--accum-steps 2``, and ``test --buckets
+auto`` writes the unbucketed decode's bytes; ``decode_tar_buckets=True``
+is refused."""
 
 import dataclasses
 import os
@@ -151,3 +158,100 @@ def test_train_cuda_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", "--config", "fira-tiny", "--device", "cuda",
                   "--data-dir", str(tmp_path), "--out-dir", str(tmp_path)])
+
+
+@pytest.fixture(scope="module")
+def tiny_corpus(tmp_path_factory):
+    tdir = str(tmp_path_factory.mktemp("torch_corpus"))
+    synthetic.write_corpus_dir(tdir, n_commits=TRAIN_COMMITS, seed=SEED)
+    return tdir
+
+
+@pytest.mark.parametrize("spec,named", [
+    ("8:192", "'8:192' is not AST:EDGES:TAR"),
+    ("8:192:8,8:x:8", "'8:x:8' is not AST:EDGES:TAR"),
+    ("999:192:8", "--buckets invalid: bucket ast_len 999 outside [1, 24]"),
+    ("8:16:8", "--buckets invalid: bucket max_edges 16 outside"),
+])
+def test_malformed_buckets_exit_2_naming_the_entry(tiny_corpus, tmp_path,
+                                                   capsys, spec, named):
+    for command in ("train", "test"):
+        ckpt = tmp_path / "ckpt"
+        ckpt.mkdir(exist_ok=True)
+        torch.save({}, ckpt / "best.pt")   # test reads it before the data
+        rc = cli.main([command, "--config", "fira-tiny", "--device", "cpu",
+                       "--data-dir", tiny_corpus, "--out-dir", str(tmp_path),
+                       "--ckpt-dir", str(ckpt), "--buckets", spec])
+        assert rc == 2
+        assert named in capsys.readouterr().err
+
+
+def test_accum_steps_drop_a_config_fused_value_unless_pinned(
+        tiny_corpus, tmp_path, capsys, monkeypatch):
+    """A named config that carries fused_steps=8 (as the JAX package's
+    production preset does): ``--accum-steps`` drops it, unless
+    ``--fused-steps`` pins it, and then the two conflict."""
+    from fira_tpu_torch import config as config_lib
+    from fira_tpu_torch.train import loop
+
+    monkeypatch.setitem(config_lib.NAMED_CONFIGS, "fira-tiny-fused8",
+                        lambda **kw: config_lib.fira_tiny(fused_steps=8,
+                                                          **kw))
+    seen = []
+
+    def fake_train(dataset, cfg, **kw):
+        seen.append(cfg)
+        return loop.TrainResult(state=None, best_bleu=0.0, epochs_run=0,
+                                commits_per_sec=0.0, steps_per_sec=0.0,
+                                feed_stall_frac=0.0, steps=0, gates=0,
+                                dev_batches=0, dev_seconds=0.0)
+
+    monkeypatch.setattr(loop, "train", fake_train)
+    argv = ["train", "--config", "fira-tiny-fused8", "--device", "cpu",
+            "--data-dir", tiny_corpus, "--out-dir", str(tmp_path)]
+    assert cli.main(argv) == 0
+    assert cli.main([*argv, "--accum-steps", "2"]) == 0
+    assert cli.main([*argv, "--accum-steps", "2", "--buckets", "auto"]) == 0
+    assert [(c.fused_steps, c.accum_steps) for c in seen] == [
+        (8, 1), (1, 2), (1, 2)]
+    assert seen[0].buckets == seen[1].buckets == () != seen[2].buckets
+    capsys.readouterr()
+    assert cli.main([*argv, "--accum-steps", "2", "--fused-steps", "8"]) == 2
+    assert "mutually exclusive" in capsys.readouterr().err
+    assert cli.main([*argv, "--fused-steps", "0"]) == 2
+    assert "fused_steps=0 (must be >= 1" in capsys.readouterr().err
+
+
+def test_bucketed_grouped_train_then_bucketed_test(tiny_corpus, tmp_path,
+                                                   capsys):
+    """``train --buckets auto`` with ``--fused-steps 2`` and with
+    ``--accum-steps 2`` on the CPU; ``test --buckets auto`` of the trained
+    checkpoint writes the unbucketed decode's bytes."""
+    base = ["--config", "fira-tiny", "--device", "cpu", "--data-dir",
+            tiny_corpus, "--batch-size", str(TRAIN_BS)]
+    for knob in (["--fused-steps", "2"], ["--accum-steps", "2"]):
+        out = str(tmp_path / knob[0].strip("-"))
+        assert cli.main(["train", *base, "--out-dir", out, "--epochs", "1",
+                         "--buckets", "auto", *knob]) == 0
+        text = capsys.readouterr().out
+        assert re.search(r"^buckets: \d+:\d+:\d+", text, re.M), text
+        assert os.path.isfile(os.path.join(out, "ckpt", "latest.pt"))
+    ckpt = str(tmp_path / "fused-steps" / "ckpt")
+    outs = []
+    for extra in ([], ["--buckets", "auto"]):
+        out = str(tmp_path / f"test{len(outs)}")
+        assert cli.main(["test", *base, "--out-dir", out, "--ckpt-dir", ckpt,
+                         *extra]) == 0
+        with open(os.path.join(out, "output_fira"), "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and outs[0].count(b"\n") > 0
+
+
+def test_decode_tar_buckets_refused():
+    from fira_tpu_torch.config import fira_tiny, unsupported
+
+    (err,) = unsupported(fira_tiny(decode_tar_buckets=True))
+    assert err == ("decode_tar_buckets=True (the port runs False only)")
+    with pytest.raises(ValueError, match="decode_tar_buckets"):
+        FiraModel(fira_tiny(decode_tar_buckets=True, vocab_size=40,
+                            ast_change_vocab_size=10))

@@ -269,6 +269,51 @@ def test_copy_scores_backward_kernel_bf16_train_shape(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# the bucketed training shape: T is the bucket's tar_len (8 on the smoke's
+# corpus) while S = 370 and B = 170 stay; a partial t tile of 8 in 32
+BUCKET_SHAPE = (170, 8, 370, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_copy_scores_kernel_at_bucket_tar_len(cuda, dtype):
+    """K1 at the bucketed training shape (170, 8, 370, 256): f32 at rtol /
+    atol 1e-5, bf16 at 1e-2, as at T = 30; bitwise equal over two
+    launches; one launch a call."""
+    src, tgt, w, b = _inputs(*BUCKET_SHAPE, dtype=dtype, device=cuda)
+    before = cs.copy_scores.launches
+    got = cs.copy_scores(src, tgt, w, b)
+    assert cs.copy_scores.launches == before + 1
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.dtype == dtype and got.shape == BUCKET_SHAPE[:3]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, cs.copy_scores(src, tgt, w, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_copy_scores_backward_kernel_at_bucket_tar_len(cuda, dtype):
+    """K2 at the bucketed training shape (170, 8, 370, 256): against the
+    plain f32 autograd on the same values, f32 at rtol 5e-4 / atol 5e-5,
+    bf16 at 2e-2; bitwise equal over two runs."""
+    B, T, S, D = BUCKET_SHAPE
+    src, tgt, w, _ = _inputs(B, T, S, D, dtype=dtype, device=cuda)
+    dout = _dout(B, T, S, cuda).to(dtype)
+    got = cs.copy_scores_backward(src, tgt, w, dout)
+    want = cs.copy_scores_backward_reference(src.float(), tgt.float(), w,
+                                             dout.float())
+    rtol, atol = (5e-4, 5e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+    for label, g, r in zip(("dsrc", "dtgt", "dw"), got, want):
+        assert g.shape == r.shape, label
+        torch.testing.assert_close(g.float(), r, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{label}: {m}")
+    again = cs.copy_scores_backward(src, tgt, w, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_copy_scores_other_device_raises():
     src, tgt, w, b = _inputs(2, 3, 37, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
