@@ -277,31 +277,16 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     return records[f32], records[bf16]
 
 
-def copy_score_bwd_f64(torch, src, tgt, w, dout):
-    """(dsrc, dtgt, dw) of sum(dout * copy score) in f64, written out: with
-    x = tanh(src[b,s] + tgt[b,t]), dsrc and dtgt sum dout w (1 - x^2) over
-    t and s, and dw sums dout x over (b, t, s). One batch row at a time."""
-    dsrc, dtgt, dw = [], [], 0.0
-    wd = w.double().reshape(-1)
-    for b in range(src.shape[0]):
-        x = torch.tanh(src[b].double()[None] + tgt[b].double()[:, None])
-        d = dout[b].double()[..., None]
-        gx = d * wd * (1 - x * x)
-        dsrc.append(gx.sum(0))
-        dtgt.append(gx.sum(1))
-        dw = dw + (d * x).sum((0, 1))
-    return torch.stack(dsrc), torch.stack(dtgt), dw.reshape(w.shape)
-
-
 def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
     """Copy-score backward (K2) against the plain autograd backward at the
     training shape (``T``: default the full tar_len; the bucketed training
-    shape passes its bucket's), computed in f64 on the same values: dw sums
-    B x T x S terms of both signs, and an f32 plain sum rounds near-zero
-    entries by more than the tolerance below (its own error against f64
-    is printed beside the kernel's). f32: rtol 5e-4 / atol 5e-5 (the JAX
-    package's gradient tolerance), at the full T also on inputs of
-    magnitude 15-60. bf16: 2e-2 (dsrc and dtgt round once to bf16). The
+    shape passes its bucket's), the plain version run on the same values
+    in f64: dw sums B x T x S terms of both signs, and the plain version
+    in f32 rounds near-zero entries by more than the tolerance below (its
+    f32 run's error against the f64 run is printed beside the kernel's).
+    f32: rtol 5e-4 / atol 5e-5 (the JAX package's gradient tolerance), at
+    the full T also on inputs of magnitude 15-60. bf16: 2e-2 (dsrc and
+    dtgt round once to bf16). The
     plain backward is timed in the kernel's type on a retained graph of the
     plain version on the same inputs, so it runs from the saved (B, T, S,
     D) intermediate, without the forward."""
@@ -316,7 +301,8 @@ def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
     w = torch.randn((D, 1), device="cuda", generator=gen) * 0.1
     dout = torch.randn((B, T, S), device="cuda", generator=gen).to(dtype)
     got = cs.copy_scores_backward(src, tgt, w, dout)
-    want = copy_score_bwd_f64(torch, src, tgt, w, dout)
+    want = cs.copy_scores_backward_reference(
+        *(x.double() for x in (src, tgt, w, dout)))
     plain32 = cs.copy_scores_backward_reference(src.float(), tgt.float(), w,
                                                 dout.float())
     torch.cuda.synchronize()
@@ -361,7 +347,8 @@ def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
         big = [with_large(torch, src, 0.05, gen),
                with_large(torch, tgt, 0.02, gen)]
         got = cs.copy_scores_backward(big[0], big[1], w, dout)
-        want = copy_score_bwd_f64(torch, big[0], big[1], w, dout)
+        want = cs.copy_scores_backward_reference(
+            *(x.double() for x in (*big, w, dout)))
         torch.cuda.synchronize()
         big_errs = {}
         for name, g, r in zip(("dsrc", "dtgt", "dw"), got, want):
@@ -1136,50 +1123,37 @@ def bucket_checks(torch, ctx, tables: dict) -> None:
 
 
 def bucket_turns(torch, ctx, dtype: str, tables: dict) -> None:
-    """The same two epochs of training steps at the full geometry one step
-    a batch, with the train buckets one step a batch, and with the buckets
-    and fused_steps=3, in turns a b c c b a: steps/s and commits/s on the
-    host clock to a synchronise (no gate), after a warm epoch of each."""
-    from fira_tpu_torch.data import grouping
-    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder
-    from fira_tpu_torch.train import step as step_lib
+    """``train.loop.train`` over the same two epochs at the full geometry
+    one step a batch, with the train buckets one step a batch, and with the
+    buckets and fused_steps=3, in turns a b c c b a on one state (no gate:
+    the gates start past the run), after a warm epoch of each: its
+    steps/s and commits/s (first interval and checkpoint writes out)."""
+    from fira_tpu_torch.train import loop as train_loop
     from fira_tpu_torch.train.state import init_state
 
-    ds, cfg = ctx["ds"], ctx["cfg"].replace(compute_dtype=dtype)
-    split, dev = ds.splits["train"], torch.device("cuda")
-    state = init_state(cfg, dev)
-    modes = {"single": (cfg, 1), "buckets": (
-        cfg.replace(buckets=tables["train"]), 1), "fused3": (
-        cfg.replace(buckets=tables["train"], fused_steps=3), 3)}
+    ds, cfg = ctx["ds"], ctx["cfg"].replace(compute_dtype=dtype,
+                                            dev_start_epoch=10**6)
+    state = init_state(cfg, torch.device("cuda"))
+    modes = {"single": cfg,
+             "buckets": cfg.replace(buckets=tables["train"]),
+             "fused3": cfg.replace(buckets=tables["train"], fused_steps=3)}
 
-    def run(mode: str, epochs) -> tuple:
-        c, k = modes[mode]
-        steps = commits = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for plan in bucket_steps(c, split, fused=k, epochs=epochs):
-            with Feeder(grouping.grouped_assembly_tasks(
-                    split, plan, c, bucketed=bool(c.buckets)),
-                    num_workers=c.feeder_workers, depth=c.feeder_depth,
-                    device=dev, fields=TRAIN_FIELDS) as feed:
-                for entry, item in zip(plan, feed):
-                    fn = (step_lib.train_step if entry.pad_to == 1
-                          else step_lib.multi_step)
-                    fn(state.model, state.optimizer, item.device,
-                       state.generator)
-                    steps += entry.pad_to
-                    commits += item.n_valid
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return steps / wall, commits / wall
+    def run(mode: str, epochs: int):
+        r = train_loop.train(
+            ds, modes[mode], device="cuda",
+            out_dir=os.path.join(ctx["work"], f"turns_{dtype}_{mode}"),
+            epochs=epochs, resume=False, state=state)
+        check(r.gates == 0, f"turns {dtype} {mode}: {r.gates} gates ran")
+        return r.steps_per_sec, r.commits_per_sec
 
     for mode in modes:
-        run(mode, [0])
+        run(mode, 1)
     got = {m: [] for m in modes}
     for mode in ("single", "buckets", "fused3", "fused3", "buckets",
                  "single"):
-        got[mode].append(run(mode, [1, 2]))
-    print(f"[turns {dtype}] the same 2 epochs, in turns a b c c b a: "
+        got[mode].append(run(mode, 2))
+    print(f"[turns {dtype}] train.loop.train, the same 2 epochs, in turns "
+          f"a b c c b a: "
           + "; ".join(f"{m}: steps/s "
                       + " ".join(f"{r[0]:.3f}" for r in v)
                       + ", commits/s " + " ".join(f"{r[1]:.1f}" for r in v)
@@ -1199,11 +1173,7 @@ def decode_best_probs(torch, ctx, dtype: str, state_dict, positions,
     from fira_tpu_torch.model.model import FiraModel
 
     data, bs = ctx["ds"].splits["test"], cfg.test_batch_size
-    if cfg.buckets:
-        plan = B.decode_plan(data, cfg)
-    else:
-        plan = [(np.arange(i, min(i + bs, len(data))), None)
-                for i in range(0, len(data), bs)]
+    plan = B.decode_plan(data, cfg)
     model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
     model.load_state_dict(state_dict)
     out = {}

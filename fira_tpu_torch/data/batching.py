@@ -275,9 +275,9 @@ def epoch_index_chunks(n: int, cfg: FiraConfig, *,
                        epoch: int = 0,
                        drop_remainder: bool = False) -> List[np.ndarray]:
     """The deterministic batch ORDER of an epoch, as a list of index chunks
-    (see ``epoch_order`` for the permutation contract). This is the single
-    source of truth for batch order: the decode runner walks these
-    chunks."""
+    (see ``epoch_order`` for the permutation contract). With the full
+    geometry alone as the bucket table, ``grouping.grouped_plan`` and
+    ``buckets.decode_plan`` give these same chunks."""
     bs = batch_size or cfg.batch_size
     order = epoch_order(n, shuffle=shuffle, seed=seed, epoch=epoch)
     chunks = [order[start : start + bs] for start in range(0, n, bs)]

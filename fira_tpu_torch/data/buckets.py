@@ -39,8 +39,9 @@ epoch, bucket table)``. The packer walks the permutation
 bucket's open chunk and emitting a chunk the moment it fills (tails flush
 in table order). With ``shuffle=False`` (dev, decode) packing is a stable
 partition by bucket; callers restore split order from the host-only
-``_positions`` field each batch carries. ``cfg.buckets = ()`` bypasses
-this module: the single-geometry path is unchanged.
+``_positions`` field each batch carries. With ``cfg.buckets = ()`` the
+table is the full geometry alone, and the plans are the split's plain
+order in ``batch_size`` chunks, every batch at the full geometry.
 
 Grouped steps (``fused_steps``, ``accum_steps``) pack bucket-homogeneous
 groups over the same walk in data/grouping.py.
@@ -259,8 +260,11 @@ def packed_plan(split: ProcessedSplit, cfg: FiraConfig, *,
     bs = batch_size or cfg.batch_size
     table = tuple(table) if table is not None else bucket_table(cfg)
     if assignment is None:
-        extents = extents or sample_extents(split, cfg)
-        assignment = assign_buckets(extents, table, use_msg=use_msg)
+        if len(table) == 1:  # single geometry: everything is the fallback
+            assignment = np.zeros(len(split), dtype=np.int64)
+        else:
+            extents = extents or sample_extents(split, cfg)
+            assignment = assign_buckets(extents, table, use_msg=use_msg)
     order = epoch_order(len(split), shuffle=shuffle, seed=seed, epoch=epoch)
 
     plan: Plan = []

@@ -130,7 +130,8 @@ def stack_group(batches: Sequence[Dict[str, np.ndarray]], *,
     """Stack same-geometry host batches on a new leading axis; with
     ``pad_to`` larger than the group, pad with all-zero micro-batches
     (every row invalid, label 0 everywhere: they add nothing to the
-    accumulated (nll, count)). The layout of ``train.step.stack_batches``."""
+    accumulated (nll, count)). ``train.step.multi_step`` and
+    ``accum_step`` take this layout on the device."""
     group = list(batches)
     if pad_to is not None and len(group) < pad_to:
         pad = {k: np.zeros_like(v) for k, v in group[0].items()}
@@ -140,42 +141,32 @@ def stack_group(batches: Sequence[Dict[str, np.ndarray]], *,
 
 def grouped_assembly_tasks(split: ProcessedSplit, plan: Plan,
                            cfg: FiraConfig, *,
-                           batch_size: Optional[int] = None,
-                           bucketed: bool = False) -> Iterator:
+                           batch_size: Optional[int] = None) -> Iterator:
     """One zero-arg assembly task per plan entry, for the Feeder: a
-    one-step entry builds one ``make_batch`` batch; a stacked entry builds
-    its member batches and stacks them, so the group goes to the card as
-    one copy per field.
-
-    ``bucketed=False`` (``cfg.buckets = ()``): batches at the full geometry
-    with no host-only fields. ``bucketed=True``: each batch at its entry's
-    geometry with the host-only ``_tag``; one-step entries also carry
-    ``_positions``, as ``buckets.bucketed_assembly_tasks``."""
+    one-step entry builds one ``make_batch`` batch at its entry's geometry;
+    a stacked entry builds its member batches and stacks them, so the
+    group goes to the card as one copy per field. Each item carries the
+    host-only ``_tag``; one-step entries also carry ``_positions``, as
+    ``buckets.bucketed_assembly_tasks``."""
     from fira_tpu_torch.data.batching import make_batch
     from fira_tpu_torch.data.feeder import task_note
 
     bs = batch_size or cfg.batch_size
 
     def task(entry: GroupEntry):
-        geom = entry.geom if bucketed else None
-
         def build():
-            group = [make_batch(split, c, cfg, batch_size=bs, geom=geom)
-                     for c in entry.chunks]
+            group = [make_batch(split, c, cfg, batch_size=bs,
+                                geom=entry.geom) for c in entry.chunks]
             if entry.pad_to == 1:
                 batch = group[0]
-                if bucketed:
-                    batch["_positions"] = positions_of(entry.chunks[0], bs)
-                    batch["_tag"] = geom_tag(entry.geom)
-                return batch
-            batch = stack_group(group, pad_to=entry.pad_to)
-            if bucketed:
-                batch["_tag"] = geom_tag(entry.geom)
+                batch["_positions"] = positions_of(entry.chunks[0], bs)
+            else:
+                batch = stack_group(group, pad_to=entry.pad_to)
+            batch["_tag"] = geom_tag(entry.geom)
             return batch
-        build.note = task_note(
-            np.concatenate(entry.chunks),
-            geom_tag=geom_tag(entry.geom) if bucketed else None,
-            site="grouped_assembly_tasks")
+        build.note = task_note(np.concatenate(entry.chunks),
+                               geom_tag=geom_tag(entry.geom),
+                               site="grouped_assembly_tasks")
         return build
 
     for entry in plan:

@@ -5,14 +5,15 @@ the argmax-probability beam, cook text, score in-loop sentence BLEU, and
 write one prediction per line to OUTPUT/output_fira (ablations write their
 own suffixed files).
 
-The split's ``epoch_index_chunks`` batches (under ``cfg.buckets``, the
-decode table's sort-by-length plan, data/buckets.py) come from a
-``data.feeder.Feeder`` (``cfg.feeder_workers`` threads assemble them and
-queue their copies to the device ahead of the beam, ``cfg.feeder_depth``
-at most in flight); each is beam-decoded in the model's compute dtype, and
-its tokens come back to the host to be cooked into text. Lines stream to
-disk in split order through the ordered writer (decode/stream.py), each
-bucketed row at its ``_positions`` place.
+The batches of ``buckets.decode_plan`` (the decode table's sort-by-length
+plan, data/buckets.py; with ``cfg.buckets = ()`` the split's sequential
+chunks at the full geometry) come from a ``data.feeder.Feeder``
+(``cfg.feeder_workers`` threads assemble them and queue their copies to
+the device ahead of the beam, ``cfg.feeder_depth`` at most in flight);
+each is beam-decoded in the model's compute dtype, and its tokens come
+back to the host to be cooked into text. Lines stream to disk in split
+order through the ordered writer (decode/stream.py), each row at its
+``_positions`` place.
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ import numpy as np
 
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
-from fira_tpu_torch.data.batching import epoch_index_chunks
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.data.feeder import Feeder, assembly_tasks
+from fira_tpu_torch.data.feeder import Feeder
 from fira_tpu_torch.decode.beam import beam_search_cached
 from fira_tpu_torch.decode.stream import OrderedStreamWriter
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
@@ -67,18 +67,6 @@ def sample_emitter(writer, *, vocab, cfg: FiraConfig, bleu_by_pos: Dict,
     return emit
 
 
-def decode_tasks(data, cfg: FiraConfig):
-    """The decode stream's assembly tasks: the split's sequential chunks,
-    or under ``cfg.buckets`` ``buckets.decode_plan``'s."""
-    bs = cfg.test_batch_size
-    if cfg.buckets:
-        return buckets_lib.bucketed_assembly_tasks(
-            data, buckets_lib.decode_plan(data, cfg), cfg, batch_size=bs)
-    return assembly_tasks(data, epoch_index_chunks(len(data), cfg,
-                                                   batch_size=bs),
-                          cfg, batch_size=bs)
-
-
 def run_test(model: FiraModel, dataset: FiraDataset,
              cfg: Optional[FiraConfig] = None, *,
              out_dir: str = "OUTPUT",
@@ -99,9 +87,11 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     bleu_by_pos: Dict[int, float] = {}
     n_total = len(data)
     model.eval()
-    cursor = 0
+    tasks = buckets_lib.bucketed_assembly_tasks(
+        data, buckets_lib.decode_plan(data, cfg), cfg,
+        batch_size=cfg.test_batch_size)
     with OrderedStreamWriter(out_path, expected=n_total) as writer, \
-            Feeder(decode_tasks(data, cfg), num_workers=cfg.feeder_workers,
+            Feeder(tasks, num_workers=cfg.feeder_workers,
                    depth=cfg.feeder_depth, device=device) as feed:
         emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
                               bleu_by_pos=bleu_by_pos, n_total=n_total,
@@ -109,11 +99,9 @@ def run_test(model: FiraModel, dataset: FiraDataset,
         for item in feed:
             tokens, probs = beam_search_cached(model, item.device, cfg)
             tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
-            positions = item.host.get("_positions")   # bucketed stream only
+            positions = item.host["_positions"]
             for i in np.flatnonzero(item.host["valid"]):
-                pos = cursor if positions is None else int(positions[i])
-                emit(pos, item.host, i, tokens[i], probs[i])
-                cursor += 1
+                emit(int(positions[i]), item.host, i, tokens[i], probs[i])
     n = len(bleu_by_pos)
     total_bleu = sum(bleu_by_pos[p] for p in sorted(bleu_by_pos))
     return {"sentence_bleu": total_bleu / max(n, 1), "n": float(n),

@@ -13,10 +13,10 @@ the JAX custom VJP does. The bias is added outside the Function, as the JAX
 code adds it outside its kernel, so autograd forms dbias = sum(dout).
 
 :func:`copy_scores_reference` is the plain PyTorch version: it materialises
-the intermediate and follows the same type rules (tanh and dot in f32, the
-result in src's type, the bias added after in src's type); its backward is
-its own autograd. The wrappers take it only for tensors on the CPU; on a
-CUDA tensor they launch the kernel or raise.
+the intermediate and follows the same type rules (tanh and dot in f32, or
+in f64 for f64 inputs, the result in src's type, the bias added after in
+src's type); its backward is its own autograd. The wrappers take it only
+for tensors on the CPU; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -34,9 +34,11 @@ _SUPPORTED_D = (64, 128, 256, 512)
 
 
 def copy_scores_reference(src, tgt, w, bias):
-    """Plain version: materialises the (B, T, S, D) tanh in f32."""
-    inter = torch.tanh(src.float()[:, None, :, :] + tgt.float()[:, :, None, :])
-    out = (inter @ w.float().reshape(-1, 1))[..., 0]
+    """Plain version: materialises the (B, T, S, D) tanh in f32, or in
+    src's type where that is wider (f64 inputs give an f64 oracle)."""
+    ct = torch.promote_types(src.dtype, torch.float32)
+    inter = torch.tanh(src.to(ct)[:, None, :, :] + tgt.to(ct)[:, :, None, :])
+    out = (inter @ w.to(ct).reshape(-1, 1))[..., 0]
     return out.to(src.dtype) + bias.reshape(-1)[0].to(src.dtype)
 
 

@@ -51,9 +51,8 @@ import torch
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
 from fira_tpu_torch.data import grouping
-from fira_tpu_torch.data.batching import epoch_index_chunks
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder, assembly_tasks
+from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
@@ -90,10 +89,9 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
             split: str = "valid", plan=None) -> tuple:
     """Greedy teacher-forced validation (run_model.py:118-184). Returns
     (mean sentence BLEU over the split, dev_output text in split order,
-    number of dev batches). Under ``cfg.buckets`` the batches follow
-    ``plan`` (default ``buckets.decode_plan``; it never changes, so
-    ``train`` computes it once) and each line goes to its ``_positions``
-    place."""
+    number of dev batches). The batches follow ``plan`` (default
+    ``buckets.decode_plan``; it never changes, so ``train`` computes it
+    once) and each line goes to its ``_positions`` place."""
     data = dataset.splits[split]
     vocab = dataset.word_vocab
     indices = dataset.split_indices[split]
@@ -101,21 +99,15 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
     bs = cfg.test_batch_size
     total_bleu = 0.0
     lines: List[tuple] = []   # (split position, line)
-    if cfg.buckets:
-        plan = plan if plan is not None else buckets_lib.decode_plan(data,
-                                                                     cfg)
-        tasks, n_batches = (buckets_lib.bucketed_assembly_tasks(
-            data, plan, cfg, batch_size=bs), len(plan))
-    else:
-        chunks = epoch_index_chunks(len(data), cfg, batch_size=bs)
-        tasks, n_batches = (assembly_tasks(data, chunks, cfg, batch_size=bs),
-                            len(chunks))
+    if plan is None:
+        plan = buckets_lib.decode_plan(data, cfg)
+    tasks = buckets_lib.bucketed_assembly_tasks(data, plan, cfg,
+                                                batch_size=bs)
     with Feeder(tasks, num_workers=cfg.feeder_workers,
                 depth=cfg.feeder_depth, device=device,
                 fields=TRAIN_FIELDS) as feed:
         for item in feed:
             host = item.host
-            positions = host.get("_positions")   # bucketed stream only
             ids = step_lib.dev_step(model, item.device).cpu().numpy()
             for i in np.flatnonzero(host["valid"]):
                 hyp = cook_prediction(ids[i].tolist(), host["diff"][i],
@@ -123,14 +115,14 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
                 ref = reference_words(host["msg"][i], vocab)
                 b = nltk_sentence_bleu([ref], hyp)
                 total_bleu += b
-                pos = len(lines) if positions is None else int(positions[i])
+                pos = int(host["_positions"][i])
                 var_map = (var_maps[indices[pos]]
                            if var_maps is not None else None)
                 lines.append(
                     (pos, " ".join(deanonymize(hyp, var_map)) + f",{b}"))
     lines.sort(key=lambda r: r[0])
     return (total_bleu / max(len(data), 1),
-            "\n".join(line for _, line in lines) + "\n", n_batches)
+            "\n".join(line for _, line in lines) + "\n", len(plan))
 
 
 @dataclasses.dataclass
@@ -239,14 +231,14 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         log.console(f"WARNING: {w}")
         warnings.append(w)
     group_size = fused if fused > 1 else accum
-    # the bucket table, the train split's assignment and the dev plan are
-    # the same every epoch: computed once
-    table = assignment = eval_plan = None
-    if cfg.buckets:
-        table = buckets_lib.bucket_table(cfg)
-        assignment = buckets_lib.assign_buckets(
-            buckets_lib.sample_extents(train_split, cfg), table)
-        eval_plan = buckets_lib.decode_plan(dataset.splits["valid"], cfg)
+    # the bucket table (the full geometry alone when cfg.buckets = ()),
+    # the train split's assignment and the dev plan are the same every
+    # epoch: computed once
+    table = buckets_lib.bucket_table(cfg)
+    assignment = (buckets_lib.assign_buckets(
+        buckets_lib.sample_extents(train_split, cfg), table)
+        if len(table) > 1 else None)
+    eval_plan = buckets_lib.decode_plan(dataset.splits["valid"], cfg)
 
     meter = _Meter(warmup=1)
     pending = {"commits": 0, "steps": 0, "feed_s": 0.0}
@@ -271,8 +263,7 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
             accum=accum > 1, shuffle=True, seed=cfg.seed, epoch=epoch,
             table=table, assignment=assignment)
         with Feeder(grouping.grouped_assembly_tasks(
-                        train_split, plan, cfg, batch_size=bs,
-                        bucketed=table is not None),
+                        train_split, plan, cfg, batch_size=bs),
                     num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
                     device=device, fields=TRAIN_FIELDS) as feed:
             for entry in plan:

@@ -13,9 +13,8 @@ sync points.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict
 
-import numpy as np
 import torch
 
 from fira_tpu_torch.model.model import FiraModel
@@ -37,16 +36,6 @@ def train_step(model: FiraModel, optimizer: torch.optim.Optimizer,
     loss.backward()
     optimizer.step()
     return loss.detach()
-
-
-def stack_batches(batches: Sequence[Dict[str, np.ndarray]]
-                  ) -> Dict[str, np.ndarray]:
-    """Stack same-geometry host batches on a new leading axis, for
-    ``multi_step`` and ``accum_step``: ``data.grouping.stack_group``
-    without the accum tail's padding."""
-    from fira_tpu_torch.data.grouping import stack_group
-
-    return stack_group(batches)
 
 
 def _member(stacked: Dict[str, torch.Tensor], i: int

@@ -123,18 +123,13 @@ def test_stack_group_matches_jax(corpus, pad_to):
         assert got[k].tobytes() == want[k].tobytes(), k
     # the assembly task stacks the same arrays and tags the geometry
     entry = G.GroupEntry(tuple(chunks), geom, pad_to or 2)
-    (task,) = G.grouped_assembly_tasks(ts, [entry], tcfg, batch_size=BS,
-                                       bucketed=True)
+    (task,) = G.grouped_assembly_tasks(ts, [entry], tcfg, batch_size=BS)
     built = task()
     assert built.pop("_tag") == B.geom_tag(geom)
     for k in want:
         assert built[k].tobytes() == got[k].tobytes(), k
     assert "bucket " + B.geom_tag(geom) in task.note
     assert int(built["valid"].sum()) == BS + 5
-    if pad_to is None:
-        assert step_lib.stack_batches(
-            [make_batch(ts, c, tcfg, batch_size=BS, geom=geom)
-             for c in chunks])["senders"].tobytes() == got["senders"].tobytes()
 
 
 def _stacked(corpus, n, cfg, sizes=None):
@@ -159,7 +154,7 @@ def test_multi_step_equals_sequential_steps(corpus):
     a = state_lib.init_state(cfg, "cpu", seed=4)
     b = state_lib.init_state(cfg, "cpu", seed=4)
     got = step_lib.multi_step(a.model, a.optimizer,
-                              _device(step_lib.stack_batches(host)),
+                              _device(G.stack_group(host)),
                               a.generator)
     want = [step_lib.train_step(b.model, b.optimizer, _device(h),
                                 b.generator) for h in host]
@@ -193,7 +188,7 @@ def test_accum_step_matches_jax(corpus):
         jax.tree_util.tree_map(np.asarray, jstate.params)))
     opt = state_lib.make_optimizer(model, tcfg)
     loss = step_lib.accum_step(model, opt,
-                               _device(step_lib.stack_batches(host)),
+                               _device(G.stack_group(host)),
                                torch.Generator().manual_seed(0))
     np.testing.assert_allclose(float(loss), float(jm["loss"]), rtol=1e-6)
     want = convert.params_from_flax(
