@@ -20,7 +20,9 @@ Phases, each printing its own line; any failure exits non-zero:
             also on inputs with entries of magnitude 15-60 and bitwise
             equal over two launches), at a batch of 85 (the tile kernel's
             third tiling), at the bucketed training shape (T = the main
-            train bucket's tar_len), and those shapes but 85 in bf16; K2
+            train bucket's tar_len), at the full-prefix beam's shape
+            (test batch x beam, tar_len), and those shapes but 85 in
+            bf16; K2
             (its backward) at the training shape in f32 (also at
             magnitudes 15-60) and in bf16, and at the bucketed shape in
             both;
@@ -65,7 +67,29 @@ Phases, each printing its own line; any failure exits non-zero:
             most one line may differ, and only at a near-tie of best-beam
             probabilities, 1e-5; bf16 counted), both decodes timed in turns;
             one decode batch of each dtype profiled; on a small input the
-            card's f32 distributions must agree with the CPU's.
+            card's f32 distributions must agree with the CPU's;
+14. encoder variants  for f32 and then bf16, one epoch of
+            ``train.loop.train`` under ``encoder_buffer=split``,
+            ``adjacency_impl=segment`` (edges sorted and not),
+            ``flat_scatter`` and ``typed_edges``, K1 and K2 once a step;
+            then one chunk of each against the default path from the same
+            weights (f32: split and segment loss 1e-5, gradients 1e-4 of
+            their norms; flat scatter's adjacency bit-identical; typed at
+            init loss bit-equal with an ``edge_gain`` gradient), peak
+            memory of each;
+15. beam modes  for f32 and then bf16, the test split through every beam
+            mode (cached and full-prefix, fused and factored, prob and log
+            space, early exit off and on) on the trained checkpoint and on
+            its copy biased toward <eos>, K1 once a step run; f32: early
+            exit bitwise equal to the full scan (and stopping early on the
+            biased weights), factored output bytes equal to fused and
+            full-prefix within one near-tie line of cached, but for samples
+            whose every prob-space score underflowed to zero (ties decide
+            them); the beam loop's commits/s of each mode;
+16. cli flags  ``cli test --beam-factored-topk --beam-early-exit`` of the
+            f32 checkpoint (phase 15's bytes in that mode), ``cli train`` one
+            epoch with ``--encoder-buffer split`` and with ``--adjacency
+            segment``.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -188,10 +212,12 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     takes tanh from one reciprocal a pair of elements), at the training
     shape also with large magnitudes and over two launches (bitwise), at
     a batch of 85, at the bucketed training shape (T = the main train
-    bucket's ``bucket_t``), and the decode, dev, training and bucket shapes
-    in bf16 (1e-2: one bf16 rounding of the result). Returns the f32 and
-    the bf16 record: the decode shape's numbers, with the dev, training and
-    bucket shapes' under ``dev_*``, ``train_*`` and ``bucket_*``."""
+    bucket's ``bucket_t``), at the full-prefix beam's (test batch x beam,
+    tar_len), and those shapes but 85 in bf16 (1e-2: one bf16 rounding of
+    the result). Returns the f32 and
+    the bf16 record: the decode shape's numbers, with the dev, training,
+    bucket and full-prefix beam shapes' under ``dev_*``, ``train_*``,
+    ``bucket_*`` and ``prefix_*``."""
     from fira_tpu_torch.ops.timing import time_ms
 
     B, K = cfg.test_batch_size, cfg.beam_size
@@ -206,10 +232,14 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
              ("batch85", (85, cfg.tar_len, S, D), f32, 1e-5),
              # buckets keep S and the batch and shrink T: one partial tile
              ("bucket", (cfg.batch_size, bucket_t, S, D), f32, 1e-5),
+             # the full-prefix beam (beam_kv_cache=False): every step
+             # scores the whole prefix, beams folded into the batch
+             ("prefix", (B * K, cfg.tar_len, S, D), f32, 1e-5),
              ("decode", (B * K, 1, S, D), bf16, 1e-2),
              ("dev", (B, cfg.tar_len, S, D), bf16, 1e-2),
              ("train", (cfg.batch_size, cfg.tar_len, S, D), bf16, 1e-2),
-             ("bucket", (cfg.batch_size, bucket_t, S, D), bf16, 1e-2)]
+             ("bucket", (cfg.batch_size, bucket_t, S, D), bf16, 1e-2),
+             ("prefix", (B * K, cfg.tar_len, S, D), bf16, 1e-2)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = {f32: {}, bf16: {}}
     for name, (b, t, s, d), dtype, tol in cases:
@@ -267,7 +297,7 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
               f"(wrapper with bias add {wrapper_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
-        if name in ("decode", "dev", "train", "bucket"):
+        if name in ("decode", "dev", "train", "bucket", "prefix"):
             pre = "" if name == "decode" else f"{name}_"
             records[dtype].update({
                 f"{pre}shape": [b, t, s, d], f"{pre}max_abs_err": err,
@@ -1270,6 +1300,427 @@ def test_buckets(torch, ctx, run: dict, main: dict) -> dict:
     return dict(k1=k1)
 
 
+# (kv_cache, factored_topk, prob_space) of every beam mode
+BEAM_MODES = [(kv, fac, prob) for kv in (True, False) for fac in (False, True)
+              for prob in (True, False)]
+
+
+def mode_name(kv, fac, prob, early) -> str:
+    return (f"{'cached' if kv else 'prefix'}/{'factored' if fac else 'fused'}"
+            f"/{'prob' if prob else 'log'}/{'early' if early else 'full'}")
+
+
+def decode_split(torch, ctx, model, c, batches) -> dict:
+    """The test split through ``make_beam_search(model, c)``: the beam loop
+    alone timed over batches already on the card (host wall to a
+    synchronise), K1's launches counted around it; then each sample's line
+    cooked as ``run_test`` cooks it (``runner.sample_emitter``), in split
+    order."""
+    from types import SimpleNamespace
+
+    from fira_tpu_torch.decode.beam import make_beam_search
+    from fira_tpu_torch.decode.runner import sample_emitter
+
+    cs, ds = ctx["cs"], ctx["ds"]
+    search = make_beam_search(model, c, with_steps=True)
+    cs.copy_scores.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [search(dev) for _, _, dev in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = cs.copy_scores.launches
+    lines = {}
+    n = sum(int(h["valid"].sum()) for _, h, _ in batches)
+    emit = sample_emitter(
+        SimpleNamespace(add=lines.__setitem__, flush=lambda: None),
+        vocab=ds.word_vocab, cfg=c, bleu_by_pos={}, n_total=n,
+        var_maps=ctx["var_maps"], indices=ds.split_indices["test"])
+    toks, probs, best = [], [], {}
+    for (chunk, host, _), (t, p, _) in zip(batches, outs):
+        t, p = t.cpu().numpy(), p.cpu().numpy()
+        toks.append(t)
+        probs.append(p)
+        for i in np.flatnonzero(host["valid"]):
+            emit(int(chunk[i]), host, i, t[i], p[i])
+            best[int(chunk[i])] = float(p[i].max())
+    return dict(toks=toks, probs=probs, steps=[o[2] for o in outs], k1=k1,
+                rate=n / wall, best=best,
+                out="".join(lines[i] for i in sorted(lines)).encode())
+
+
+def n_lines_differ(a: bytes, b: bytes) -> list:
+    return [i for i, (x, y) in enumerate(zip(a.decode().split("\n"),
+                                             b.decode().split("\n")))
+            if x != y]
+
+
+def zero_score_lines(diff: list, a: dict, b: dict) -> list:
+    """The differing lines whose best-beam score is zero in both decodes:
+    every prob-space beam score of the sample underflowed (and was flushed
+    to zero, as XLA flushes), so exact ties decide its tokens."""
+    return [i for i in diff if a["best"][i] == 0 == b["best"][i]]
+
+
+def beam_modes(torch, ctx, run: dict, main: dict) -> dict:
+    """Every beam mode on one dtype's trained checkpoint and on its copy
+    biased toward <eos> (``beam.eos_biased``, every beam finishes within a
+    few positions): cached and full-prefix, fused and factored, prob and
+    log space, each with early exit off and on, over the test split. K1
+    must launch once a step run. Checks (f32; bf16 reported): early exit
+    against the full scan, tokens and probabilities bitwise equal, fewer
+    than tar_len - 1 steps on the biased weights; factored against fused,
+    the same output bytes but for samples whose every prob-space score
+    underflowed to zero (there the two modes tie-break over different
+    candidate sets, in the JAX package too); full-prefix against cached,
+    besides such samples at most one line differing, at a near-tie of
+    best-beam scores (1e-5 relative). Both
+    dtypes: the default mode's output is the ``cli test`` bytes. Log space
+    against prob space: the lines that differ and B-Norm BLEU, reported."""
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import batch_to_device
+    from fira_tpu_torch.decode.beam import eos_biased
+    from fira_tpu_torch.eval import bnorm_bleu_files
+    from fira_tpu_torch.model.model import FiraModel
+
+    ds, cfg, work = ctx["ds"], ctx["cfg"], ctx["work"]
+    dtype = run["gated"].compute_dtype
+    f32 = dtype == "float32"
+    c0 = cfg.replace(compute_dtype=dtype)
+    data, bs, T = ds.splits["test"], cfg.test_batch_size, cfg.tar_len
+    batches = []
+    for chunk, geom in B.decode_plan(data, c0):
+        host = make_batch(data, chunk, c0, batch_size=bs, geom=geom)
+        batches.append((chunk, host, batch_to_device(host,
+                                                     torch.device("cuda"))))
+    model = FiraModel(c0, device="cuda", dtype=dtype).eval()
+    got, k1, prefix_k1 = {}, 0, 0
+    for weights, sd in (("trained", run["state_dict"]),
+                        ("eos-biased", eos_biased(run["state_dict"]))):
+        model.load_state_dict(sd)
+        for kv, fac, prob in BEAM_MODES:
+            for early in (False, True):
+                c = c0.replace(beam_kv_cache=kv, beam_factored_topk=fac,
+                               beam_compat_prob_space=prob,
+                               beam_early_exit=early)
+                r = decode_split(torch, ctx, model, c, batches)
+                check(r["k1"] == sum(r["steps"]),
+                      f"{dtype} {weights} {mode_name(kv, fac, prob, early)}"
+                      f": copy_score launched {r['k1']} times for "
+                      f"{sum(r['steps'])} beam steps")
+                check(early or r["steps"] == [T - 1] * len(batches),
+                      f"full scan ran {r['steps']} steps")
+                k1 += r["k1"]
+                prefix_k1 += 0 if kv else r["k1"]
+                got[weights, kv, fac, prob, early] = r
+        default = got[weights, True, False, True, False]
+        if weights == "trained":
+            check(default["out"] == main["out_bytes"],
+                  f"{dtype}: the smoke's decode of the default mode differs "
+                  f"from cli test's output_fira")
+        for kv, fac, prob in BEAM_MODES:
+            full, ee = (got[weights, kv, fac, prob, e] for e in (False, True))
+            same = all(np.array_equal(a, b) for a, b in zip(
+                full["toks"] + full["probs"], ee["toks"] + ee["probs"]))
+            label = f"{dtype} {weights} {mode_name(kv, fac, prob, True)}"
+            if f32:
+                check(same, f"{label}: early exit differs from the full scan")
+                check(weights == "trained" or max(ee["steps"]) < T - 1,
+                      f"{label}: {ee['steps']} steps on the <eos>-biased "
+                      f"weights")
+            print(f"[beam modes {dtype}] {weights} "
+                  f"{mode_name(kv, fac, prob, True)}: steps run "
+                  f"{ee['steps']} of {T - 1} a batch, tokens and scores "
+                  f"bitwise equal to the full scan: {same}; beam loop "
+                  f"commits/s full {full['rate']:.2f}, early "
+                  f"{ee['rate']:.2f}", flush=True)
+        for kv, prob, early in ((kv, prob, early) for kv in (True, False)
+                                for prob in (True, False)
+                                for early in (False, True)):
+            fused = got[weights, kv, False, prob, early]
+            fac = got[weights, kv, True, prob, early]
+            diff = n_lines_differ(fused["out"], fac["out"])
+            tied = zero_score_lines(diff, fused, fac)
+            name = mode_name(kv, True, prob, early)
+            if f32:
+                check(len(tied) == len(diff), f"{dtype} {weights} {name}: "
+                      f"{len(diff) - len(tied)} lines with a nonzero best "
+                      f"score differ from fused")
+            print(f"[beam modes {dtype}] {weights} {name} vs fused: "
+                  f"{len(diff)} of {len(data)} lines differ, {len(tied)} of "
+                  f"them with every beam score underflowed to zero; beam "
+                  f"loop commits/s factored {fac['rate']:.2f}, fused "
+                  f"{fused['rate']:.2f}", flush=True)
+        for fac, prob in ((f, p) for f in (False, True) for p in (True, False)):
+            cached = got[weights, True, fac, prob, False]
+            prefix = got[weights, False, fac, prob, False]
+            diff = n_lines_differ(cached["out"], prefix["out"])
+            tied = zero_score_lines(diff, cached, prefix)
+            rest = [i for i in diff if i not in tied]
+            rels = [abs(prefix["best"][i] - cached["best"][i])
+                    / abs(cached["best"][i]) for i in rest]
+            name = mode_name(False, fac, prob, False)
+            note = ", ".join(f"#{i} {cached['best'][i]:.8g} vs "
+                             f"{prefix['best'][i]:.8g}" for i in rest)
+            if f32:
+                check(len(rest) <= 1 and max(rels, default=0.0) <= 1e-5,
+                      f"{dtype} {weights} {name}: {len(rest)} lines with a "
+                      f"nonzero best score differ from cached ({note})")
+            print(f"[beam modes {dtype}] {weights} {name} vs "
+                  f"cached: {len(diff)} of {len(data)} lines differ, "
+                  f"{len(tied)} of them with every beam score underflowed "
+                  f"to zero"
+                  + (f" (best-beam scores of the others, cached vs prefix: "
+                     f"{note})" if rest else "")
+                  + f"; beam loop commits/s prefix {prefix['rate']:.2f}, "
+                  f"cached {cached['rate']:.2f}", flush=True)
+        for kv, fac in ((k, f) for k in (True, False) for f in (False, True)):
+            files = []
+            for prob in (True, False):
+                path = os.path.join(work, f"modes_{dtype}_{weights}_{kv}_"
+                                          f"{fac}_{prob}")
+                with open(path, "wb") as f:
+                    f.write(got[weights, kv, fac, prob, False]["out"])
+                files.append(path)
+            diff = n_lines_differ(*(got[weights, kv, fac, p, False]["out"]
+                                    for p in (True, False)))
+            print(f"[beam modes {dtype}] {weights} "
+                  f"{mode_name(kv, fac, False, False)} vs prob space: "
+                  f"{len(diff)} of {len(data)} lines differ; B-Norm BLEU "
+                  f"log {bnorm_bleu_files(files[1], ctx['gt_file'])!r}, "
+                  f"prob {bnorm_bleu_files(files[0], ctx['gt_file'])!r}",
+                  flush=True)
+    # the cached modes a user picks between, on the trained weights, timed
+    # in turns a b c d d c b a (one decode each is noisy on a shared host)
+    model.load_state_dict(run["state_dict"])
+    turns = {"fused": (False, False), "factored": (True, False),
+             "fused+early": (False, True), "factored+early": (True, True)}
+    rates = {name: [] for name in turns}
+    for name in [*turns, *reversed(turns)]:
+        fac, early = turns[name]
+        r = decode_split(torch, ctx, model, c0.replace(
+            beam_factored_topk=fac, beam_early_exit=early), batches)
+        k1 += r["k1"]
+        rates[name].append(r["rate"])
+    print(f"[beam modes {dtype}] trained, cached, prob space, beam loop "
+          f"commits/s in turns a b c d d c b a: "
+          + "; ".join(f"{name} " + " ".join(f"{x:.2f}" for x in v)
+                      for name, v in rates.items()), flush=True)
+    print(f"[beam modes {dtype}] copy_score launches over the "
+          f"{len(got) + 2 * len(turns)} decodes: {k1} ({prefix_k1} at the "
+          f"full-prefix shape ({bs * cfg.beam_size}, {T}, {cfg.copy_len}, "
+          f"{cfg.embedding_dim}))", flush=True)
+    return dict(k1=k1, out={k: r["out"] for k, r in got.items()})
+
+
+ENCODER_VARIANTS = {
+    "default": {},
+    "split": dict(encoder_buffer="split"),
+    "segment": dict(adjacency_impl="segment"),
+    "segment sorted": dict(adjacency_impl="segment", sort_edges=True),
+    "flat": dict(flat_scatter=True),
+    "typed": dict(typed_edges=True),
+}
+
+
+def encoder_variants(torch, ctx, dtype: str) -> dict:
+    """One epoch of ``train.loop.train`` under each encoder variant (and
+    the default path beside them), no gate, counts from zero around each:
+    K1 and K2 must launch once a step; steps/s, commits/s and peak device
+    memory of each, also less what was allocated before it started."""
+    from fira_tpu_torch.train import loop as train_loop
+
+    cs, ds, cfg, work = ctx["cs"], ctx["ds"], ctx["cfg"], ctx["work"]
+    steps = math.ceil(len(ds.splits["train"]) / cfg.batch_size)
+    total = {"k1": 0, "k2": 0}
+    for name, knobs in ENCODER_VARIANTS.items():
+        c = cfg.replace(compute_dtype=dtype, dev_start_epoch=10**6, **knobs)
+        cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        r = train_loop.train(
+            ds, c, device="cuda",
+            out_dir=os.path.join(work, f"variant_{dtype}_{name}"),
+            epochs=1, resume=False)
+        torch.cuda.synchronize()
+        k1, k2 = cs.copy_scores.launches, cs.copy_scores_backward.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(r.steps == steps and k1 == k2 == steps,
+              f"{dtype} {name}: {r.steps} steps, copy_score {k1}, "
+              f"copy_score_bwd {k2} launches, expected {steps}")
+        check(all(math.isfinite(x) for x in r.losses),
+              f"{dtype} {name}: non-finite loss {r.losses}")
+        total["k1"] += k1
+        total["k2"] += k2
+        print(f"[encoder variants {dtype}] train.loop.train {name} ("
+              + (" ".join(f"{k}={v}" for k, v in knobs.items()) or "dense, "
+                 "single buffer")
+              + f"), 1 epoch: {r.steps} steps, steps/s {r.steps_per_sec:.3f}, "
+              f"training commits/s {r.commits_per_sec:.2f} (first interval "
+              f"and checkpoint writes excluded); launches copy_score {k1}, "
+              f"copy_score_bwd {k2}; peak device memory "
+              f"{peak / 2**20:.1f} MiB ({(peak - before) / 2**20:.1f} above "
+              f"what was allocated before); losses "
+              + " ".join(f"{x:.4f}" for x in r.losses), flush=True)
+    return total
+
+
+def encoder_checks(torch, ctx) -> None:
+    """Each encoder variant on one chunk of the train split against the
+    default path (dense adjacency, single buffer) from the same weights,
+    dropout off. f32 (bf16 reported): split and segment, loss within 1e-5
+    relative and each gradient within 1e-4 of its norm; flat scatter, the
+    adjacency bit-identical; typed edges at init (gains 1), the loss
+    bit-equal, and every ``edge_gain`` gradient finite, not all zero. The
+    peak device memory of each forward/backward."""
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
+    from fira_tpu_torch.model.model import FiraModel, dense_adjacency
+
+    ds, cfg = ctx["ds"], ctx["cfg"]
+    split, bs, dev = ds.splits["train"], cfg.batch_size, torch.device("cuda")
+    chunk = np.arange(bs)
+
+    def on_card(c):
+        return batch_to_device(make_batch(split, chunk, c, batch_size=bs),
+                               dev, TRAIN_FIELDS)
+
+    def measured(model, batch):
+        """The loss and gradients, and the peak memory of the forward and
+        backward above what was allocated before them."""
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = _loss_grads(torch, model, batch)
+        return out, (torch.cuda.max_memory_allocated() - before) / 2**20
+
+    quiet = dict(dropout_rate=0.0, gcn_dropout_rate=0.0)
+    for dtype in ("float32", "bfloat16"):
+        f32 = dtype == "float32"
+        c = cfg.replace(compute_dtype=dtype, **quiet)
+        model = FiraModel(c, device=dev).init_parameters(
+            torch.Generator().manual_seed(SEED)).eval()
+        base, base_peak = measured(model, on_card(c))
+        print(f"[encoder checks {dtype}] default path, one chunk of {bs}: "
+              f"loss {base[0]!r}, forward/backward peak {base_peak:.1f} MiB "
+              f"above the weights, batch and gradients held before it",
+              flush=True)
+        for name in ("split", "segment", "segment sorted", "typed"):
+            cv = c.replace(**ENCODER_VARIANTS[name])
+            mv = FiraModel(cv, device=dev).eval()
+            mv.load_state_dict(model.state_dict(), strict=name != "typed")
+            got, peak = measured(mv, on_card(cv))
+            rel = abs(got[0] - base[0]) / abs(base[0])
+            check(got[1] == base[1], f"{dtype} {name}: token counts")
+            if name == "typed":
+                g = got[2].pop("edge_gain")
+                ok = bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                if f32:
+                    check(got[0] == base[0], f"typed at init: loss "
+                          f"{got[0]!r} vs {base[0]!r}")
+                    check(ok, f"typed at init: edge_gain gradient {g}")
+                equal = ("bit-equal" if got[0] == base[0]
+                         else f"{rel:.3e} relative")
+                what = (f"loss {got[0]!r} ({equal}), edge_gain gradient "
+                        + " ".join(f"{x:.4g}" for x in g.tolist()))
+            else:
+                if name == "segment":
+                    again, _ = measured(mv, on_card(cv))
+                    repeat = (again[0] == got[0] and all(torch.equal(
+                        again[2][k], v) for k, v in got[2].items()))
+                    print(f"[encoder checks {dtype}] segment twice on the "
+                          f"same chunk: loss and gradients bitwise equal: "
+                          f"{repeat}", flush=True)
+                    del again
+                g_err, g_name = grad_rel_err(torch, got[2], base[2])
+                if f32:
+                    check(rel <= 1e-5, f"{name} loss {rel:.3e}")
+                    check(g_err <= 1e-4, f"{name} gradient {g_name} "
+                          f"{g_err:.3e}")
+                what = (f"loss {got[0]!r} ({rel:.3e} relative"
+                        f"{', limit 1e-5' if f32 else ''}), worst gradient "
+                        f"{g_name} {g_err:.3e} of its norm"
+                        f"{' (limit 1e-4)' if f32 else ''}")
+            print(f"[encoder checks {dtype}] {name} vs default: {what}; "
+                  f"forward/backward peak {peak:.1f} MiB", flush=True)
+            del mv, got
+        b = on_card(c.replace(flat_scatter=True))
+        n = cfg.graph_len
+        flat, nd = (dense_adjacency(b["senders"], b["receivers"], b["values"],
+                                    n, out_dtype=model.dtype, flat=f)
+                    for f in (True, False))
+        same = torch.equal(flat, nd)
+        check(same or not f32, "flat scatter: adjacency differs")
+        print(f"[encoder checks {dtype}] flat scatter: ({bs}, {n}, {n}) "
+              f"adjacency bit-identical to the N-D scatter: {same}",
+              flush=True)
+        del model, base, b, flat, nd
+
+
+def cli_new_flags(torch, ctx, run: dict, modes: dict) -> dict:
+    """The new flags through the entry points, counts from zero around
+    each: ``cli test --beam-factored-topk --beam-early-exit`` of the f32
+    checkpoint must write the bytes of ``beam_modes``' decode in that mode
+    (which it held against the fused full scan); ``cli train`` one epoch
+    with ``--encoder-buffer split`` and with ``--adjacency segment`` must
+    launch K1 and K2 once a step."""
+    from fira_tpu_torch import cli
+
+    cs, ds, cfg, work = ctx["cs"], ctx["ds"], ctx["cfg"], ctx["work"]
+    common = ["--config", "fira-full", "--data-dir", ctx["data_dir"],
+              "--dtype", "float32"]
+    out_dir = os.path.join(work, "out_factored_early")
+    cs.copy_scores.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["test", *common, "--out-dir", out_dir, "--ckpt-dir",
+                   run["ckpt_dir"], "--beam-factored-topk",
+                   "--beam-early-exit"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = cs.copy_scores.launches
+    check(rc == 0, f"cli test --beam-factored-topk --beam-early-exit exited "
+          f"{rc}")
+    with open(os.path.join(out_dir, "output_fira"), "rb") as f:
+        out = f.read()
+    n_test = len(ds.splits["test"])
+    most = math.ceil(n_test / cfg.test_batch_size) * (cfg.tar_len - 1)
+    want = modes["out"]["trained", True, True, True, True]
+    check(out == want, f"cli test --beam-factored-topk --beam-early-exit: "
+          f"{len(n_lines_differ(out, want))} lines differ from the same "
+          f"mode's decode")
+    check(0 < k1 <= most, f"copy_score launched {k1} times (at most {most})")
+    print(f"[cli flags] cli test --beam-factored-topk --beam-early-exit "
+          f"--dtype float32: output_fira byte-identical to the beam modes' "
+          f"decode in that mode; "
+          f"copy_score launches {k1} (the full scan: {most}); wall "
+          f"{wall:.2f} s incl. data and weight load = {n_test / wall:.2f} "
+          f"commits/s", flush=True)
+    total = {"k1": k1, "k2": 0}
+    steps = math.ceil(len(ds.splits["train"]) / cfg.batch_size)
+    for flags in (["--encoder-buffer", "split"], ["--adjacency", "segment"]):
+        cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", *common, "--out-dir",
+                       os.path.join(work, f"train_cli_{flags[1]}"),
+                       "--epochs", "1", "--no-resume", *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = cs.copy_scores.launches, cs.copy_scores_backward.launches
+        check(rc == 0, f"cli train {' '.join(flags)} exited {rc}")
+        check(k1 == k2 == steps, f"cli train {' '.join(flags)}: copy_score "
+              f"{k1}, copy_score_bwd {k2} launches, expected {steps}")
+        total["k1"] += k1
+        total["k2"] += k2
+        print(f"[cli flags] cli train fira-full {' '.join(flags)} --dtype "
+              f"float32: 1 epoch, {steps} steps, wall {wall:.2f} s incl. data "
+              f"load; launches copy_score {k1}, copy_score_bwd {k2}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+              f" MiB", flush=True)
+    return total
+
 
 def main() -> int:
     import torch
@@ -1357,6 +1808,7 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         bucket_turns(torch, ctx, dtype, tables)
 
+
     # --- profile one warm training step: f32 plain copy score, f32
     # kernels, bf16 kernels; then one at the main train bucket's geometry
     # (a full chunk of its commits) in each dtype ---
@@ -1392,6 +1844,15 @@ def main() -> int:
     main16 = test_path(torch, ctx, run16)
     decode_plain(torch, ctx, run16, main16)
     mb16 = test_buckets(torch, ctx, run16, main16)
+    # --- the encoder variants: split buffer, segment adjacency (sorted
+    # edges or not), flat scatter, typed edges; every beam mode; then the
+    # new flags through the entry points ---
+    ev32 = encoder_variants(torch, ctx, "float32")
+    ev16 = encoder_variants(torch, ctx, "bfloat16")
+    encoder_checks(torch, ctx)
+    modes32 = beam_modes(torch, ctx, run32, main32)
+    modes16 = beam_modes(torch, ctx, run16, main16)
+    flags32 = cli_new_flags(torch, ctx, run32, modes32)
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -1414,15 +1875,19 @@ def main() -> int:
                replaces="fira_tpu/ops/copy_score.py:148", **common)
     kernels = [
         dict(name="copy_score_fwd", dtype="float32",
-             launches=run32["k1"] + main32["k1"] + tb32["k1"] + mb32["k1"],
+             launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
+                                            modes32, flags32)),
              **fwd, **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
-             launches=run16["k1"] + main16["k1"] + tb16["k1"] + mb16["k1"],
+             launches=sum(r["k1"] for r in (run16, main16, tb16, mb16, ev16,
+                                            modes16)),
              **fwd, **fwd16),
         dict(name="copy_score_bwd", dtype="float32",
-             launches=run32["k2"] + tb32["k2"], **bwd, **bwd32),
+             launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32)),
+             **bwd, **bwd32),
         dict(name="copy_score_bwd_bf16", dtype="bfloat16",
-             launches=run16["k2"] + tb16["k2"], **bwd, **bwd16)]
+             launches=sum(r["k2"] for r in (run16, tb16, ev16)),
+             **bwd, **bwd16)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

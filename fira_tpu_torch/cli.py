@@ -16,14 +16,20 @@ f32 ``best.pt`` decodes in bf16). ``--buckets auto`` pads each batch to
 the smallest of a few geometries chosen from the split the command reads
 (``train``: the train split; ``test``: the test split); ``--fused-steps
 K`` runs K training steps from one stacked copy to the card and
-``--accum-steps A`` makes one optimizer step from A batches. A config the
-port does not run, or a bad knob, exits 2 with the knob named.
+``--accum-steps A`` makes one optimizer step from A batches. The beam
+flags (``--beam-factored-topk``, ``--beam-early-exit``,
+``--beam-log-space``) and the encoder flags (``--encoder-buffer``,
+``--adjacency``, ``--typed-edges``, ``--sort-edges``) mean what the JAX
+package's do. A config the port does not run, or a bad knob, exits 2 with
+the knob named.
 
 Example:
     python -m fira_tpu_torch.cli train --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli test --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli train --dtype bfloat16 --feeder-workers 2
     python -m fira_tpu_torch.cli train --buckets auto --fused-steps 2
+    python -m fira_tpu_torch.cli test --beam-factored-topk --beam-early-exit
+    python -m fira_tpu_torch.cli train --adjacency segment --typed-edges
 """
 
 from __future__ import annotations
@@ -80,6 +86,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "'AST:EDGES:TAR[,AST:EDGES:TAR...]', each at most "
                         "the config's full values; each sample packs into "
                         "its smallest admissible bucket")
+    p.add_argument("--beam-factored-topk", action="store_true",
+                   help="test: beam candidates from per-side top-ks "
+                        "(generation vocab + copy positions, gate-scaled) "
+                        "instead of the assembled 25,020-way fused tensor "
+                        "— token-exact")
+    p.add_argument("--beam-early-exit", action="store_true",
+                   help="test: stop the decode loop once every beam has "
+                        "emitted EOS (+1 settling step) — bit-exact vs the "
+                        "full tar_len scan")
+    p.add_argument("--beam-log-space", action="store_true",
+                   help="log-space beam accumulation instead of the "
+                        "reference-compat probability space")
+    p.add_argument("--encoder-buffer", default=None,
+                   choices=["single", "split"],
+                   help="encoder node buffer: one tensor (single, default) "
+                        "or [diff] and [sub||ast] as two with column-slab "
+                        "A.x bmms (split; dense adjacency only, equal up "
+                        "to matmul reassociation)")
+    p.add_argument("--adjacency", default=None, choices=["dense", "segment"],
+                   help="GCN message passing: dense bmm (default) or "
+                        "O(edges) COO gather/scatter-add")
+    p.add_argument("--typed-edges", action="store_true",
+                   help="learn one gain per edge family instead of the "
+                        "reference's flattened untyped adjacency "
+                        "(identical at init)")
+    p.add_argument("--sort-edges", action="store_true",
+                   help="sort each sample's COO edges by (sender, "
+                        "receiver) on the host (the same results)")
     return p
 
 
@@ -155,6 +189,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = cfg.replace(fused_steps=args.fused_steps)
     if args.accum_steps is not None:
         cfg = cfg.replace(accum_steps=args.accum_steps)
+    # a flag given overrides the named config; one not given leaves it
+    for given, knob, value in (
+            (args.beam_log_space, "beam_compat_prob_space", False),
+            (args.beam_factored_topk, "beam_factored_topk", True),
+            (args.beam_early_exit, "beam_early_exit", True),
+            (args.typed_edges, "typed_edges", True),
+            (args.sort_edges, "sort_edges", True),
+            (args.encoder_buffer, "encoder_buffer", args.encoder_buffer),
+            (args.adjacency, "adjacency_impl", args.adjacency)):
+        if given:
+            cfg = cfg.replace(**{knob: value})
     # an accum request drops a fused value the config carries, unless
     # --fused-steps pinned it (then the two conflict and exit 2 below)
     if (cfg.accum_steps > 1 and cfg.fused_steps > 1

@@ -51,10 +51,15 @@ class FiraConfig:
 
     # --- data layout ---
     max_edges: int = 6144       # padded COO length per sample
-    adjacency_impl: str = "dense"   # the port runs "dense" only
+    # "dense": one (B, N, N) scatter a batch, a bmm a GCN round;
+    # "segment": A.x straight from the COO triplets (gather, scale,
+    # scatter-add), O(edges)
+    adjacency_impl: str = "dense"
     sort_edges: bool = False        # host-side (sender, receiver) edge sort
-    flat_scatter: bool = False
-    encoder_buffer: str = "single"  # the port runs "single" only
+    flat_scatter: bool = False      # dense build as one linearized 1-D scatter
+    # "single": one (B, N, d) node buffer; "split": [diff] and [sub||ast]
+    # as two tensors, A.x as two column-slab bmms (dense adjacency only)
+    encoder_buffer: str = "single"
     # Selects the copy head in the JAX package ("xla" or "pallas"). In the
     # port it selects nothing: ``ops.copy_score.copy_scores`` launches the
     # CUDA kernel on every CUDA tensor and runs its plain version only on
@@ -74,8 +79,11 @@ class FiraConfig:
     # field says.
     copy_head_remat: bool = True
 
-    # --- decode (the port runs the cached, prob-space, fused, full-scan
-    # beam: the defaults) ---
+    # --- decode: the reference's probability space (False: log space),
+    # the KV-cached beam (False: the full prefix re-decoded every step),
+    # selection over the fused distribution (True: over the per-side top-k
+    # of the unfused factors), all tar_len - 1 steps (True: stop one step
+    # after every beam has finished) ---
     beam_compat_prob_space: bool = True
     beam_kv_cache: bool = True
     beam_factored_topk: bool = False
@@ -236,15 +244,7 @@ def apply_ablation(cfg: FiraConfig, ablation: Optional[str]) -> FiraConfig:
 
 # knob -> the value of the one path the port runs
 _PORTED_PATH = {
-    "adjacency_impl": "dense",
-    "flat_scatter": False,
-    "encoder_buffer": "single",
-    "beam_compat_prob_space": True,
-    "beam_kv_cache": True,
-    "beam_factored_topk": False,
-    "beam_early_exit": False,
     "decode_engine": False,
-    "typed_edges": False,
     "decode_tar_buckets": False,
     "kv_dtype": "f32",
     "serve_precision": "f32",
@@ -253,6 +253,8 @@ _PORTED_PATH = {
 
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+ENCODER_BUFFERS = ("single", "split")
+ADJACENCY_IMPLS = ("dense", "segment")
 
 
 def unsupported(cfg: FiraConfig) -> List[str]:
@@ -260,6 +262,21 @@ def unsupported(cfg: FiraConfig) -> List[str]:
     takes, one message each."""
     errs = [f"{k}={getattr(cfg, k)!r} (the port runs {v!r} only)"
             for k, v in _PORTED_PATH.items() if getattr(cfg, k) != v]
+    # the JAX model's own refusals, in its words (fira_tpu/model/model.py)
+    if cfg.encoder_buffer not in ENCODER_BUFFERS:
+        errs.append(f"unknown encoder_buffer {cfg.encoder_buffer!r}; "
+                    f"choose 'single' or 'split'")
+    if cfg.adjacency_impl not in ADJACENCY_IMPLS:
+        errs.append(f"adjacency_impl={cfg.adjacency_impl!r} not in "
+                    f"{{'dense', 'segment'}}")
+    elif cfg.adjacency_impl == "segment":
+        if cfg.encoder_buffer == "split":
+            errs.append("encoder_buffer='split' needs the dense adjacency "
+                        "(its A.x runs as two column slabs); use "
+                        "adjacency_impl='dense'")
+        if cfg.flat_scatter:
+            errs.append("flat_scatter applies to the dense adjacency "
+                        "build; use adjacency_impl='dense'")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         errs.append(f"compute_dtype={cfg.compute_dtype!r} (choose from "
                     f"{', '.join(COMPUTE_DTYPES)})")

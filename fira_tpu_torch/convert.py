@@ -6,7 +6,9 @@ The port's submodules carry the flax module names, so a flax leaf at
 names map as follows: a Dense ``kernel`` (in, out) becomes a Linear
 ``weight`` (out, in), transposed; an Embed ``embedding`` and a LayerNorm
 ``scale`` become ``weight``; ``bias`` stays ``bias``. The copy head's score
-kernel (D, 1) becomes the Linear(D, 1) weight (1, D). Both directions work
+kernel (D, 1) becomes the Linear(D, 1) weight (1, D). The typed-edge gains
+are a top-level leaf, ``edge_gain``, under the same name on both sides.
+Both directions work
 on nested dicts of numpy arrays on the flax side. ``adam_state_from_optax``
 carries optax Adam moments the same way into a ``torch.optim.Adam``
 state_dict, so a JAX train state continues in the port.
@@ -39,8 +41,8 @@ def params_from_flax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
             name, arr = "weight", arr.T
         elif leaf_name in ("embedding", "scale"):
             name = "weight"
-        elif leaf_name == "bias":
-            name = "bias"
+        elif leaf_name == "bias" or path == ("edge_gain",):
+            name = leaf_name
         else:
             raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
         out[".".join(mods + [name])] = torch.from_numpy(
@@ -67,8 +69,8 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             leaf = _flax_leaf_name(mods[-1], tensor)
             if leaf == "kernel":
                 arr = arr.T
-        elif name == "bias":
-            leaf = "bias"
+        elif name == "bias" or key == "edge_gain":
+            leaf = name
         else:
             raise KeyError(f"no flax counterpart for {key}")
         node = tree

@@ -61,24 +61,27 @@ Batch = Dict[str, Any]
 Task = Callable[[], Batch]
 
 # batch fields the decode needs on the device (valid stays on the host,
-# and so do msg/msg_tar, which only training and the dev gate read there)
+# and so do msg/msg_tar, which only training and the dev gate read there);
+# edge_kinds (typed_edges only) goes too whenever the host batch has it
 DEVICE_FIELDS = ("diff", "diff_mark", "ast_change", "sub_token",
                  "senders", "receivers", "values")
 TRAIN_FIELDS = DEVICE_FIELDS + ("msg", "msg_tar")
+OPTIONAL_FIELDS = ("edge_kinds",)
 
 
 def batch_to_device(host: Dict[str, np.ndarray], device: torch.device,
                     fields=DEVICE_FIELDS) -> Dict[str, torch.Tensor]:
     """Copy ``fields`` of a host batch (or of a stacked group, every
-    field with a leading group axis) to ``device`` on the current
-    stream. Ids and edge indices travel in their narrow wire types and are
+    field with a leading group axis), and those of ``OPTIONAL_FIELDS`` it
+    holds, to ``device`` on the current stream. Ids, edge indices and
+    edge kinds travel in their narrow wire types and are
     upcast to int64 on the device; edge values stay f32, or arrive as bf16
     bits in uint16 (``batching.bf16_bits``) and are viewed as
     ``torch.bfloat16`` after the copy. On a CUDA device the copies come
     from pinned memory and do not block."""
     cuda = device.type == "cuda"
     out = {}
-    for f in fields:
+    for f in (*fields, *(f for f in OPTIONAL_FIELDS if f in host)):
         a = host[f]
         bits = a.dtype == np.uint16
         t = torch.from_numpy(a.view(np.int16) if bits else a)

@@ -10,7 +10,8 @@ plan, data/buckets.py; with ``cfg.buckets = ()`` the split's sequential
 chunks at the full geometry) come from a ``data.feeder.Feeder``
 (``cfg.feeder_workers`` threads assemble them and queue their copies to
 the device ahead of the beam, ``cfg.feeder_depth`` at most in flight);
-each is beam-decoded in the model's compute dtype, and its tokens come
+each is beam-decoded in the model's compute dtype by the beam the config
+selects (``beam.make_beam_search``), and its tokens come
 back to the host to be cooked into text. Lines stream to disk in split
 order through the ordered writer (decode/stream.py), each row at its
 ``_positions`` place.
@@ -27,7 +28,7 @@ from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import Feeder
-from fira_tpu_torch.decode.beam import beam_search_cached
+from fira_tpu_torch.decode.beam import make_beam_search
 from fira_tpu_torch.decode.stream import OrderedStreamWriter
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
@@ -73,9 +74,9 @@ def run_test(model: FiraModel, dataset: FiraDataset,
              ablation: Optional[str] = None,
              var_maps: Optional[List[Dict[str, str]]] = None,
              split: str = "test") -> Dict[str, float]:
-    """Decode ``split`` with the batched KV-cached beam on the model's
-    device, in the model's compute dtype. Returns mean sentence BLEU, the
-    sample count and the path."""
+    """Decode ``split`` with the batched beam ``cfg`` selects on the
+    model's device, in the model's compute dtype. Returns mean sentence
+    BLEU, the sample count and the path."""
     cfg = cfg or dataset.cfg
     device = next(model.parameters()).device
     data = dataset.splits[split]
@@ -87,6 +88,7 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     bleu_by_pos: Dict[int, float] = {}
     n_total = len(data)
     model.eval()
+    search = make_beam_search(model, cfg)
     tasks = buckets_lib.bucketed_assembly_tasks(
         data, buckets_lib.decode_plan(data, cfg), cfg,
         batch_size=cfg.test_batch_size)
@@ -97,7 +99,7 @@ def run_test(model: FiraModel, dataset: FiraDataset,
                               bleu_by_pos=bleu_by_pos, n_total=n_total,
                               var_maps=var_maps, indices=indices)
         for item in feed:
-            tokens, probs = beam_search_cached(model, item.device, cfg)
+            tokens, probs = search(item.device)
             tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
             positions = item.host["_positions"]
             for i in np.flatnonzero(item.host["valid"]):

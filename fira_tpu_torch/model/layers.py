@@ -192,8 +192,18 @@ class Combination(PostLN):
 
 class GCN(PostLN):
     """One graph-convolution round (gnn_transformer.py:64-86):
-    fc1 -> A.x -> fc2 -> dropout -> residual -> LayerNorm, over a dense
-    (B, N, N) normalized adjacency, cast to the compute dtype."""
+    fc1 -> A.x -> fc2 -> dropout -> residual -> LayerNorm. ``adj`` takes
+    the JAX GCN's three forms:
+
+    - a dense (B, N, N) normalized adjacency, cast to the compute dtype
+      (one bmm);
+    - a callable applying A.x from the COO triplets (``model.coo_matvec``,
+      ``adjacency_impl="segment"``);
+    - with ``graph_em`` a (top, rest) pair (``encoder_buffer="split"``),
+      the pair of column slabs (A[:, :, :s], A[:, :, s:]): A.x is the sum
+      of two slab bmms, fc1/fc2/norm are shared, and dropout is ONE call
+      over the full (B, N, d) width, so its random stream is the single
+      buffer's."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0, device=None,
                  dtype: torch.dtype = torch.float32, residual_dtype=None):
@@ -205,7 +215,17 @@ class GCN(PostLN):
         self.norm = layer_norm(d_model, device)
 
     def forward(self, graph_em, adj, generator=None):
-        x = torch.bmm(adj.to(self.dtype), self.fc1(graph_em))
+        if isinstance(graph_em, tuple):
+            top, rest = graph_em
+            adj_top, adj_rest = adj
+            x = (torch.bmm(adj_top.to(self.dtype), self.fc1(top))
+                 + torch.bmm(adj_rest.to(self.dtype), self.fc1(rest)))
+            x = dropout(self.fc2(x), self.dropout_rate, generator,
+                        training=self.training)
+            s = top.shape[1]
+            return self.post_ln(x[:, :s], top), self.post_ln(x[:, s:], rest)
+        x = self.fc1(graph_em)
+        x = adj(x) if callable(adj) else torch.bmm(adj.to(self.dtype), x)
         x = dropout(self.fc2(x), self.dropout_rate, generator,
                     training=self.training)
         return self.post_ln(x, graph_em)

@@ -1,15 +1,23 @@
 """FIRA model: GCN graph encoder + Transformer decoder + dual copy head
 (counterpart of ``fira_tpu/model/model.py``).
 
-The adjacency arrives as padded COO triplets and is scattered once per
-batch into a dense (B, graph_len, graph_len) tensor that all GCN rounds
-reuse. The decode path is the KV-cached one: ``decode_init`` computes the
-per-layer cross-attention K/V and the copy head's source projection once
-per batch, and ``fused_probs_step`` decodes one position against the
-self-attention caches. ``forward`` is the training loss (sum, count) and
-``dev_predict`` the dev gate's teacher-forced greedy ids. Every copy-head
-score goes through ``ops.copy_score.copy_scores``, the CUDA kernels (K1
-forward, K2 backward) on a CUDA tensor.
+The adjacency arrives as padded COO triplets. Under
+``adjacency_impl="dense"`` it is scattered once per batch into a dense
+(B, graph_len, graph_len) tensor that all GCN rounds reuse (as one
+linearized 1-D scatter under ``flat_scatter``); under ``"segment"`` each
+round applies A.x straight from the triplets (``coo_matvec``).
+``typed_edges`` scales each edge by a learned gain of its family
+(``edge_gain``) first. ``encoder_buffer="split"`` keeps the [diff] and
+[sub||ast] node rows as two tensors. The full-prefix decode is
+``fused_probs`` / ``dist_parts``; the KV-cached one is ``decode_init``
+(per-layer cross-attention K/V and the copy head's source projection,
+once per batch) and ``fused_probs_step`` / ``dist_parts_step`` (one
+position against the self-attention caches). ``dist_parts*`` return the
+unfused (gen, copy, gate) that the factored beam selects from.
+``forward`` is the training loss (sum, count) and ``dev_predict`` the dev
+gate's teacher-forced greedy ids. Every copy-head score goes through
+``ops.copy_score.copy_scores``, the CUDA kernels (K1 forward, K2
+backward) on a CUDA tensor.
 
 Dropout draws from the ``torch.Generator`` passed to ``forward`` (and from
 there to ``encode``, ``Decoder.forward`` and the layers), in training mode
@@ -28,6 +36,7 @@ bias), LayerNorm and the softmaxes in the stable dtype
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -35,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fira_tpu_torch.config import FiraConfig, unsupported
+from fira_tpu_torch.data.graph_build import N_EDGE_KINDS
 from fira_tpu_torch.model.layers import (
     NEG_INF,
     Attention,
@@ -51,22 +61,52 @@ from fira_tpu_torch.ops import copy_score
 
 
 def dense_adjacency(senders, receivers, values, graph_len: int,
-                    out_dtype=None):
+                    out_dtype=None, flat: bool = False):
     """Scatter padded COO triplets into a dense (B, N, N) adjacency, in
     ``out_dtype`` (default: the values' own).
 
     Pad entries are (0, 0, 0.0): adding zero changes nothing, and
     graph_build dedups cells, so each cell receives exactly one value and
     the accumulating scatter is exact, also straight into bf16: the same
-    bits as scattering f32 and casting."""
+    bits as scattering f32 and casting. ``flat``: one 1-D scatter over
+    the linearized cell index (b*N + s)*N + r, bit-identical (the same
+    cells get the same single values)."""
     B = senders.shape[0]
     dt = values.dtype if out_dtype is None else out_dtype
-    adj = torch.zeros((B, graph_len, graph_len), dtype=dt,
-                      device=values.device)
-    b_idx = torch.arange(B, device=values.device)[:, None].expand_as(senders)
-    adj.index_put_((b_idx, senders.long(), receivers.long()), values.to(dt),
-                   accumulate=True)
+    dev = values.device
+    b_idx = torch.arange(B, device=dev)[:, None]
+    if flat:
+        idx = ((b_idx * graph_len + senders.long()) * graph_len
+               + receivers.long())
+        adj = torch.zeros(B * graph_len * graph_len, dtype=dt, device=dev)
+        adj.index_put_((idx.reshape(-1),), values.to(dt).reshape(-1),
+                       accumulate=True)
+        return adj.reshape(B, graph_len, graph_len)
+    adj = torch.zeros((B, graph_len, graph_len), dtype=dt, device=dev)
+    adj.index_put_((b_idx.expand_as(senders), senders.long(),
+                    receivers.long()), values.to(dt), accumulate=True)
     return adj
+
+
+def coo_matvec(senders, receivers, values, x):
+    """A.x straight from the COO triplets (dense[b, senders, receivers] =
+    values): gather each edge's source row x[b, receivers], weight it, and
+    scatter-add it into row senders. O(edges) instead of O(N^2); pad edges
+    (0, 0, 0.0) add zero. Accumulates in ``stable_dtype(x.dtype)`` (f32
+    under bf16, as the dense bmm accumulates) and returns x's type; the
+    sums differ from the dense bmm by reassociation. The scatter-add is
+    ``index_put_(accumulate=True)``, whose autograd keeps only the index:
+    ``index_add_`` also keeps the (B*E, d) messages, one such tensor a GCN
+    round (1.07 GB at fira-full)."""
+    B, N, d = x.shape
+    acc = stable_dtype(x.dtype)
+    rows = torch.arange(B, device=x.device)[:, None] * N
+    msgs = (x.to(acc).reshape(B * N, d).index_select(
+                0, (rows + receivers.long()).reshape(-1))
+            * values.reshape(-1, 1).to(acc))
+    out = torch.zeros((B * N, d), dtype=acc, device=x.device).index_put_(
+        ((rows + senders.long()).reshape(-1),), msgs, accumulate=True)
+    return out.reshape(B, N, d).to(x.dtype)
 
 
 def _embed(table: nn.Embedding, ids, dtype):
@@ -89,7 +129,11 @@ def _residual_dtype(cfg: FiraConfig, dtype):
 class Encoder(nn.Module):
     """gnn_transformer.py:21-62: embeddings + num_layers rounds of
     {mark-fusion Combination on the diff rows -> GCN over the whole
-    [diff || sub || ast_change] node buffer}."""
+    [diff || sub || ast_change] node buffer}. ``adj``: a dense (B, N, N)
+    adjacency or a callable applying A.x (``coo_matvec``). Under
+    ``encoder_buffer="split"`` the buffer is two tensors, [diff] and
+    [sub || ast_change], and the dense adjacency two column slabs, made
+    once a forward and reused by every round."""
 
     def __init__(self, cfg: FiraConfig, device=None,
                  dtype: torch.dtype = torch.float32):
@@ -115,21 +159,31 @@ class Encoder(nn.Module):
         sou, dt = self.cfg.sou_len, self.dtype
         input_em = _embed_padded(self.word_embed, diff, dt) + self.pos[None]
         mark_em = _embed_padded(self.mark_embed, mark, dt)
-        graph_em = torch.cat([input_em,
-                              _embed_padded(self.word_embed, sub_token, dt),
-                              _embed_padded(self.ast_change_embed, ast_change,
-                                            dt)], dim=1)
+        rest = torch.cat([_embed_padded(self.word_embed, sub_token, dt),
+                          _embed_padded(self.ast_change_embed, ast_change,
+                                        dt)], dim=1)
+        split = self.cfg.encoder_buffer == "split"
+        if split:   # config.unsupported refuses it with segment
+            graph_em = (input_em, rest)
+            adj = (adj[:, :, :sou].contiguous(), adj[:, :, sou:].contiguous())
+        else:
+            graph_em = torch.cat([input_em, rest], dim=1)
         for i in range(self.cfg.num_layers):
-            diff_em = graph_em[:, :sou]
+            diff_em = graph_em[0] if split else graph_em[:, :sou]
             diff_em = getattr(self, f"combination_{i}")(diff_em, diff_em,
                                                         mark_em, generator)
             # the buffer keeps its type: round 0's is the compute dtype, so
             # the first Combination output is cast into it (as the JAX
             # package's in-place update); after the first GCN it is the
             # post-LN type
-            graph_em = torch.cat([diff_em.to(graph_em.dtype),
-                                  graph_em[:, sou:]], dim=1)
+            if split:
+                graph_em = (diff_em.to(graph_em[1].dtype), graph_em[1])
+            else:
+                graph_em = torch.cat([diff_em.to(graph_em.dtype),
+                                      graph_em[:, sou:]], dim=1)
             graph_em = getattr(self, f"gcn_{i}")(graph_em, adj, generator)
+        if split:
+            return graph_em[0], graph_em[1][:, : self.cfg.sub_token_len]
         return (graph_em[:, :sou],
                 graph_em[:, sou : sou + self.cfg.sub_token_len])
 
@@ -253,7 +307,9 @@ class CopyNet(nn.Module):
 class FiraModel(nn.Module):
     """Model.py:24-86: encoder + decoder + fused gen/copy distribution.
     ``dtype``: the compute dtype, a torch dtype or its name (default
-    ``cfg.compute_dtype``); the parameters are f32 whatever it is."""
+    ``cfg.compute_dtype``); the parameters are f32 whatever it is. Under
+    ``cfg.typed_edges`` it also holds ``edge_gain``, one f32 gain per
+    edge family (ones at init: the adjacency is then the untyped one)."""
 
     def __init__(self, cfg: FiraConfig, device=None, dtype=None):
         super().__init__()
@@ -270,18 +326,35 @@ class FiraModel(nn.Module):
         self.copy_net = CopyNet(cfg.embedding_dim, device, dtype)
         self.out_fc = dense(cfg.embedding_dim, cfg.vocab_size, device=device,
                             dtype=dtype)
+        if cfg.typed_edges:
+            self.edge_gain = nn.Parameter(torch.ones(
+                N_EDGE_KINDS, dtype=torch.float32, device=device))
 
     def init_parameters(self, gen: torch.Generator) -> "FiraModel":
-        """Random weights from ``gen`` (PyTorch's default distributions)."""
-        return init_parameters(self, gen)
+        """Random weights from ``gen`` (PyTorch's default distributions);
+        ``edge_gain`` ones."""
+        init_parameters(self, gen)
+        if self.cfg.typed_edges:
+            with torch.no_grad():
+                self.edge_gain.fill_(1.0)
+        return self
 
     def encode(self, batch: Dict[str, torch.Tensor], generator=None):
         """Run the graph encoder once; returns ([diff||sub] states, mask)."""
+        cfg = self.cfg
         graph_len = (batch["diff"].shape[1] + batch["sub_token"].shape[1]
                      + batch["ast_change"].shape[1])
-        adj = dense_adjacency(batch["senders"], batch["receivers"],
-                              batch["values"], graph_len,
-                              out_dtype=self.dtype)
+        values = batch["values"]
+        if cfg.typed_edges:
+            values = values * self.edge_gain.to(values.dtype)[
+                batch["edge_kinds"].long()]
+        if cfg.adjacency_impl == "segment":
+            adj = functools.partial(coo_matvec, batch["senders"],
+                                    batch["receivers"], values)
+        else:
+            adj = dense_adjacency(batch["senders"], batch["receivers"],
+                                  values, graph_len, out_dtype=self.dtype,
+                                  flat=cfg.flat_scatter)
         diff, sub_token = batch["diff"].long(), batch["sub_token"].long()
         sou_emb, sub_emb = self.encoder(diff, batch["diff_mark"].long(),
                                         batch["ast_change"].long(), adj,
@@ -305,9 +378,11 @@ class FiraModel(nn.Module):
         return torch.cat([gate[:, :, 0:1] * gen, gate[:, :, 1:2] * copy],
                          dim=-1)
 
-    def _dist_parts(self, states, mask, tar, tar_mask_pad, generator=None):
+    def dist_parts(self, states, mask, tar, tar_mask_pad, generator=None):
         """Decoder over a full prefix, then the generation softmax, masked
-        copy softmax and gate, unfused."""
+        copy softmax and gate, unfused: the training loss gathers its
+        labels from them, and the factored full-prefix beam takes its
+        per-side top-k from them."""
         tar_emb = self.decoder(tar.long(), states, mask, tar_mask_pad,
                                generator)
         return self._heads(mask, self.copy_net.project_src(states), tar_emb)
@@ -316,7 +391,7 @@ class FiraModel(nn.Module):
         """Decoder + copy fusion over a full prefix -> probability-space
         distribution over vocab_size + sou_len + sub_token_len
         (Model.py:52-64)."""
-        return self._fuse(*self._dist_parts(states, mask, tar, tar_mask_pad))
+        return self._fuse(*self.dist_parts(states, mask, tar, tar_mask_pad))
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None):
         """Training/dev loss: (nll_sum, token_count), as the reference
@@ -327,8 +402,8 @@ class FiraModel(nn.Module):
         draws from ``generator`` in training mode."""
         states, mask = self.encode(batch, generator)
         tar = batch["msg"].long()
-        gen, copy, gate = self._dist_parts(states, mask, tar, tar != 0,
-                                           generator)
+        gen, copy, gate = self.dist_parts(states, mask, tar, tar != 0,
+                                          generator)
         msg_tar = batch["msg_tar"].long()
         label = torch.cat([msg_tar[:, 1:], torch.zeros_like(msg_tar[:, :1])],
                           dim=1)
@@ -364,12 +439,21 @@ class FiraModel(nn.Module):
         cross_k, cross_v = self.decoder.cross_kv(states)
         return cross_k, cross_v, self.copy_net.project_src(states)
 
+    def dist_parts_step(self, mask, tok, pos_idx: int, k_cache, v_cache,
+                        cross_k, cross_v, src_proj, self_mask):
+        """One-position distribution factors with KV caching: the (gen,
+        copy, gate) of :meth:`fused_probs_step` unfused, for the factored
+        beam. Returns (gen, copy, gate, k_cache, v_cache)."""
+        tar_emb, k_cache, v_cache = self.decoder.decode_step(
+            tok, pos_idx, k_cache, v_cache, cross_k, cross_v, mask, self_mask)
+        return (*self._heads(mask, src_proj, tar_emb), k_cache, v_cache)
+
     def fused_probs_step(self, mask, tok, pos_idx: int, k_cache, v_cache,
                          cross_k, cross_v, src_proj, self_mask):
         """One-position fused distribution with KV caching: same math as
         slicing position ``pos_idx`` out of :meth:`fused_probs`. Returns
         (fused (B, 1, V_out), k_cache, v_cache)."""
-        tar_emb, k_cache, v_cache = self.decoder.decode_step(
-            tok, pos_idx, k_cache, v_cache, cross_k, cross_v, mask, self_mask)
-        return (self._fuse(*self._heads(mask, src_proj, tar_emb)),
-                k_cache, v_cache)
+        gen, copy, gate, k_cache, v_cache = self.dist_parts_step(
+            mask, tok, pos_idx, k_cache, v_cache, cross_k, cross_v, src_proj,
+            self_mask)
+        return self._fuse(gen, copy, gate), k_cache, v_cache

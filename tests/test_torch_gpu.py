@@ -316,6 +316,66 @@ def test_copy_scores_backward_kernel_at_bucket_tar_len(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# the full-prefix beam (beam_kv_cache=False): the whole (test batch x beam,
+# tar_len) prefix scored every step
+PREFIX_SHAPE = (60, 30, 370, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_copy_scores_kernel_at_full_prefix_beam_shape(cuda, dtype):
+    """K1 at (60, 30, 370, 256): f32 at rtol / atol 1e-5, bf16 at 1e-2;
+    bitwise equal over two launches; one launch a call."""
+    src, tgt, w, b = _inputs(*PREFIX_SHAPE, dtype=dtype, device=cuda)
+    before = cs.copy_scores.launches
+    got = cs.copy_scores(src, tgt, w, b)
+    assert cs.copy_scores.launches == before + 1
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.dtype == dtype and got.shape == PREFIX_SHAPE[:3]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, cs.copy_scores(src, tgt, w, b))
+
+
+@pytest.mark.gpu
+def test_factored_top_k_repairs_ties_on_the_card(cuda):
+    """The factored beam's per-side top-k on the card, on rows full of
+    ties (a padded copy side shares one value): equal to the stable sort's
+    first k, lower index first, as ``jax.lax.top_k``."""
+    from fira_tpu_torch.decode.beam import stable_top_k, top_k_lowest_index
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 4, size=(60, 24650)).astype(np.float32) / 8
+    x[:, 5000:] = 1e-9
+    for k in (1, 3, 6):
+        got = top_k_lowest_index(torch.from_numpy(x).to(cuda), k)
+        want = stable_top_k(torch.from_numpy(x), k)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_coo_matvec_on_the_card_equals_dense(cuda):
+    """The segment adjacency's A.x on the card against the dense bmm (the
+    sums run in another order: a tolerance), f32 and bf16 (accumulated in
+    f32)."""
+    from fira_tpu_torch.model.model import coo_matvec, dense_adjacency
+
+    rng = np.random.default_rng(1)
+    B, N, E, D = 4, 650, 6144, 256
+    s, r = (torch.from_numpy(rng.integers(0, N, (B, E))).to(cuda)
+            for _ in range(2))
+    v = torch.from_numpy(rng.random((B, E), np.float32) * 0.1).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((B, N, D), np.float32)).to(cuda)
+    want = torch.bmm(dense_adjacency(s, r, v, N), x)
+    torch.testing.assert_close(coo_matvec(s, r, v, x), want, rtol=1e-5,
+                               atol=1e-5)
+    got16 = coo_matvec(s, r, v, x.bfloat16())
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(), want, rtol=2e-2, atol=2e-2)
+
+
 def test_copy_scores_other_device_raises():
     src, tgt, w, b = _inputs(2, 3, 37, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
