@@ -56,16 +56,20 @@ Phases, each printing its own line; any failure exits non-zero:
 11. profile one warm training step of each dtype under torch.profiler
             (f32 also with the plain copy score), and one at the main train
             bucket's geometry, device busy summed over kernels, memcpy and
-            memset;
+            memset; one f32 step under typed edges and one under the
+            segment adjacency beside the default step, with the kernels
+            whose time grew;
 12. main    for f32 and then bf16, the test path through ``cli test
             --dtype``, decoding that dtype's trained checkpoint; the K1
             launch count must match the path; B-Norm BLEU, Penalty-BLEU
             and ROUGE-L of its output;
 13. plain   the same decodes with the plain copy score: f32 byte-identical,
-            bf16 lines that differ counted; then ``cli test --buckets auto``
-            of the same checkpoint against the unbucketed decode (f32: at
-            most one line may differ, and only at a near-tie of best-beam
-            probabilities, 1e-5; bf16 counted), both decodes timed in turns;
+            bf16 lines that differ counted; both again in log space
+            (where no score underflows; f32 byte-identical); then ``cli
+            test --buckets auto`` of the same checkpoint against the
+            unbucketed decode (f32: at most one line may differ, and only
+            at a near-tie of best-beam probabilities, 1e-5; bf16
+            counted), both decodes timed in turns;
             one decode batch of each dtype profiled; on a small input the
             card's f32 distributions must agree with the CPU's;
 14. encoder variants  for f32 and then bf16, one epoch of
@@ -530,7 +534,23 @@ def profile_one(torch, label: str, fn, warm: int = 1) -> dict:
         print(f"[profile] {label}: copy-score kernels K1 {k1_us / 1e3:.4f} "
               f"ms, K2 (both launches) {k2_us / 1e3:.4f} ms of "
               f"{device_us / 1e3:.2f} ms device time", flush=True)
-    return dict(wall_ms=wall_us / 1e3, busy_ms=device_us / 1e3)
+    return dict(wall_ms=wall_us / 1e3, busy_ms=device_us / 1e3,
+                by_name=by_name)
+
+
+def kernels_grown(label: str, got: dict, base: dict, n: int = 8) -> None:
+    """The device rows (by kernel name) whose time grew most from the
+    profile ``base`` to ``got``, with their launches in each."""
+    names = set(got["by_name"]) | set(base["by_name"])
+    rows = sorted(((got["by_name"].get(k, (0.0, 0)),
+                    base["by_name"].get(k, (0.0, 0)), k) for k in names),
+                  key=lambda r: r[1][0] - r[0][0])
+    print(f"[profile] {label}: device busy {got['busy_ms']:.2f} ms against "
+          f"{base['busy_ms']:.2f}; the rows that grew most:", flush=True)
+    for (us, k), (us0, k0), name in rows[:n]:
+        print(f"[profile]   +{(us - us0) / 1e3:8.3f} ms  {us / 1e3:8.3f} ms "
+              f"x{k:<5d} (was {us0 / 1e3:.3f} ms x{k0})  {name[:90]}",
+              flush=True)
 
 
 def write_ground_truth(ds, var_maps, path: str) -> None:
@@ -790,10 +810,11 @@ def test_path(torch, ctx, run: dict) -> dict:
 
 def decode_plain(torch, ctx, run: dict, main: dict) -> None:
     """The same decode with the plain copy score swapped in, in turns
-    kernel/plain/plain/kernel. f32: byte-identical to the CLI's output.
-    bf16: the lines that differ are counted (a one-step bf16 rounding
-    difference can flip a near-tie in the beam), and the plain decode's
-    metrics printed."""
+    kernel/plain/plain/kernel; then both once in log space. f32:
+    byte-identical to the CLI's output, and the two log-space outputs
+    byte-identical. bf16: the lines that differ are counted (a one-step
+    bf16 rounding difference can flip a near-tie in the beam), and the
+    plain decode's metrics printed."""
     from fira_tpu_torch.decode.runner import run_test
     from fira_tpu_torch.model.model import FiraModel
 
@@ -838,6 +859,25 @@ def decode_plain(torch, ctx, run: dict, main: dict) -> None:
         print(f"[plain {dtype}] metrics of the plain decode: "
               f"{paper_metrics(outs['plain_file'], ctx['gt_file'])}",
               flush=True)
+    # log space: nothing underflows, so every position of every sample
+    # ranks by the copy score (in prob space most samples' scores reach
+    # zero before the last step, and from there ties decide)
+    logs = {}
+    for label in ("kernel", "plain"):
+        model.copy_net.score_fn = (cs.copy_scores if label == "kernel"
+                                   else cs.copy_scores_reference)
+        out = os.path.join(work, f"dec_{dtype}_{label}_log")
+        run_test(model, ds, cfg.replace(compute_dtype=dtype,
+                                        beam_compat_prob_space=False),
+                 out_dir=out, var_maps=ctx["var_maps"])
+        with open(os.path.join(out, "output_fira"), "rb") as f:
+            logs[label] = f.read()
+    n_diff = len(n_lines_differ(logs["kernel"], logs["plain"]))
+    if dtype == "float32":
+        check(logs["kernel"] == logs["plain"], f"f32 log-space decode: "
+              f"{n_diff} lines differ between K1 and the plain copy score")
+    print(f"[plain {dtype}] log-space decode, K1 vs the plain copy score: "
+          f"{n_diff} of {n_test} lines of output_fira differ", flush=True)
 
 
 def dev_gate_check(torch, ctx, run: dict) -> None:
@@ -1835,6 +1875,24 @@ def main() -> int:
                         f"{dtype}, {label})", lambda: train_step(
                             state.model, state.optimizer, batch,
                             state.generator))
+        del state, batch
+    # --- one warm f32 step under typed edges and under the segment
+    # adjacency beside the default path: the kernels that grew ---
+    base = None
+    for name in ("default", "typed", "segment"):
+        c = cfg.replace(**ENCODER_VARIANTS[name])
+        state = init_state(c, "cuda")
+        host = make_batch(ds.splits["train"], list(range(cfg.batch_size)), c,
+                          batch_size=cfg.batch_size)
+        batch = batch_to_device(host, torch.device("cuda"), TRAIN_FIELDS)
+        got = profile_one(torch, f"one training step (batch "
+                          f"{cfg.batch_size}, float32, {name})",
+                          lambda: train_step(state.model, state.optimizer,
+                                             batch, state.generator))
+        if base is None:
+            base = got
+        else:
+            kernels_grown(f"{name} step vs default step (float32)", got, base)
         del state, batch
 
     # --- the test paths: each dtype's CLI decodes its trained checkpoint ---

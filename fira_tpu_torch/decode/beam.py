@@ -28,11 +28,11 @@ Here beams fold into the batch dimension. The config selects the mode:
   device a step.
 
 Ties: ``jax.lax.top_k`` gives a tie to the lower index and ``torch.topk``
-promises no order among ties. The global selection (at most K*V_out + K
-entries) sorts with ``torch.sort(descending=True, stable=True)``
-(:func:`stable_top_k`); the factored per-side top-k, over a whole
-vocabulary, repairs ``torch.topk``'s ties without a sort
-(:func:`top_k_lowest_index`).
+promises no order among ties, so every top-k here (the global selection
+and the factored per-side one) is a stable descending sort
+(:func:`stable_top_k`). On the card it is faster, in device time and in
+host time a call, than ``torch.topk`` with its ties repaired
+(``decode/ablate_topk.py``).
 """
 
 from __future__ import annotations
@@ -75,27 +75,6 @@ def stable_top_k(x, k: int):
     ``jax.lax.top_k``)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def top_k_lowest_index(x, k: int):
-    """The result of :func:`stable_top_k` (the k largest along the last
-    axis, by value descending and, among equal values, index ascending)
-    without sorting the row: ``torch.topk`` finds the k-th value v; every
-    element above v is taken, and the elements equal to v fill the rest
-    in index order; then the k results are ordered."""
-    kth = torch.topk(x, k, dim=-1).values[..., -1:]
-    above, tied = x > kth, x == kth
-    need = k - above.sum(-1, keepdim=True)
-    sel = above | (tied & (tied.cumsum(-1) <= need))
-    # the j-th selected element (index order) goes to slot j; the rest to
-    # a discard slot k
-    slot = torch.where(sel, sel.cumsum(-1) - 1, k)
-    pos = torch.arange(x.shape[-1], device=x.device).expand_as(x)
-    idx = torch.zeros((*x.shape[:-1], k + 1), dtype=torch.long,
-                      device=x.device).scatter_(-1, slot, pos)[..., :k]
-    vals = x.gather(-1, idx)
-    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
-    return vals.gather(-1, order), idx.gather(-1, order)
 
 
 def _init_beam(B: int, cfg: FiraConfig, device):
@@ -181,8 +160,8 @@ def _select_factored(gen, copy, gate, tokens, probs, finished, s: int,
     values are bit-equal to the fused ones. Only the order among exactly
     equal candidates of different sides can differ from the fused scan's."""
     K, V = gen.shape[1], gen.shape[2]
-    gv, gi = top_k_lowest_index(gen, K)
-    cv, ci = top_k_lowest_index(copy, K)
+    gv, gi = stable_top_k(gen, K)
+    cv, ci = stable_top_k(copy, K)
     side = torch.cat([gv * gate[:, :, 0:1], cv * gate[:, :, 1:2]], dim=-1)
     ids = torch.cat([gi, ci + V], dim=-1)               # fused-space ids
     return _selection_tail(_candidates(side, probs, cfg), ids, tokens,

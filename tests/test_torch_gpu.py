@@ -341,18 +341,19 @@ def test_copy_scores_kernel_at_full_prefix_beam_shape(cuda, dtype):
 @pytest.mark.gpu
 def test_factored_top_k_repairs_ties_on_the_card(cuda):
     """The factored beam's per-side top-k on the card, on rows full of
-    ties (a padded copy side shares one value): equal to the stable sort's
-    first k, lower index first, as ``jax.lax.top_k``."""
-    from fira_tpu_torch.decode.beam import stable_top_k, top_k_lowest_index
+    ties (a padded copy side shares one value): the k largest, lower
+    index first among equal values, as ``jax.lax.top_k``."""
+    from fira_tpu_torch.decode.beam import stable_top_k
 
     rng = np.random.default_rng(0)
     x = rng.integers(0, 4, size=(60, 24650)).astype(np.float32) / 8
     x[:, 5000:] = 1e-9
     for k in (1, 3, 6):
-        got = top_k_lowest_index(torch.from_numpy(x).to(cuda), k)
-        want = stable_top_k(torch.from_numpy(x), k)
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w)
+        vals, idx = stable_top_k(torch.from_numpy(x).to(cuda), k)
+        want = np.argsort(-x, axis=-1, kind="stable")[:, :k]
+        np.testing.assert_array_equal(idx.cpu().numpy(), want)
+        np.testing.assert_array_equal(
+            vals.cpu().numpy(), np.take_along_axis(x, want, axis=-1))
 
 
 @pytest.mark.gpu
