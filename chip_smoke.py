@@ -93,7 +93,24 @@ Phases, each printing its own line; any failure exits non-zero:
 16. cli flags  ``cli test --beam-factored-topk --beam-early-exit`` of the
             f32 checkpoint (phase 15's bytes in that mode), ``cli train`` one
             epoch with ``--encoder-buffer split`` and with ``--adjacency
-            segment``.
+            segment``;
+17. engine  the slot-refill engine on the f32 checkpoint: ``cli test
+            --engine`` (``run_test`` for the full prefix, which has no
+            flag) byte-identical to phase 15's batched decode in the four
+            kv x factored modes, prob and log space, the arena paged and
+            unpaged; ``--perf production`` byte-identical to the engine in
+            its mode; ``--buckets auto --decode-tar-buckets`` with its
+            decode table and B-Norm BLEU; the smallest <eos> bias that
+            settles samples at 3 or more positions, with the histogram,
+            the engine's bytes equal to the batched early exit's there (and
+            at 8 and 64 slots the lines that differ); K1 once a
+            micro-step, the block allocator healthy after every run; then,
+            f32 and bf16, engine against batched early exit in turns a b b
+            a on the trained and the mixed-depth weights (commits/s,
+            occupancy, steps a commit, pool use, bytes a slot, peak memory
+            above what was held, host syncs a dispatch) and one warm engine
+            dispatch profiled. K1 (phase 4) also at the 64-slot step
+            (192, 1, 370, 256).
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -117,6 +134,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 N_COMMITS = 720            # -> a test split of ~60 commits
+ENGINE_WIDE = 64           # the slot engine's wide arena (--engine-slots)
 WORD_VOCAB, AST_VOCAB = 24_650, 71   # the paper's vocabulary sizes
 SEED = 0
 # per-step losses of the kernel run against the plain run, f32: 1e-4
@@ -217,11 +235,11 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     shape also with large magnitudes and over two launches (bitwise), at
     a batch of 85, at the bucketed training shape (T = the main train
     bucket's ``bucket_t``), at the full-prefix beam's (test batch x beam,
-    tar_len), and those shapes but 85 in bf16 (1e-2: one bf16 rounding of
-    the result). Returns the f32 and
-    the bf16 record: the decode shape's numbers, with the dev, training,
-    bucket and full-prefix beam shapes' under ``dev_*``, ``train_*``,
-    ``bucket_*`` and ``prefix_*``."""
+    tar_len), at the slot engine's step with 64 slots (192, 1), and those
+    shapes but 85 in bf16 (1e-2: one bf16 rounding of the result). Returns
+    the f32 and the bf16 record: the decode shape's numbers, with the dev,
+    training, bucket, full-prefix beam and engine shapes' under ``dev_*``,
+    ``train_*``, ``bucket_*``, ``prefix_*`` and ``engine_*``."""
     from fira_tpu_torch.ops.timing import time_ms
 
     B, K = cfg.test_batch_size, cfg.beam_size
@@ -239,11 +257,14 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
              # the full-prefix beam (beam_kv_cache=False): every step
              # scores the whole prefix, beams folded into the batch
              ("prefix", (B * K, cfg.tar_len, S, D), f32, 1e-5),
+             # the slot engine's step at --engine-slots 64
+             ("engine", (ENGINE_WIDE * K, 1, S, D), f32, 1e-5),
              ("decode", (B * K, 1, S, D), bf16, 1e-2),
              ("dev", (B, cfg.tar_len, S, D), bf16, 1e-2),
              ("train", (cfg.batch_size, cfg.tar_len, S, D), bf16, 1e-2),
              ("bucket", (cfg.batch_size, bucket_t, S, D), bf16, 1e-2),
-             ("prefix", (B * K, cfg.tar_len, S, D), bf16, 1e-2)]
+             ("prefix", (B * K, cfg.tar_len, S, D), bf16, 1e-2),
+             ("engine", (ENGINE_WIDE * K, 1, S, D), bf16, 1e-2)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = {f32: {}, bf16: {}}
     for name, (b, t, s, d), dtype, tol in cases:
@@ -301,7 +322,7 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
               f"(wrapper with bias add {wrapper_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
-        if name in ("decode", "dev", "train", "bucket", "prefix"):
+        if name in ("decode", "dev", "train", "bucket", "prefix", "engine"):
             pre = "" if name == "decode" else f"{name}_"
             records[dtype].update({
                 f"{pre}shape": [b, t, s, d], f"{pre}max_abs_err": err,
@@ -1762,6 +1783,328 @@ def cli_new_flags(torch, ctx, run: dict, modes: dict) -> dict:
     return total
 
 
+def staged_batches(torch, ctx, c) -> list:
+    """The test split's decode plan, each batch built on the host (with
+    its rows' split positions) and copied to the card once."""
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import batch_to_device
+
+    data, bs = ctx["ds"].splits["test"], c.test_batch_size
+    out = []
+    for chunk, geom in B.decode_plan(data, c):
+        host = make_batch(data, chunk, c, batch_size=bs, geom=geom)
+        host["_positions"] = B.positions_of(chunk, bs)
+        out.append((chunk, host, batch_to_device(host, torch.device("cuda"))))
+    return out
+
+
+def settle_positions(r: dict) -> dict:
+    """{split position: the position at which its last beam emitted
+    <eos> (tar_len - 1 if one never did)} from a decode's tokens."""
+    from fira_tpu_torch.data.vocab import EOS_ID
+
+    out = {}
+    for pos, toks in r["toks_by_pos"].items():
+        ends = [int(np.argmax(row == EOS_ID)) if (row == EOS_ID).any()
+                else row.shape[0] - 1 for row in toks]
+        out[pos] = max(ends)
+    return out
+
+
+def with_positions(r: dict, batches: list) -> dict:
+    """A ``decode_split`` result with its tokens keyed by split position."""
+    r["toks_by_pos"] = {int(chunk[i]): t[i] for (chunk, host, _), t in
+                        zip(batches, r["toks"])
+                        for i in np.flatnonzero(host["valid"])}
+    return r
+
+
+def engine_decode(torch, ctx, model, c, batches, slots=None) -> dict:
+    """The test split through a ``SlotEngine`` over batches already on the
+    card (the engine's loop alone timed, host wall to a synchronise,
+    after one prewarm), K1's launches counted around it, the peak device
+    memory above what was allocated before it, the allocator's health
+    after it; each settled sample cooked as ``run_test`` cooks it."""
+    from types import SimpleNamespace
+
+    from fira_tpu_torch.decode import engine
+    from fira_tpu_torch.decode.runner import sample_emitter
+
+    cs, ds = ctx["cs"], ctx["ds"]
+    eng = engine.SlotEngine(model, c, slots=slots)
+    eng.prewarm([batches[0][1]])
+    feed = [SimpleNamespace(index=i, host=h, device=d)
+            for i, (_, h, d) in enumerate(batches)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cs.copy_scores.launches = 0
+    t0 = time.perf_counter()
+    items = list(eng.run(feed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = cs.copy_scores.launches
+    peak = torch.cuda.max_memory_allocated() - held
+    lines = {}
+    emit = sample_emitter(
+        SimpleNamespace(add=lines.__setitem__, flush=lambda: None),
+        vocab=ds.word_vocab, cfg=c, bleu_by_pos={}, n_total=len(items),
+        var_maps=ctx["var_maps"], indices=ds.split_indices["test"])
+    for it in items:
+        emit(it.position, it.host, it.row, it.tokens, it.probs)
+    st = eng.stats.summary()
+    R = max(1, c.engine_harvest_every)
+    check(k1 == R * st["step_dispatches"],
+          f"engine: copy_score launched {k1} times for "
+          f"{st['step_dispatches']} step dispatches of {R} micro-steps")
+    errs = eng.allocator_invariants()
+    check(not errs, f"engine allocator after the run: {errs}")
+    return dict(out="".join(lines[i] for i in sorted(lines)).encode(),
+                rate=len(items) / wall, stats=st, k1=k1, peak=peak, eng=eng,
+                best={it.position: float(it.probs.max()) for it in items})
+
+
+def engine_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
+    """``cli test --dtype float32`` with ``flags`` on the f32 checkpoint,
+    counts from zero around it; its printed lines kept and echoed; K1
+    must launch once a micro-step (prewarm's dispatch included)."""
+    import contextlib
+    import io
+
+    from fira_tpu_torch import cli
+
+    cs = ctx["cs"]
+    out_dir = os.path.join(ctx["work"], f"out_engine_{name}")
+    buf = io.StringIO()
+    cs.copy_scores.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["test", "--config", "fira-full", "--data-dir",
+                       ctx["data_dir"], "--out-dir", out_dir, "--ckpt-dir",
+                       run["ckpt_dir"], "--dtype", "float32", *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = cs.copy_scores.launches
+    printed = buf.getvalue()
+    check(rc == 0, f"cli test {' '.join(flags)} exited {rc}: {printed}")
+    summary = None
+    for line in printed.splitlines():
+        if line.startswith("engine: "):
+            summary = json.loads(line[len("engine: "):])
+        elif line.startswith(("decode table", "buckets")):
+            print(f"[engine] cli test {' '.join(flags)}: {line}", flush=True)
+    if summary is not None:
+        want = ctx["cfg"].engine_harvest_every * (
+            summary["step_dispatches"] + summary["warm_step_dispatches"])
+        check(k1 == want, f"cli test {' '.join(flags)}: copy_score launched "
+              f"{k1} times, {want} micro-steps")
+    path = os.path.join(out_dir, "output_fira")
+    with open(path, "rb") as f:
+        out = f.read()
+    return dict(out=out, k1=k1, wall=wall, summary=summary, path=path)
+
+
+def engine_run_test(torch, ctx, run: dict, name: str, knobs: dict) -> dict:
+    """``run_test`` with the engine and ``knobs`` (the full-prefix beam has
+    no CLI flag) on the f32 checkpoint's weights, counts from zero around
+    it; K1 must launch once a micro-step (prewarm's dispatch included)."""
+    from fira_tpu_torch.decode.runner import run_test
+    from fira_tpu_torch.model.model import FiraModel
+
+    cs = ctx["cs"]
+    c = ctx["cfg"].replace(decode_engine=True, **knobs)
+    model = FiraModel(c, device="cuda").eval()
+    model.load_state_dict(run["state_dict"])
+    out_dir = os.path.join(ctx["work"], f"out_engine_{name.replace('/', '_')}")
+    cs.copy_scores.launches = 0
+    t0 = time.perf_counter()
+    m = run_test(model, ctx["ds"], c, out_dir=out_dir,
+                 var_maps=ctx["var_maps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = cs.copy_scores.launches
+    s = m["engine"]
+    want = c.engine_harvest_every * (s["step_dispatches"]
+                                     + s["warm_step_dispatches"])
+    check(k1 == want, f"run_test {name}: copy_score launched {k1} times, "
+          f"{want} micro-steps")
+    with open(m["output_path"], "rb") as f:
+        out = f.read()
+    return dict(out=out, k1=k1, wall=wall, summary=s,
+                path=m["output_path"])
+
+
+def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> dict:
+    """The slot engine. Hard checks on the f32 trained checkpoint: ``cli
+    test --engine`` writes the batched decode's bytes (``beam_modes``'
+    full scans) in the four kv x factored modes, in prob and log space,
+    with the arena paged and unpaged; on a copy biased toward <eos> so
+    that samples settle at 3 or more positions, the engine's bytes equal
+    the batched early exit's; ``--perf production`` writes the engine's
+    bytes in its mode; the allocator is healthy after every run and K1
+    launches once a micro-step. Reported: lines that differ at 8 and 64
+    slots, ``--buckets auto --decode-tar-buckets`` and its B-Norm BLEU;
+    then, f32 and bf16, the engine against the batched early exit beam in
+    turns a b b a (commits/s, occupancy, steps per commit, pool use,
+    bytes a slot, peak memory above what was held, host syncs a
+    dispatch) on the trained and the mixed-depth weights, and one warm
+    engine dispatch profiled."""
+    from collections import Counter
+
+    from fira_tpu_torch.decode.beam import eos_biased
+    from fira_tpu_torch.eval import bnorm_bleu_files
+    from fira_tpu_torch.model.model import FiraModel
+
+    cfg, ds = ctx["cfg"], ctx["ds"]
+    n_test = len(ds.splits["test"])
+    k1 = {"float32": 0, "bfloat16": 0}
+    engine_out = {}
+    for kv, fac, prob in BEAM_MODES:
+        for paged in ((True, False) if kv else (False,)):
+            name = (mode_name(kv, fac, prob, False).replace("/full", "")
+                    + ("/paged" if paged else "/unpaged" if kv else ""))
+            flags = (["--engine"] + (["--beam-factored-topk"] if fac else [])
+                     + ([] if prob else ["--beam-log-space"])
+                     + ([] if paged else ["--kv-paged", "off"]))
+            if not kv:
+                # the full prefix: the named config caches; a flag cannot
+                # turn it off, so run_test takes the config directly
+                r = engine_run_test(torch, ctx, run32, name, dict(
+                    beam_kv_cache=False, beam_factored_topk=fac,
+                    beam_compat_prob_space=prob))
+            else:
+                r = engine_cli(torch, ctx, run32, name.replace("/", "_"),
+                               flags)
+            k1["float32"] += r["k1"]
+            want = modes["out"]["trained", kv, fac, prob, False]
+            diff = n_lines_differ(r["out"], want)
+            check(not diff, f"engine {name}: {len(diff)} of {n_test} lines "
+                  f"differ from the batched decode")
+            engine_out[kv, fac, prob, paged] = r["out"]
+            s = r["summary"]
+            print(f"[engine] {name} f32, trained: output_fira byte-identical "
+                  f"to the batched decode; copy_score launches {r['k1']} = "
+                  f"4 x ({s['step_dispatches']} + "
+                  f"{s['warm_step_dispatches']} warm) dispatches; steps "
+                  f"{s['steps_run']}, occupancy {s['slot_occupancy']}, "
+                  f"host syncs {s['host_syncs']}", flush=True)
+    # --perf production: the engine with the cached, factored, early-exit
+    # beam; its bytes are the engine's in that mode
+    r = engine_cli(torch, ctx, run32, "production", ["--perf", "production"])
+    k1["float32"] += r["k1"]
+    check(r["out"] == engine_out[True, True, True, True],
+          f"--perf production: {len(n_lines_differ(r['out'], engine_out[True, True, True, True]))} lines differ from the engine's decode in its mode")
+    print(f"[engine] cli test --perf production (f32): byte-identical to "
+          f"the engine's cached/factored/prob decode; copy_score launches "
+          f"{r['k1']}; {r['summary']['steps_run']} micro-steps "
+          f"(early exit), wall {r['wall']:.2f} s incl. data and weight load",
+          flush=True)
+    r = engine_cli(torch, ctx, run32, "tar_buckets",
+                   ["--engine", "--buckets", "auto", "--decode-tar-buckets"])
+    k1["float32"] += r["k1"]
+    print(f"[engine] cli test --engine --buckets auto --decode-tar-buckets "
+          f"(f32): {r['summary']['commits']} commits, "
+          f"{r['summary']['steps_run']} micro-steps, pool "
+          f"{r['summary']['pool_blocks']} blocks of "
+          f"{r['summary']['kv_block_size']}, peak "
+          f"{r['summary']['peak_blocks']}; B-Norm BLEU "
+          f"{bnorm_bleu_files(r['path'], ctx['gt_file'])!r}", flush=True)
+
+    for run in (run32, run16):
+        dtype = run["gated"].compute_dtype
+        f32 = dtype == "float32"
+        c = cfg.replace(compute_dtype=dtype)
+        batches = staged_batches(torch, ctx, c)
+        model = FiraModel(c, device="cuda", dtype=dtype).eval()
+        weights = {"trained": run["state_dict"]}
+        if f32:
+            # the smallest <eos> bias under which samples settle at three
+            # or more positions (a strong one ends every beam at once)
+            for delta in (0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0):
+                model.load_state_dict(eos_biased(run["state_dict"], delta))
+                r = with_positions(decode_split(
+                    torch, ctx, model, c.replace(beam_early_exit=True),
+                    batches), batches)
+                k1[dtype] += r["k1"]
+                hist = Counter(settle_positions(r).values())
+                if len(hist) >= 3:
+                    break
+            check(len(hist) >= 3, f"no <eos> bias up to {delta} settles "
+                  f"samples at 3 positions: {dict(hist)}")
+            ctx["eos_delta"] = delta
+            print(f"[engine] mixed-depth weights: out_fc.bias[<eos>] += "
+                  f"{delta}; the position of each sample's last <eos>, "
+                  f"histogram {dict(sorted(hist.items()))}", flush=True)
+        weights["mixed"] = eos_biased(run["state_dict"], ctx["eos_delta"])
+        ce = c.replace(beam_early_exit=True)
+        for wname, sd in weights.items():
+            model.load_state_dict(sd)
+            got = {"batched": [], "engine": []}
+            for which in ("batched", "engine", "engine", "batched"):
+                if which == "batched":
+                    torch.cuda.synchronize()
+                    held = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    r = decode_split(torch, ctx, model, ce, batches)
+                    r["peak"] = torch.cuda.max_memory_allocated() - held
+                else:
+                    r = engine_decode(torch, ctx, model, ce, batches)
+                k1[dtype] += r["k1"]
+                got[which].append(r)
+            b, e = got["batched"][0], got["engine"][0]
+            diff = n_lines_differ(e["out"], b["out"])
+            if f32:
+                check(not diff, f"engine, {wname} weights: {len(diff)} lines "
+                      f"differ from the batched early exit")
+            st = e["stats"]
+            print(f"[engine {dtype}] {wname}: engine vs batched early exit "
+                  f"(cached/fused/prob, {cfg.test_batch_size} slots), "
+                  f"commits/s in turns a b b a: batched "
+                  f"{got['batched'][0]['rate']:.2f}, engine "
+                  f"{got['engine'][0]['rate']:.2f} "
+                  f"{got['engine'][1]['rate']:.2f}, batched "
+                  f"{got['batched'][1]['rate']:.2f}; {len(diff)} of "
+                  f"{n_test} lines differ; occupancy {st['slot_occupancy']},"
+                  f" steps/commit {st['steps_per_commit']} (batched: "
+                  f"{sum(b['steps']) / n_test:.3f}), pool use "
+                  f"{st['pool_utilization']}, "
+                  f"kv bytes/slot {st['kv_bytes_per_slot']}, host syncs "
+                  f"{st['host_syncs']} over {st['step_dispatches']} "
+                  f"dispatches = {st['host_syncs'] / st['step_dispatches']:.3f}"
+                  f"/dispatch; peak memory above held: engine "
+                  f"{e['peak'] / 2**20:.1f} MiB, batched "
+                  f"{b['peak'] / 2**20:.1f} MiB; on {ctx['kind']}, "
+                  f"{ctx['smi']}", flush=True)
+            if wname == "mixed":
+                for slots in (8, ENGINE_WIDE):
+                    r = engine_decode(torch, ctx, model, ce, batches,
+                                      slots=slots)
+                    k1[dtype] += r["k1"]
+                    st = r["stats"]
+                    print(f"[engine {dtype}] mixed, {slots} slots: "
+                          f"{len(n_lines_differ(r['out'], b['out']))} of "
+                          f"{n_test} lines differ from the batched decode; "
+                          f"{r['rate']:.2f} commits/s, occupancy "
+                          f"{st['slot_occupancy']}, steps/commit "
+                          f"{st['steps_per_commit']}, peak memory above "
+                          f"held {r['peak'] / 2**20:.1f} MiB", flush=True)
+        # one warm engine dispatch (a step of every slot, then its
+        # harvest) on a freshly filled arena, trained weights
+        from fira_tpu_torch.decode import engine
+
+        model.load_state_dict(run["state_dict"])
+        eng = engine.SlotEngine(model, c)
+        eng.prewarm([batches[0][1]])
+        eng.admit(batches[0][1], 0, batches[0][2])
+        eng.refill()
+        profile_one(torch, f"one engine dispatch ({cfg.test_batch_size} "
+                    f"slots x 4 micro-steps + harvest, {dtype})",
+                    lambda: (eng.step_dispatch(), eng.harvest()))
+        del model, eng, batches
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -1811,7 +2154,7 @@ def main() -> int:
     gt_file = os.path.join(work, "ground_truth")
     write_ground_truth(ds, var_maps, gt_file)
     ctx = dict(cs=cs, ds=ds, cfg=cfg, work=work, data_dir=data_dir,
-               var_maps=var_maps, kind=kind, gt_file=gt_file)
+               var_maps=var_maps, kind=kind, gt_file=gt_file, smi=smi)
 
     tables = phase_buckets(ctx)
     bucket_t = tables["main"].tar_len
@@ -1911,6 +2254,10 @@ def main() -> int:
     modes32 = beam_modes(torch, ctx, run32, main32)
     modes16 = beam_modes(torch, ctx, run16, main16)
     flags32 = cli_new_flags(torch, ctx, run32, modes32)
+    # --- the slot-refill engine: cli test --engine in every mode against
+    # the batched bytes, --perf production, tar buckets, mixed depths,
+    # engine vs batched in turns ---
+    eng_k1 = engine_phase(torch, ctx, run32, run16, modes32)
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -1934,11 +2281,11 @@ def main() -> int:
     kernels = [
         dict(name="copy_score_fwd", dtype="float32",
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
-                                            modes32, flags32)),
-             **fwd, **fwd32),
+                                            modes32, flags32))
+             + eng_k1["float32"], **fwd, **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
              launches=sum(r["k1"] for r in (run16, main16, tb16, mb16, ev16,
-                                            modes16)),
+                                            modes16)) + eng_k1["bfloat16"],
              **fwd, **fwd16),
         dict(name="copy_score_bwd", dtype="float32",
              launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32)),

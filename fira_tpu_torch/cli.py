@@ -20,8 +20,16 @@ K`` runs K training steps from one stacked copy to the card and
 flags (``--beam-factored-topk``, ``--beam-early-exit``,
 ``--beam-log-space``) and the encoder flags (``--encoder-buffer``,
 ``--adjacency``, ``--typed-edges``, ``--sort-edges``) mean what the JAX
-package's do. A config the port does not run, or a bad knob, exits 2 with
-the knob named.
+package's do. ``test --engine`` decodes through the slot-refill engine
+(``--engine-slots``, ``--engine-prefill-depth``, ``--engine-harvest-every``;
+its paged KV arena: ``--kv-paged``, ``--kv-block-size``,
+``--kv-pool-blocks``), per sample bitwise equal to the batched beam;
+``--decode-tar-buckets`` lets decode buckets keep their own tar_len as a
+generation budget; ``--perf production`` applies the JAX package's
+production knob sets (``config.PRODUCTION_PERF_KNOBS`` and
+``DECODE_PERF_KNOBS``: the engine with the cached, factored, early-exit
+beam). A config the port does not run, or a bad knob, exits 2 with the
+knob named.
 
 Example:
     python -m fira_tpu_torch.cli train --config fira-full --data-dir DataSet
@@ -30,6 +38,8 @@ Example:
     python -m fira_tpu_torch.cli train --buckets auto --fused-steps 2
     python -m fira_tpu_torch.cli test --beam-factored-topk --beam-early-exit
     python -m fira_tpu_torch.cli train --adjacency segment --typed-edges
+    python -m fira_tpu_torch.cli test --engine --engine-slots 64
+    python -m fira_tpu_torch.cli test --perf production
 """
 
 from __future__ import annotations
@@ -41,6 +51,13 @@ import sys
 from typing import List, Optional
 
 import torch
+
+
+def _positive(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -114,6 +131,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sort-edges", action="store_true",
                    help="sort each sample's COO edges by (sender, "
                         "receiver) on the host (the same results)")
+    p.add_argument("--engine", action="store_true",
+                   help="test: decode through the slot-refill engine "
+                        "(decode/engine.py): settled slots are harvested "
+                        "and refilled mid-flight; per sample bitwise equal "
+                        "to the batched beam in every beam mode")
+    p.add_argument("--engine-slots", type=_positive, default=None,
+                   metavar="S",
+                   help="test: engine slots (default --test-batch-size, "
+                        "the batched beam's shapes)")
+    p.add_argument("--engine-prefill-depth", type=_positive, default=None,
+                   metavar="D",
+                   help="test: prefilled chunks staged ahead of the "
+                        "engine's refills (default 2)")
+    p.add_argument("--engine-harvest-every", type=_positive, default=None,
+                   metavar="R",
+                   help="test: positions advanced a step dispatch before "
+                        "the host harvests settled slots (default 4; the "
+                        "output is the same for any R)")
+    p.add_argument("--kv-paged", default=None, choices=["on", "off"],
+                   help="test: the engine's KV arena: a pool of blocks "
+                        "behind per-slot block tables (on, default) or "
+                        "whole-sequence stripes (off); bitwise equal")
+    p.add_argument("--kv-block-size", type=int, default=None, metavar="B",
+                   help="test: positions a paged block; must divide every "
+                        "declared decode tar budget (0/unset: auto, the "
+                        "largest common divisor <= 16)")
+    p.add_argument("--kv-pool-blocks", type=int, default=None, metavar="P",
+                   help="test: paged pool size in blocks; at least slots "
+                        "x ceil(tar/block) on the smallest decode tar and "
+                        "one largest-budget sample (0/unset: full "
+                        "residency)")
+    p.add_argument("--decode-tar-buckets", action="store_true",
+                   help="test: decode buckets keep their own tar_len; a "
+                        "sample packs into the smallest that fits its "
+                        "reference message, and the engine caps its "
+                        "generation (and its block reservation) there")
+    p.add_argument("--perf", default=None, choices=["parity", "production"],
+                   help="knob preset: 'production' applies the JAX "
+                        "package's production sets (fused steps 8, sorted "
+                        "edges, bf16 residual streams when computing in "
+                        "bf16; the engine with the cached, factored, "
+                        "early-exit beam); 'parity' (default) keeps the "
+                        "reference's. Flags given override the preset")
     return p
 
 
@@ -166,17 +226,18 @@ def resolve_buckets(spec: str, cfg, split):
     return table
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-
-    from fira_tpu_torch.config import apply_ablation, get_config, unsupported
-    from fira_tpu_torch.data.dataset import FiraDataset
-    from fira_tpu_torch.decode.runner import output_name, run_test
-    from fira_tpu_torch.model.model import FiraModel
-    from fira_tpu_torch.train.state import CheckpointManager
+def resolve_config(args):
+    """The run's config from the parsed flags: the named config and
+    ablation, the ``--perf`` preset, then each flag given (a flag not
+    given leaves the config's value)."""
+    from fira_tpu_torch.config import (DECODE_PERF_KNOBS,
+                                       PRODUCTION_PERF_KNOBS, apply_ablation,
+                                       get_config)
 
     cfg = apply_ablation(get_config(args.config.replace("_", "-")),
                          args.ablation)
+    if args.perf == "production":
+        cfg = cfg.replace(**PRODUCTION_PERF_KNOBS, **DECODE_PERF_KNOBS)
     if args.batch_size:
         cfg = cfg.replace(batch_size=args.batch_size)
     if args.test_batch_size:
@@ -189,7 +250,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = cfg.replace(fused_steps=args.fused_steps)
     if args.accum_steps is not None:
         cfg = cfg.replace(accum_steps=args.accum_steps)
-    # a flag given overrides the named config; one not given leaves it
     for given, knob, value in (
             (args.beam_log_space, "beam_compat_prob_space", False),
             (args.beam_factored_topk, "beam_factored_topk", True),
@@ -197,18 +257,44 @@ def main(argv: Optional[List[str]] = None) -> int:
             (args.typed_edges, "typed_edges", True),
             (args.sort_edges, "sort_edges", True),
             (args.encoder_buffer, "encoder_buffer", args.encoder_buffer),
-            (args.adjacency, "adjacency_impl", args.adjacency)):
+            (args.adjacency, "adjacency_impl", args.adjacency),
+            (args.engine, "decode_engine", True),
+            (args.decode_tar_buckets, "decode_tar_buckets", True),
+            (args.kv_paged, "engine_paged_kv", args.kv_paged == "on")):
         if given:
             cfg = cfg.replace(**{knob: value})
+    for knob in ("engine_slots", "engine_prefill_depth",
+                 "engine_harvest_every", "kv_block_size", "kv_pool_blocks"):
+        if getattr(args, knob) is not None:
+            cfg = cfg.replace(**{knob: getattr(args, knob)})
     # an accum request drops a fused value the config carries, unless
     # --fused-steps pinned it (then the two conflict and exit 2 below)
     if (cfg.accum_steps > 1 and cfg.fused_steps > 1
             and args.fused_steps is None):
         cfg = cfg.replace(fused_steps=1)
-    errs = unsupported(cfg)
-    if errs:
+    return cfg
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from fira_tpu_torch.config import unsupported
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.decode.paging import paging_errors
+    from fira_tpu_torch.decode.runner import output_name, run_test
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.train.state import CheckpointManager
+
+    cfg = resolve_config(args)
+
+    def refused(c) -> bool:
+        """Print one line naming the knob a refusal; True if any."""
+        errs = unsupported(c) + paging_errors(c)
         for e in errs:
             print(f"fira_tpu_torch: config error: {e}", file=sys.stderr)
+        return bool(errs)
+
+    if refused(cfg):
         return 2
     device = resolve_device(args.device)
     suffix = f"_{args.ablation}" if args.ablation else ""
@@ -229,7 +315,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if table:
             print(f"buckets: {', '.join(f'{a}:{e}:{t}' for a, e, t in table)}"
                   f" (+ full fallback)")
-        return dataset, dataset.cfg.replace(buckets=table)
+        bcfg = dataset.cfg.replace(buckets=table)
+        # the tar budgets the paged blocks must tile are known only now
+        if refused(bcfg):
+            return 2
+        return dataset, bcfg
 
     if args.command == "train":
         from fira_tpu_torch.train.loop import train
@@ -271,12 +361,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     dataset, cfg = loaded
     model = FiraModel(cfg, device=device, dtype=cfg.compute_dtype)
     model.load_state_dict(state_dict)
+    if cfg.decode_tar_buckets and cfg.buckets:
+        from fira_tpu_torch.data.buckets import decode_table, geom_tag
+
+        print(f"decode table: {', '.join(map(geom_tag, decode_table(cfg)))}")
     metrics = run_test(model, dataset, cfg, out_dir=args.out_dir,
                        ablation=args.ablation,
                        var_maps=_load_var_maps(args.data_dir))
     print(f"test sentence-bleu: {metrics['sentence_bleu']:.4f} "
           f"({int(metrics['n'])} commits) -> "
           f"{os.path.join(args.out_dir, output_name(args.ablation))}")
+    if "engine" in metrics:
+        print(f"engine: {json.dumps(metrics['engine'])}")
     return 0
 
 

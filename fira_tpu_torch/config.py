@@ -89,10 +89,15 @@ class FiraConfig:
     beam_factored_topk: bool = False
     beam_early_exit: bool = False
 
-    # --- knobs of JAX-package paths the port does not run yet (engine,
-    # serving, ingest, fault injection, ring attention); kept so configs
-    # read alike. decode_tar_buckets is the engine's tar-bucketed decode:
-    # refused until the engine is ported ---
+    # --- the slot-refill decode engine (decode/engine.py): test decodes
+    # through an arena of engine_slots slots (0: test_batch_size), each
+    # advanced engine_harvest_every positions a dispatch, with
+    # engine_prefill_depth chunks prefilled ahead; its self-attention
+    # caches paged into a pool of kv_pool_blocks (0: full residency)
+    # blocks of kv_block_size positions (0: auto, decode/paging.py), or
+    # whole-sequence stripes with engine_paged_kv=False.
+    # decode_tar_buckets: decode buckets keep their own tar_len, which
+    # caps each sample's generation in the engine ---
     decode_engine: bool = False
     engine_slots: int = 0
     engine_prefill_depth: int = 2
@@ -101,6 +106,10 @@ class FiraConfig:
     kv_block_size: int = 0
     kv_pool_blocks: int = 0
     decode_tar_buckets: bool = False
+    # --- knobs of JAX-package paths the port does not run yet (prefix
+    # cache, fleet, serving, spec decode, quant tiers, ingest, fault
+    # injection, ring attention); kept so configs read alike, and
+    # ``unsupported`` refuses each one that selects such a path ---
     prefix_cache: bool = False
     prefix_cache_entries: int = 256
     prefix_cache_bytes: int = 0
@@ -242,13 +251,53 @@ def apply_ablation(cfg: FiraConfig, ablation: Optional[str]) -> FiraConfig:
     raise KeyError(f"unknown ablation {ablation!r}")
 
 
-# knob -> the value of the one path the port runs
+# The JAX package's production knob sets (fira_tpu/config.py), which
+# ``cli --perf production`` applies together. In the port ``rng_impl``
+# and ``copy_head_remat`` select nothing; every other member runs.
+PRODUCTION_PERF_KNOBS = {
+    "rng_impl": "rbg",
+    "fused_steps": 8,
+    "sort_edges": True,
+    "stable_residual": False,
+    "copy_head_remat": False,
+}
+
+# The decode half: the KV-cached beam, factored top-k and early exit,
+# decoded through the slot-refill engine (per sample bitwise equal to
+# the batched beam).
+DECODE_PERF_KNOBS = {
+    "beam_kv_cache": True,
+    "beam_factored_topk": True,
+    "beam_early_exit": True,
+    "decode_engine": True,
+}
+
+
+# knob -> (the value of the one path the port runs, the part of the JAX
+# package that runs the others)
 _PORTED_PATH = {
-    "decode_engine": False,
-    "decode_tar_buckets": False,
-    "kv_dtype": "f32",
-    "serve_precision": "f32",
-    "spec_decode": "off",
+    "kv_dtype": ("f32", "the low-precision serving tiers, decode/quant.py "
+                 "(ROADMAP A.9)"),
+    "serve_precision": ("f32", "the low-precision serving tiers, "
+                        "decode/quant.py (ROADMAP A.9)"),
+    "spec_decode": ("off", "speculative decode, decode/spec.py "
+                    "(ROADMAP A.9)"),
+    "prefix_cache": (False, "the prefix cache and in-flight dedup, "
+                     "decode/prefix_cache.py, with serving (ROADMAP A.8)"),
+    "inject_faults": ("", "fault injection, robust/faults.py (ROADMAP "
+                      "A.8)"),
+}
+
+# knob -> (the largest value the port runs, the part that runs more)
+_PORTED_MAX = {
+    "engine_replicas": (1, "the replicated decode fleet, "
+                        "parallel/fleet.py (ROADMAP A.8)"),
+    "engine_spares": (0, "the fleet's spare replicas, robust/recovery.py "
+                      "(ROADMAP A.8)"),
+    "dispatch_watchdog_s": (0.0, "the dispatch watchdog, "
+                            "robust/watchdog.py (ROADMAP A.8)"),
+    "max_respawns": (0, "replica respawn, robust/recovery.py (ROADMAP "
+                     "A.8)"),
 }
 
 
@@ -260,8 +309,12 @@ ADJACENCY_IMPLS = ("dense", "segment")
 def unsupported(cfg: FiraConfig) -> List[str]:
     """Knobs set to a path the port does not run, or to a value no path
     takes, one message each."""
-    errs = [f"{k}={getattr(cfg, k)!r} (the port runs {v!r} only)"
-            for k, v in _PORTED_PATH.items() if getattr(cfg, k) != v]
+    errs = [f"{k}={getattr(cfg, k)!r} (the port runs {v!r} only; other "
+            f"values come with {what})"
+            for k, (v, what) in _PORTED_PATH.items() if getattr(cfg, k) != v]
+    errs += [f"{k}={getattr(cfg, k)!r} (the port runs at most {v!r}; more "
+             f"comes with {what})"
+             for k, (v, what) in _PORTED_MAX.items() if getattr(cfg, k) > v]
     # the JAX model's own refusals, in its words (fira_tpu/model/model.py)
     if cfg.encoder_buffer not in ENCODER_BUFFERS:
         errs.append(f"unknown encoder_buffer {cfg.encoder_buffer!r}; "
@@ -285,6 +338,14 @@ def unsupported(cfg: FiraConfig) -> List[str]:
                     f"0 assembles batches on the consumer thread)")
     if cfg.feeder_depth < 1:
         errs.append(f"feeder_depth={cfg.feeder_depth} (must be >= 1)")
+    if cfg.prefix_cache:
+        from fira_tpu_torch.decode.paging import prefix_cache_errors
+
+        errs += prefix_cache_errors(cfg)
+    for knob, least in (("engine_slots", 0), ("engine_prefill_depth", 1),
+                        ("engine_harvest_every", 1)):
+        if getattr(cfg, knob) < least:
+            errs.append(f"{knob}={getattr(cfg, knob)} (must be >= {least})")
     if cfg.seq_shards > 1:
         errs.append(f"seq_shards={cfg.seq_shards} (the port runs dense "
                     f"cross-attention only)")

@@ -25,7 +25,9 @@ A bucket is ``(ast_len, max_edges, tar_len)``:
   loss masks them out and causal attention keeps real positions' outputs
   unchanged. Decode does not bucket this axis (the model decides the
   output length): decode buckets are ``(ast_len, max_edges, full
-  tar_len)``.
+  tar_len)``, unless ``cfg.decode_tar_buckets``, where each keeps its own
+  tar as a generation budget that the slot engine enforces
+  (:func:`output_plan`).
 
 ``build_adjacency`` appends one self-loop per node of the full geometry,
 ascending, after all family edges, so the edges of the truncated node tail
@@ -327,12 +329,16 @@ def decode_table(cfg: FiraConfig) -> Tuple[BucketGeom, ...]:
     """The decode-side bucket family, deduplicated, cost-sorted, full
     fallback last: each bucket with ``tar_len`` pinned to the full value
     (the beam's output length is the model's to decide and must not be
-    clipped). The JAX package's ``decode_tar_buckets`` mode (tar-bucketed
-    engine decode) is not ported: ``config.unsupported`` refuses it."""
+    clipped), or under ``cfg.decode_tar_buckets`` with its own tar_len:
+    then samples pack by their reference message's extent too, and the
+    slot engine caps each sample's generation at its bucket's tar, which
+    is also its paged block reservation. The batched beam ignores the
+    cap (its scan always runs the full budget)."""
     full = full_geom(cfg)
     geoms: List[BucketGeom] = []
     for g in bucket_table(cfg)[:-1]:
-        d = BucketGeom(g.ast_len, g.max_edges, cfg.tar_len)
+        d = (g if cfg.decode_tar_buckets
+             else BucketGeom(g.ast_len, g.max_edges, cfg.tar_len))
         if d != full and d not in geoms:
             geoms.append(d)
     geoms.sort(key=lambda g: geom_cost(cfg, g))
@@ -341,14 +347,28 @@ def decode_table(cfg: FiraConfig) -> Tuple[BucketGeom, ...]:
 
 def decode_plan(split: ProcessedSplit, cfg: FiraConfig, *,
                 batch_size: Optional[int] = None) -> Plan:
-    """The bucketed batch order of the dev gate and the test decode:
-    ``packed_plan`` over the decode table (``tar_len`` full), split order
-    within each bucket, admissibility on nodes and edges only (the gate
-    scores teacher-forced predictions at every position, and the beam
-    decides the output length)."""
+    """The bucketed batch order of the dev gate and the tar-pinned test
+    decode: ``packed_plan`` over the decode table with ``tar_len`` full
+    (``decode_tar_buckets`` is a test-decode knob and ignored here), split
+    order within each bucket, admissibility on nodes and edges only (the
+    gate scores teacher-forced predictions at every position, and the
+    beam decides the output length)."""
     return packed_plan(split, cfg, batch_size=batch_size or
-                       cfg.test_batch_size, table=decode_table(cfg),
+                       cfg.test_batch_size,
+                       table=decode_table(cfg.replace(
+                           decode_tar_buckets=False)),
                        use_msg=False)
+
+
+def output_plan(split: ProcessedSplit, cfg: FiraConfig) -> Plan:
+    """The batch order of the test decode (the one that writes
+    ``output_fira``): :func:`decode_plan`, or under
+    ``cfg.decode_tar_buckets`` the tar-bucketed table with each sample
+    in the smallest bucket its reference message fits."""
+    if not cfg.decode_tar_buckets:
+        return decode_plan(split, cfg)
+    return packed_plan(split, cfg, batch_size=cfg.test_batch_size,
+                       table=decode_table(cfg), use_msg=True)
 
 
 def ideal_cost(cfg: FiraConfig, ext: SampleExtents, i: int) -> float:

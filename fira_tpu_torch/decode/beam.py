@@ -61,13 +61,18 @@ def _resolve_copy(tok, diff, sub_token, cfg: FiraConfig):
                        torch.where(tok >= V, from_diff, tok))
 
 
-def step_valid_mask(flat, s: int, T: int):
+def step_valid_mask(flat, s, T: int):
     """Cached-decode per-position validity: real (nonzero) prefix tokens,
     position 0 (<start>) always attended, causally restricted to
-    positions <= ``s``."""
+    positions <= ``s``. ``s`` is an int (the batched beam: every row at
+    one depth) or a (B,) tensor (the slot engine: each row at its slot's
+    own), the same per-row rule either way. The mask also guards the
+    engine's paged reads: a position a slot never wrote (a stale pool
+    block's included) gets -1e9, whose softmax weight is exactly 0."""
     base = flat != 0
     base[:, 0] = True
-    return base & (torch.arange(T, device=flat.device)[None, :] <= s)
+    lim = s[:, None] if torch.is_tensor(s) else s
+    return base & (torch.arange(T, device=flat.device)[None, :] <= lim)
 
 
 def stable_top_k(x, k: int):
@@ -93,7 +98,7 @@ def _init_beam(B: int, cfg: FiraConfig, device):
     return tokens0, probs0, finished0, -1.0 if compat else -float("inf")
 
 
-def _selection_tail(cand, ids, tokens, probs, finished, s: int, batch,
+def _selection_tail(cand, ids, tokens, probs, finished, s, batch,
                     cfg: FiraConfig, neg: float):
     """Mask finished beams, append their sentinel entries, one global
     top-k over K*W + K candidates, decode sentinels vs real candidates,
@@ -101,7 +106,9 @@ def _selection_tail(cand, ids, tokens, probs, finished, s: int, batch,
     cand: (B, K, W) candidate scores in the selection space. ids: None
     when W is the fused output space (the token id is the index within
     the beam's W); else a (B, K, W) table of fused-space ids (the factored
-    path's per-side candidates)."""
+    path's per-side candidates). ``s``: an int, or a (B,) tensor of
+    per-row positions (the slot engine), where row b writes its own
+    column s[b]+1; the per-row math is the same."""
     B, K, W = cand.shape
     cand = cand.masked_fill(finished[:, :, None], neg)
     sentinel = torch.where(finished, probs, torch.full_like(probs, neg))
@@ -121,8 +128,13 @@ def _selection_tail(cand, ids, tokens, probs, finished, s: int, batch,
 
     new_tokens = torch.gather(
         tokens, 1, src_beam[:, :, None].expand(B, K, tokens.shape[2]))
-    keep = new_tokens[:, :, s + 1]   # finished beams keep their padding
-    new_tokens[:, :, s + 1] = torch.where(is_sent, keep, tok)
+    if torch.is_tensor(s):
+        col = (s + 1)[:, None, None].expand(B, K, 1)
+        keep = new_tokens.gather(2, col)[:, :, 0]
+        new_tokens.scatter_(2, col, torch.where(is_sent, keep, tok)[:, :, None])
+    else:
+        keep = new_tokens[:, :, s + 1]   # finished beams keep their padding
+        new_tokens[:, :, s + 1] = torch.where(is_sent, keep, tok)
     new_finished = is_sent | (tok == EOS_ID)
     return new_tokens, top_vals, new_finished, src_beam
 
@@ -141,7 +153,7 @@ def _candidates(p, probs, cfg: FiraConfig):
     return torch.log(p.clamp(1e-10, 1.0)) + probs[:, :, None]
 
 
-def _select(dist, tokens, probs, finished, s: int, batch, cfg: FiraConfig,
+def _select(dist, tokens, probs, finished, s, batch, cfg: FiraConfig,
             neg: float):
     """One beam-selection round given this step's fused distribution
     dist (B, K, V_out): active beams contribute their candidates, finished
@@ -150,7 +162,7 @@ def _select(dist, tokens, probs, finished, s: int, batch, cfg: FiraConfig,
                            probs, finished, s, batch, cfg, neg)
 
 
-def _select_factored(gen, copy, gate, tokens, probs, finished, s: int,
+def _select_factored(gen, copy, gate, tokens, probs, finished, s,
                      batch, cfg: FiraConfig, neg: float):
     """One selection round from the distribution factors gen (B, K,
     vocab), copy (B, K, sou+sub) and gate (B, K, 2). The fused

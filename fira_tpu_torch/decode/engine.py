@@ -1,0 +1,758 @@
+"""Slot-refill continuous-batching decode engine (counterpart of
+``fira_tpu/decode/engine.py``).
+
+The batched beam (decode/beam.py) decodes whole batches: even with
+``beam_early_exit`` a batch runs until its longest message settles, so
+most rows of a late step are finished beams. The engine keeps a fixed
+arena of S slots, each holding one sample's beam at its own depth
+(iteration-level continuous batching, Orca OSDI '22, over a fixed-shape
+arena, vLLM SOSP '23): every step dispatch advances each live slot
+``cfg.engine_harvest_every`` (R) positions; settled slots are harvested
+and refilled with freshly prefilled samples, so the work follows the
+tokens emitted, not each batch's longest message.
+
+Pieces (all on the model's device, the arena a dict of tensors updated
+in place under ``torch.inference_mode()``):
+
+- **prefill**: encoder forward, then per-beam cross-attention K/V and the
+  copy head's source projection (or, without the KV cache, the per-beam
+  encoder states) for one packed batch: the batched beam's preamble, on
+  the batches the decode plan gives it (``buckets.output_plan``);
+- **step**: R positions of every active slot (``Decoder.decode_step_multi``
+  / ``decode_step_paged``, or the full prefix re-decoded; then
+  ``beam._select`` / ``_select_factored`` at the per-slot position
+  vector), with a per-slot done predicate in place of the batch's
+  early-exit test. Idle and settled slots compute garbage that is blended
+  away. Each micro-step calls the copy head once, so K1
+  (``ops/copy_score``) launches R times a dispatch;
+- **insert**: copies chosen rows of a prefilled chunk into free slots.
+  The rows and slots are picked on the host, so no out-of-range sentinel
+  reaches a device index (where the JAX package scatters with
+  ``mode="drop"``);
+- **harvest**: one read of the dispatch's ``done`` mask and occupancy,
+  then one read of the settled slots' token and score rows. These two
+  are the only host syncs of a dispatch (``EngineStats.host_syncs``); the
+  step itself reads nothing back.
+
+Contract (the JAX package's, tests/test_torch_engine.py): per sample the
+engine's tokens and scores are bitwise equal to the batched beam's in
+every kv-cache x factored-top-k mode, the paged arena to the unpaged one,
+for any slot count and either refill order. The legs: every op of the
+beam acts row-wise; the step runs the same selection at a per-row
+position; the done predicate is the early-exit one (all beams finished
+before and after the step, or the slot's budget spent), and stopping
+there equals running on (tests/test_beam_early_exit.py). On the card a
+slot count other than the batch size gives the GEMMs another M, where
+cuBLAS may pick another algorithm and the last bits may differ.
+
+Paged KV arena (``cfg.engine_paged_kv``, default on; decode/paging.py):
+the self-attention caches live in a pool of blocks, ``k_pool``/``v_pool``
+(L, P + 1, K, H, block, d_head), addressed by a per-slot block table
+(S, W). Block P is a scratch block: table entries past a slot's
+reservation, and every entry of an idle or settled slot during a step,
+hold the sentinel P, whose reads land there (masked to an exact 0 weight)
+and whose writes land there (never on a block harvest has handed to
+another slot). Only finite values are ever written there. Insert grants a
+slot the blocks its tar budget reserves; harvest releases them whole,
+unzeroed. When the pool is smaller than full residency, the head staged
+row waits for harvests to free blocks (head-of-line, so the order of
+admission, and with it the output, stays a function of the stream). The
+block allocator is refcounted and checks itself
+(:meth:`SlotEngine.allocator_invariants`).
+
+Not ported here, each refused by its knob (``config.unsupported``): the
+prefix cache and in-flight dedup, the replicated fleet, fault injection
+and the watchdog's retirement, spec decode and the low-precision tiers.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fira_tpu_torch.config import FiraConfig, unsupported
+from fira_tpu_torch.data.feeder import batch_to_device
+from fira_tpu_torch.decode import paging
+from fira_tpu_torch.decode.beam import (_init_beam, _select, _select_factored,
+                                        step_valid_mask)
+from fira_tpu_torch.model.model import FiraModel
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Dispatch and occupancy accounting of one engine. The prefix-cache,
+    dedup and spec fields keep the JAX package's keys and stay 0: those
+    paths are not ported."""
+
+    slots: int
+    prefills: int = 0            # prefill dispatches (chunks)
+    refills: int = 0             # insert dispatches
+    slots_refilled: int = 0      # slot fills over all inserts
+    steps: int = 0               # micro-steps (R a dispatch)
+    step_dispatches: int = 0     # step dispatches
+    occupied_slot_steps: int = 0  # (slot, micro-step) pairs of real work
+    commits: int = 0             # samples harvested
+    # paged-KV accounting, stamped by every step dispatch
+    pool_blocks: int = 0         # pool size P (paged only)
+    kv_block_size: int = 0       # positions a block (paged only)
+    kv_bytes_per_slot: int = 0   # committed K+V cache bytes a slot
+    block_steps: int = 0         # blocks in use, summed a step dispatch
+    peak_blocks: int = 0         # most blocks in use at once
+    # harvest reads only the settled slots' rows
+    harvest_row_reads: int = 0   # settled rows read back
+    harvest_bytes_read: int = 0  # bytes those reads copied
+    harvest_bytes_saved: int = 0  # against reading the whole arena
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_evictions: int = 0
+    cache_integrity_drops: int = 0
+    prefills_saved: int = 0
+    cache_hbm_bytes_saved: int = 0
+    dedup_fanout: int = 0
+    shared_block_peak: int = 0
+    drafted: int = 0
+    accepted: int = 0
+    verify_dispatches: int = 0
+    steps_saved: int = 0
+    spec_frames: int = 0
+    kv_dtype: str = "f32"
+    serve_precision: str = "f32"
+    # the port's own: blocking device-to-host reads (harvest's), and the
+    # step dispatches prewarm ran outside these counts
+    host_syncs: int = 0
+    warm_step_dispatches: int = 0
+
+    @property
+    def cache_hit_rate(self) -> float:
+        total = self.cache_hits + self.cache_misses
+        return self.cache_hits / total if total else 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / self.drafted if self.drafted else 0.0
+
+    @property
+    def slot_occupancy(self) -> float:
+        """Mean share of slots doing real beam work a micro-step."""
+        total = self.steps * self.slots
+        return self.occupied_slot_steps / total if total else 0.0
+
+    @property
+    def steps_per_commit(self) -> float:
+        return self.steps / self.commits if self.commits else 0.0
+
+    @property
+    def pool_utilization(self) -> float:
+        """Mean share of the pool mapped to live slots a step dispatch;
+        1.0 for the unpaged arena (its stripes are committed whether a
+        slot is live or not), 0.0 with no KV cache."""
+        if self.pool_blocks and self.step_dispatches:
+            return self.block_steps / (self.step_dispatches
+                                       * self.pool_blocks)
+        return 1.0 if self.kv_bytes_per_slot else 0.0
+
+    @property
+    def dispatches(self) -> int:
+        return self.prefills + self.refills + self.step_dispatches
+
+    def summary(self) -> Dict[str, float]:
+        """The JAX package's keys, then the port's ``host_syncs`` and
+        ``warm_step_dispatches``."""
+        return {
+            "slots": self.slots,
+            "prefills": self.prefills,
+            "refills": self.refills,
+            "slots_refilled": self.slots_refilled,
+            "steps_run": self.steps,
+            "step_dispatches": self.step_dispatches,
+            "commits": self.commits,
+            "dispatches": self.dispatches,
+            "slot_occupancy": round(self.slot_occupancy, 4),
+            "steps_per_commit": round(self.steps_per_commit, 3),
+            "pool_blocks": self.pool_blocks,
+            "kv_block_size": self.kv_block_size,
+            "kv_bytes_per_slot": self.kv_bytes_per_slot,
+            "peak_blocks": self.peak_blocks,
+            "pool_utilization": round(self.pool_utilization, 4),
+            "harvest_row_reads": self.harvest_row_reads,
+            "harvest_bytes_read": self.harvest_bytes_read,
+            "harvest_bytes_saved": self.harvest_bytes_saved,
+            "cache_hits": self.cache_hits,
+            "cache_misses": self.cache_misses,
+            "cache_hit_rate": round(self.cache_hit_rate, 4),
+            "cache_evictions": self.cache_evictions,
+            "cache_integrity_drops": self.cache_integrity_drops,
+            "prefills_saved": self.prefills_saved,
+            "cache_hbm_bytes_saved": self.cache_hbm_bytes_saved,
+            "dedup_fanout": self.dedup_fanout,
+            "shared_block_peak": self.shared_block_peak,
+            "drafted": self.drafted,
+            "accepted": self.accepted,
+            "acceptance_rate": round(self.acceptance_rate, 4),
+            "verify_dispatches": self.verify_dispatches,
+            "steps_saved": self.steps_saved,
+            "spec_frames": self.spec_frames,
+            "kv_dtype": self.kv_dtype,
+            "serve_precision": self.serve_precision,
+            "host_syncs": self.host_syncs,
+            "warm_step_dispatches": self.warm_step_dispatches,
+        }
+
+
+@dataclasses.dataclass
+class EngineItem:
+    """One settled sample: ``tokens[argmax(probs)]`` is the prediction,
+    copy ids already resolved (the batched beam's contract)."""
+
+    position: int        # split position (the output order key)
+    host: Dict           # the host batch the sample came in
+    row: int             # its row in that batch
+    tokens: np.ndarray   # (beam, tar_len) int64
+    probs: np.ndarray    # (beam,) float32
+
+
+@dataclasses.dataclass
+class _Staged:
+    """A prefilled chunk whose rows are not all seated yet."""
+
+    chunk: Dict                  # device tensors from the prefill
+    host: Dict                   # the host batch (text fields, positions)
+    rows: "collections.deque[Tuple[int, int]]"  # (row, split position)
+    limit: int                   # the rows' tar budget (the bucket's tar
+                                 # under decode_tar_buckets, else tar_len):
+                                 # caps generation, sizes the reservation
+
+
+class SlotEngine:
+    """S-slot continuous-batching beam decoder over ``model`` (its weights
+    and its device). ``slots``: the arena size (default
+    ``cfg.engine_slots`` or, when that is 0, ``cfg.test_batch_size``: the
+    batched beam's shapes). ``pool_blocks``: the paged pool (default
+    ``cfg.kv_pool_blocks``; 0 = full residency)."""
+
+    def __init__(self, model: FiraModel, cfg: FiraConfig, *,
+                 slots: Optional[int] = None,
+                 pool_blocks: Optional[int] = None):
+        errs = unsupported(cfg)
+        if errs:
+            raise ValueError("config selects paths the port does not run: "
+                             + "; ".join(errs))
+        self.model, self.cfg = model, cfg
+        self.device = next(model.parameters()).device
+        self.slots = int(slots or cfg.engine_slots or cfg.test_batch_size)
+        if self.slots < 1:
+            raise ValueError(f"engine needs >= 1 slot, got {self.slots}")
+        self._neg = -1.0 if cfg.beam_compat_prob_space else -float("inf")
+        self._paged = bool(cfg.beam_kv_cache and cfg.engine_paged_kv)
+        self._block_size = self._table_width = self._pool_blocks = 0
+        self._kv_bytes_per_slot = 0
+        if self._paged:
+            self._block_size = paging.resolve_block_size(cfg)
+            if cfg.tar_len % self._block_size:
+                raise ValueError(
+                    f"kv_block_size {self._block_size} does not divide "
+                    f"tar_len {cfg.tar_len}; the block table must tile "
+                    f"the arena budget exactly (decode/paging.py)")
+            self._table_width = cfg.tar_len // self._block_size
+            self._pool_blocks = int(
+                pool_blocks if pool_blocks is not None
+                else cfg.kv_pool_blocks) or paging.auto_pool_blocks(
+                    cfg, self.slots)
+            if self._pool_blocks < self._table_width:
+                raise ValueError(
+                    f"kv_pool_blocks {self._pool_blocks} < table width "
+                    f"{self._table_width}: one full-tar sample must fit "
+                    f"an empty pool or admission livelocks")
+        self.stats = EngineStats(slots=self.slots)
+        self._state: Optional[Dict[str, torch.Tensor]] = None
+        self._pending_occ = torch.zeros((), dtype=torch.long,
+                                        device=self.device)
+        self.begin_stream()
+
+    # --- device pieces ---------------------------------------------------
+
+    def _index(self, values) -> torch.Tensor:
+        """Host ints to an int64 tensor on the device. On the card the
+        copy comes from pinned memory and does not block (a pageable copy
+        would wait for the whole queue: a host sync)."""
+        t = torch.as_tensor(np.asarray(values, dtype=np.int64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _prefill(self, batch) -> Dict[str, torch.Tensor]:
+        """The batched beam's per-batch preamble: encode once, then (KV
+        cache) per-layer cross K/V and the copy head's source projection
+        repeated per beam, or (full prefix) the per-beam encoder states."""
+        cfg, model, K = self.cfg, self.model, self.cfg.beam_size
+        states, mask = model.encode(batch)
+        out = {"src_mask": mask, "diff": batch["diff"],
+               "sub_token": batch["sub_token"]}
+        if cfg.beam_kv_cache:
+            cross_k, cross_v, src_proj = model.decode_init(states)
+            out["cross_k"] = cross_k.repeat_interleave(K, dim=1)
+            out["cross_v"] = cross_v.repeat_interleave(K, dim=1)
+            out["src_proj"] = src_proj.repeat_interleave(K, dim=0)
+            # the self-attention caches hold the ENCODER STATES' type, as
+            # the batched beam's (f32 under bf16 compute with
+            # stable_residual)
+            out["cache_seed"] = torch.zeros((), dtype=states.dtype)
+        else:
+            out["states"] = states.repeat_interleave(K, dim=0)
+        return out
+
+    def _ensure_state(self, chunk) -> None:
+        """Allocate the arena, every slot dead, from the first chunk's
+        shapes and types."""
+        if self._state is not None:
+            return
+        cfg, dev = self.cfg, self.device
+        S, K, T = self.slots, cfg.beam_size, cfg.tar_len
+        L, H = cfg.num_layers, cfg.num_head
+        d_head = cfg.embedding_dim // H
+
+        def zeros(shape, like):
+            return torch.zeros(shape, dtype=like.dtype, device=dev)
+
+        z = {
+            "tokens": torch.zeros((S, K, T), dtype=torch.long, device=dev),
+            "probs": torch.zeros((S, K), dtype=torch.float32, device=dev),
+            "finished": torch.zeros((S, K), dtype=torch.bool, device=dev),
+            "pos": torch.zeros((S,), dtype=torch.long, device=dev),
+            "live": torch.zeros((S,), dtype=torch.bool, device=dev),
+            "done": torch.zeros((S,), dtype=torch.bool, device=dev),
+            "diff": zeros((S,) + chunk["diff"].shape[1:], chunk["diff"]),
+            "sub_token": zeros((S,) + chunk["sub_token"].shape[1:],
+                               chunk["sub_token"]),
+            "src_mask": zeros((S,) + chunk["src_mask"].shape[1:],
+                              chunk["src_mask"]),
+            # the slot's tar budget: full until a shorter-bucket sample
+            # is seated (decode_tar_buckets)
+            "limit": torch.full((S,), T, dtype=torch.long, device=dev),
+        }
+        if cfg.beam_kv_cache:
+            ck = chunk["cross_k"]
+            for f in ("cross_k", "cross_v"):
+                z[f] = zeros((L, S * K) + ck.shape[2:], ck)
+            sp = chunk["src_proj"]
+            z["src_proj"] = zeros((S * K,) + sp.shape[1:], sp)
+            cd = chunk["cache_seed"]
+            if self._paged:
+                P, BS, W = (self._pool_blocks, self._block_size,
+                            self._table_width)
+                # P blocks and the scratch block P
+                z["k_pool"] = zeros((L, P + 1, K, H, BS, d_head), cd)
+                z["v_pool"] = zeros((L, P + 1, K, H, BS, d_head), cd)
+                z["block_tab"] = torch.full((S, W), P, dtype=torch.long,
+                                            device=dev)   # all unmapped
+            else:
+                z["k_cache"] = zeros((L, S * K, H, T, d_head), cd)
+                z["v_cache"] = zeros((L, S * K, H, T, d_head), cd)
+            self._kv_bytes_per_slot = paging.kv_bytes_per_slot(
+                cfg, paged=self._paged, block_size=self._block_size,
+                pool_blocks=self._pool_blocks, slots=S,
+                itemsize=cd.element_size())
+        else:
+            st = chunk["states"]
+            z["states"] = zeros((S * K,) + st.shape[1:], st)
+        self._state = z
+
+    def _insert(self, chunk, rows: List[int], slots: List[int], limit: int,
+                block_rows: Optional[np.ndarray]) -> None:
+        """Copy chunk rows ``rows`` into slots ``slots`` (one each), with
+        tar budget ``limit`` and (paged arena) the block grants
+        ``block_rows`` (n, W), P-padded past the reservation.
+
+        No cache is zeroed, in either arena: a fresh slot's unwritten
+        positions get -1e9 from the step's validity mask, and exp(-1e9 -
+        m) is exactly 0, so stale values multiply a hard zero; the paged
+        arena only maps blocks."""
+        cfg, st, K = self.cfg, self._state, self.cfg.beam_size
+        n = len(rows)
+        r_np, s_np = np.asarray(rows), np.asarray(slots)
+        lanes = np.arange(K)
+        # rows, slots and their per-beam rows in one copy to the device
+        idx = self._index(np.concatenate([
+            r_np, s_np, (r_np[:, None] * K + lanes).reshape(-1),
+            (s_np[:, None] * K + lanes).reshape(-1)]))
+        r, s = idx[:n], idx[n:2 * n]
+        r_bk, s_bk = idx[2 * n:2 * n + n * K], idx[2 * n + n * K:]
+        tokens0, probs0, finished0, _neg = _init_beam(n, cfg, self.device)
+        st["tokens"].index_copy_(0, s, tokens0)
+        st["probs"].index_copy_(0, s, probs0)
+        st["finished"].index_copy_(0, s, finished0)
+        for f in ("diff", "sub_token", "src_mask"):
+            st[f].index_copy_(0, s, chunk[f].index_select(0, r))
+        st["pos"].index_fill_(0, s, 0)
+        st["live"].index_fill_(0, s, True)
+        st["done"].index_fill_(0, s, False)
+        st["limit"].index_fill_(0, s, limit)
+        if cfg.beam_kv_cache:
+            for f in ("cross_k", "cross_v"):
+                st[f].index_copy_(1, s_bk, chunk[f].index_select(1, r_bk))
+            st["src_proj"].index_copy_(
+                0, s_bk, chunk["src_proj"].index_select(0, r_bk))
+            if self._paged:
+                st["block_tab"].index_copy_(0, s, self._index(block_rows))
+        else:
+            st["states"].index_copy_(0, s_bk,
+                                     chunk["states"].index_select(0, r_bk))
+
+    def _one_step(self) -> torch.Tensor:
+        """One beam position of every live, not yet done slot, in place;
+        returns the number of active slots (a device scalar). Reads
+        nothing back to the host."""
+        cfg, model, st = self.cfg, self.model, self._state
+        S, K, T = self.slots, cfg.beam_size, cfg.tar_len
+        tokens, probs, finished, pos = (st["tokens"], st["probs"],
+                                        st["finished"], st["pos"])
+        active = st["live"] & ~st["done"]
+        # idle and settled rows clamp to a legal position; what they
+        # compute is blended away below
+        pos_c = pos.clamp(max=T - 2)
+        flat = tokens.reshape(S * K, T)
+        pos_bk = pos_c.repeat_interleave(K)
+        mask_k = st["src_mask"].repeat_interleave(K, dim=0)
+        slot_src = {"diff": st["diff"], "sub_token": st["sub_token"]}
+        all_fin_before = finished.all(dim=1)
+        fac = cfg.beam_factored_topk
+
+        if cfg.beam_kv_cache:
+            valid = step_valid_mask(flat, pos_bk, T)[:, None, None, :]
+            tok_in = flat.gather(1, pos_bk[:, None])
+            tail = (st["cross_k"], st["cross_v"], st["src_proj"], valid)
+            if self._paged:
+                # idle and settled slots neither write nor permute real
+                # blocks: their table rows may name blocks harvest has
+                # returned and insert granted to another slot, so they
+                # address the scratch block P for this step
+                tab = torch.where(active[:, None], st["block_tab"],
+                                  self._pool_blocks)
+                step = (model.dist_parts_step_paged if fac
+                        else model.fused_probs_step_paged)
+                out = step(mask_k, tok_in, pos_bk, st["k_pool"],
+                           st["v_pool"], tab, *tail)
+            else:
+                step = (model.dist_parts_step_multi if fac
+                        else model.fused_probs_step_multi)
+                out = step(mask_k, tok_in, pos_bk, st["k_cache"],
+                           st["v_cache"], *tail)
+            parts = [p[:, 0] for p in out[:-2]]
+        else:
+            tar_mask = flat != 0
+            tar_mask[:, 0] = True
+            if fac:
+                parts = model.dist_parts(st["states"], mask_k, flat, tar_mask)
+            else:
+                parts = (model.fused_probs(st["states"], mask_k, flat,
+                                           tar_mask),)
+            # each row's own position out of the full-prefix decode
+            rows = torch.arange(S * K, device=flat.device)
+            parts = [p[rows, pos_bk] for p in parts]
+        parts = [p.reshape(S, K, -1) for p in parts]
+        select = _select_factored if fac else _select
+        new_tokens, new_probs, new_finished, src_beam = select(
+            *parts, tokens, probs, finished, pos_c, slot_src, cfg, self._neg)
+
+        if cfg.beam_kv_cache and self._paged:
+            # the caches follow their beams: block contents move between
+            # beam lanes inside each slot's own blocks (the table stays);
+            # grants never overlap, so real targets are disjoint, and the
+            # gather is a copy before the write
+            idx = src_beam[None, :, None, :, None, None, None]
+            for f in ("k_pool", "v_pool"):
+                pool = st[f]
+                blocks = pool[:, tab]           # (L, S, W, K, H, BS, dh)
+                pool[:, tab] = blocks.gather(3, idx.expand(blocks.shape))
+        elif cfg.beam_kv_cache:
+            # the batched beam's gather; idle and settled rows permute
+            # their own stale rows, which no later step reads unwritten
+            rows = (src_beam + torch.arange(S, device=flat.device)[:, None]
+                    * K).reshape(-1)
+            for f in ("k_cache", "v_cache"):
+                st[f].copy_(st[f][:, rows])
+
+        a = active
+        st["tokens"] = torch.where(a[:, None, None], new_tokens, tokens)
+        st["probs"] = torch.where(a[:, None], new_probs, probs)
+        st["finished"] = torch.where(a[:, None], new_finished, finished)
+        new_pos = torch.where(a, pos + 1, pos)
+        st["pos"] = new_pos
+        # the early-exit predicate a slot: settled once an all-finished
+        # beam set has been re-sorted by a step, or its budget spent
+        all_fin_after = st["finished"].all(dim=1)
+        st["done"] = st["done"] | (a & ((new_pos >= st["limit"] - 1)
+                                        | (all_fin_before & all_fin_after)))
+        return a.sum()
+
+    def _step(self) -> torch.Tensor:
+        """R = ``cfg.engine_harvest_every`` micro-steps (slots that settle
+        on the way mask themselves out, so R moves only which dispatch a
+        harvest lands in); returns their active-slot count, on the
+        device."""
+        occ = self._one_step()
+        for _ in range(max(1, int(self.cfg.engine_harvest_every)) - 1):
+            occ = occ + self._one_step()
+        return occ
+
+    def _read_rows(self, slots: List[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """The token and score rows of ``slots``, in one device-to-host
+        copy (ids below 2**53 and f32 scores are exact in f64)."""
+        st, n = self._state, len(slots)
+        idx = self._index(slots)
+        toks = st["tokens"].index_select(0, idx)
+        probs = st["probs"].index_select(0, idx)
+        packed = torch.cat([toks.reshape(n, -1).double(), probs.double()],
+                           dim=1).cpu()
+        self.stats.host_syncs += 1
+        kt = toks[0].numel()
+        return (packed[:, :kt].long().reshape(toks.shape).numpy(),
+                packed[:, kt:].float().numpy())
+
+    @torch.inference_mode()
+    def prewarm(self, hosts: Iterable[Dict]) -> None:
+        """One warm dispatch of every piece before a timed run, so that
+        the kernels' build and first launch fall outside it: a prefill of
+        each host batch (one a decode bucket), an insert into slot 0 that
+        is undone, one step over the all-dead arena (nothing active:
+        nothing changes), one row read. Leaves no trace in the stats but
+        ``warm_step_dispatches``."""
+        chunk = None
+        for host in hosts:
+            chunk = self._prefill(batch_to_device(host, self.device))
+            self._ensure_state(chunk)
+        if chunk is None:
+            return
+        syncs = self.stats.host_syncs
+        unmapped = (np.full((1, self._table_width), self._pool_blocks)
+                    if self._paged else None)
+        self._insert(chunk, [0], [0], self.cfg.tar_len, unmapped)
+        self._state["live"][0] = False
+        self._step()
+        self._read_rows([0])
+        self.stats.host_syncs = syncs
+        self.stats.warm_step_dispatches += 1
+
+    # --- host scheduler ------------------------------------------------
+
+    def begin_stream(self) -> None:
+        """Reset the host scheduling state for a fresh stream (the arena
+        and the stats persist)."""
+        self._staged: "collections.deque[_Staged]" = collections.deque()
+        self._staged_rows = 0
+        self._free: "collections.deque[int]" = collections.deque(
+            range(self.slots))
+        self._busy: Dict[int, Tuple[int, Dict, int]] = {}
+        # the paged allocator: a free deque and refcounted grants; the
+        # pool's contents stay (stale values are masked, never read)
+        self._free_blocks: "collections.deque[int]" = collections.deque(
+            range(self._pool_blocks))
+        self._block_refs: Dict[int, int] = {}
+        self._slot_blocks: Dict[int, List[int]] = {}
+
+    def _acquire_blocks(self, need: int) -> List[int]:
+        """Grant ``need`` free blocks at refcount 1 (the caller checked
+        there are enough)."""
+        grant: List[int] = []
+        for _ in range(need):
+            b = self._free_blocks.popleft()
+            assert self._block_refs.get(b, 0) == 0, \
+                f"block {b} granted while already held (double grant)"
+            self._block_refs[b] = 1
+            grant.append(b)
+        return grant
+
+    def _release_blocks(self, blocks) -> None:
+        """Drop one reference a block; at zero it returns to the free
+        deque."""
+        for b in blocks:
+            n = self._block_refs.get(b, 0)
+            assert n > 0, f"block {b} released while not granted"
+            if n == 1:
+                del self._block_refs[b]
+                self._free_blocks.append(b)
+            else:
+                self._block_refs[b] = n - 1
+
+    def allocator_invariants(self) -> List[str]:
+        """Allocator health: every pool block free or granted, none
+        granted twice, refcounts matching the grants. Empty = healthy."""
+        errs: List[str] = []
+        free = list(self._free_blocks)
+        if len(set(free)) != len(free):
+            errs.append("duplicate blocks on the free list")
+        granted: Dict[int, int] = {}
+        for blocks in self._slot_blocks.values():
+            for b in blocks:
+                granted[b] = granted.get(b, 0) + 1
+        for b, holders in granted.items():
+            refs = self._block_refs.get(b, 0)
+            if refs < holders:
+                errs.append(f"block {b} held by {holders} grant(s) but "
+                            f"refcount {refs}")
+        for b, refs in self._block_refs.items():
+            if refs < 1:
+                errs.append(f"block {b} carries refcount {refs} <= 0")
+        overlap = set(granted) & set(free)
+        if overlap:
+            errs.append(f"blocks {sorted(overlap)[:4]} both free and granted")
+        if len(free) + len(self._block_refs) != self._pool_blocks:
+            errs.append(
+                f"free ({len(free)}) + granted ({len(self._block_refs)}) "
+                f"!= pool ({self._pool_blocks})")
+        return errs
+
+    def wants_input(self) -> bool:
+        """Prefill ahead: keep ``engine_prefill_depth`` chunks staged, and
+        at least enough rows to refill every free slot."""
+        depth = max(1, int(self.cfg.engine_prefill_depth))
+        return (len(self._staged) < depth
+                or self._staged_rows < len(self._free))
+
+    def in_flight(self) -> int:
+        return len(self._busy)
+
+    @torch.inference_mode()
+    def admit(self, host: Dict, index: int, device_batch=None) -> None:
+        """Prefill one packed batch and stage its real rows. ``host``:
+        the host batch (``_positions`` gives each row's split position;
+        without it row r of batch ``index`` is index * C + r);
+        ``device_batch``: its fields already on the device (the Feeder's),
+        else they are copied here."""
+        positions = host.get("_positions")
+        valid = host["valid"]
+        C = valid.shape[0]
+        rows = [(r, int(positions[r]) if positions is not None
+                 else index * C + r) for r in range(C) if valid[r]]
+        if not rows:
+            return
+        if device_batch is None:
+            device_batch = batch_to_device(host, self.device)
+        chunk = self._prefill(device_batch)
+        self._ensure_state(chunk)
+        self.stats.prefills += 1
+        # the chunk's tar budget is its bucket's, visible in the packed
+        # msg width, under decode_tar_buckets; else the full tar_len
+        limit = (int(host["msg"].shape[1]) if self.cfg.decode_tar_buckets
+                 else self.cfg.tar_len)
+        self._staged.append(_Staged(chunk=chunk, host=host,
+                                    rows=collections.deque(rows),
+                                    limit=limit))
+        self._staged_rows += len(rows)
+
+    @torch.inference_mode()
+    def refill(self, refill_order: str = "fifo") -> None:
+        """Seat staged rows in every free slot, one insert a staged chunk
+        touched. Paged: each seated row is granted ceil(limit / block)
+        blocks; when the pool cannot cover the head row's reservation the
+        refill stops there until harvests return blocks (head-of-line)."""
+        while self._free and self._staged:
+            entry = self._staged[0]
+            need = (paging.blocks_per_seq(entry.limit, self._block_size)
+                    if self._paged else 0)
+            if self._paged and len(self._free_blocks) < need:
+                break
+            rows, slots, grants = [], [], []
+            while self._free and entry.rows and (
+                    not self._paged or len(self._free_blocks) >= need):
+                r, pos_id = entry.rows.popleft()
+                slot = (self._free.popleft() if refill_order == "fifo"
+                        else self._free.pop())
+                if self._paged:
+                    grant = self._acquire_blocks(need)
+                    self._slot_blocks[slot] = grant
+                    grants.append(grant + [self._pool_blocks]
+                                  * (self._table_width - need))
+                self._busy[slot] = (pos_id, entry.host, r)
+                rows.append(r)
+                slots.append(slot)
+            self._insert(entry.chunk, rows, slots, entry.limit,
+                         np.asarray(grants) if self._paged else None)
+            self.stats.refills += 1
+            self.stats.slots_refilled += len(rows)
+            self._staged_rows -= len(rows)
+            if not entry.rows:
+                self._staged.popleft()
+
+    @torch.inference_mode()
+    def step_dispatch(self) -> None:
+        """Queue one step dispatch (R micro-steps); nothing is read
+        back."""
+        self._pending_occ = self._step()
+        st = self.stats
+        st.steps += max(1, int(self.cfg.engine_harvest_every))
+        st.step_dispatches += 1
+        st.pool_blocks = self._pool_blocks
+        st.kv_block_size = self._block_size
+        st.kv_bytes_per_slot = self._kv_bytes_per_slot
+        st.kv_dtype = self.cfg.kv_dtype
+        st.serve_precision = self.cfg.serve_precision
+        if self._paged:
+            used = self._pool_blocks - len(self._free_blocks)
+            st.block_steps += used
+            st.peak_blocks = max(st.peak_blocks, used)
+
+    @torch.inference_mode()
+    def harvest(self) -> List[EngineItem]:
+        """Read the last dispatch's done mask and occupancy (one host
+        sync), then the settled slots' rows (one more, when any settled);
+        free their slots and blocks and return their samples."""
+        st, stats = self._state, self.stats
+        flags = torch.cat([st["done"].long(),
+                           self._pending_occ.reshape(1).long()]).cpu()
+        stats.host_syncs += 1
+        stats.occupied_slot_steps += int(flags[-1])
+        done = flags[:-1].numpy()
+        newly = [s for s in self._busy if done[s]]
+        items: List[EngineItem] = []
+        if not newly:
+            return items
+        toks, probs = self._read_rows(newly)
+        K, T = self.cfg.beam_size, self.cfg.tar_len
+        row_bytes = (K * T + K) * 8   # the f64 rows harvest copies
+        for i, s in enumerate(newly):
+            pos_id, host, r = self._busy.pop(s)
+            self._free.append(s)
+            self._release_blocks(self._slot_blocks.pop(s, ()))
+            stats.commits += 1
+            stats.harvest_row_reads += 1
+            items.append(EngineItem(position=pos_id, host=host, row=r,
+                                    tokens=toks[i], probs=probs[i]))
+        stats.harvest_bytes_read += row_bytes * len(newly)
+        stats.harvest_bytes_saved += row_bytes * (self.slots - len(newly))
+        return items
+
+    def run(self, feed, *, refill_order: str = "fifo"
+            ) -> Iterator[EngineItem]:
+        """Drive the engine over ``feed``, an iterable of
+        ``data.feeder.FedBatch`` (the batched beam's packed batches:
+        ``item.device`` is the prefill input, ``item.host`` keeps the text
+        fields and ``_positions``). ``refill_order``: which free slot a
+        waiting row takes, "fifo" or "lifo" (the output is the same).
+        Yields one :class:`EngineItem` a sample as it settles."""
+        if refill_order not in ("fifo", "lifo"):
+            raise ValueError(f"refill_order {refill_order!r} not in "
+                             f"{{'fifo', 'lifo'}}")
+        self.begin_stream()
+        feed_iter = iter(feed)
+        exhausted = False
+        while True:
+            while not exhausted and self.wants_input():
+                try:
+                    item = next(feed_iter)
+                except StopIteration:
+                    exhausted = True
+                    break
+                self.admit(item.host, item.index,
+                           None if item.device is item.host else item.device)
+            self.refill(refill_order)
+            if not self._busy:
+                if exhausted:
+                    break
+                continue
+            self.step_dispatch()
+            yield from self.harvest()

@@ -1,20 +1,25 @@
 """Test-split decoding loop (the reference's ``test()``,
 run_model.py:187-380; counterpart of the JAX package's
-``decode/runner.py`` on its batched-beam path): decode every sample, pick
-the argmax-probability beam, cook text, score in-loop sentence BLEU, and
-write one prediction per line to OUTPUT/output_fira (ablations write their
-own suffixed files).
+``decode/runner.py``): decode every sample, pick the argmax-probability
+beam, cook text, score in-loop sentence BLEU, and write one prediction
+per line to OUTPUT/output_fira (ablations write their own suffixed
+files).
 
-The batches of ``buckets.decode_plan`` (the decode table's sort-by-length
+The batches of ``buckets.output_plan`` (the decode table's sort-by-length
 plan, data/buckets.py; with ``cfg.buckets = ()`` the split's sequential
 chunks at the full geometry) come from a ``data.feeder.Feeder``
 (``cfg.feeder_workers`` threads assemble them and queue their copies to
-the device ahead of the beam, ``cfg.feeder_depth`` at most in flight);
-each is beam-decoded in the model's compute dtype by the beam the config
-selects (``beam.make_beam_search``), and its tokens come
-back to the host to be cooked into text. Lines stream to disk in split
-order through the ordered writer (decode/stream.py), each row at its
-``_positions`` place.
+the device ahead of the beam, ``cfg.feeder_depth`` at most in flight).
+Two decode paths, in the model's compute dtype, per sample bitwise equal:
+
+- the batched beam the config selects (``beam.make_beam_search``), one
+  call a batch;
+- under ``cfg.decode_engine`` the slot-refill engine (decode/engine.py),
+  which prefills the same batches and yields each sample as it settles.
+
+Tokens come back to the host to be cooked into text, and lines stream to
+disk in split order through the ordered writer (decode/stream.py), each
+row at its ``_positions`` place.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ import numpy as np
 
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
+from fira_tpu_torch.data.batching import make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import Feeder
+from fira_tpu_torch.decode import engine as engine_lib
 from fira_tpu_torch.decode.beam import make_beam_search
 from fira_tpu_torch.decode.stream import OrderedStreamWriter
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
@@ -73,10 +80,15 @@ def run_test(model: FiraModel, dataset: FiraDataset,
              out_dir: str = "OUTPUT",
              ablation: Optional[str] = None,
              var_maps: Optional[List[Dict[str, str]]] = None,
-             split: str = "test") -> Dict[str, float]:
-    """Decode ``split`` with the batched beam ``cfg`` selects on the
-    model's device, in the model's compute dtype. Returns mean sentence
-    BLEU, the sample count and the path."""
+             split: str = "test",
+             engine_slots: Optional[int] = None,
+             refill_order: str = "fifo") -> Dict[str, float]:
+    """Decode ``split`` on the model's device, in the model's compute
+    dtype, with the batched beam ``cfg`` selects or, under
+    ``cfg.decode_engine``, the slot engine (``engine_slots`` slots,
+    default the config's; ``refill_order`` "fifo" or "lifo"). Returns mean
+    sentence BLEU, the sample count and the path, and with the engine its
+    ``stats.summary()`` under "engine"."""
     cfg = cfg or dataset.cfg
     device = next(model.parameters()).device
     data = dataset.splits[split]
@@ -88,23 +100,40 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     bleu_by_pos: Dict[int, float] = {}
     n_total = len(data)
     model.eval()
-    search = make_beam_search(model, cfg)
+    plan = buckets_lib.output_plan(data, cfg)
     tasks = buckets_lib.bucketed_assembly_tasks(
-        data, buckets_lib.decode_plan(data, cfg), cfg,
-        batch_size=cfg.test_batch_size)
+        data, plan, cfg, batch_size=cfg.test_batch_size)
+    eng = None
+    if cfg.decode_engine:
+        eng = engine_lib.SlotEngine(model, cfg, slots=engine_slots)
+        # one all-pad batch a geometry of the plan: the kernels' build and
+        # first launch, outside the decode
+        geoms = list(dict.fromkeys(g for _, g in plan))
+        eng.prewarm(make_batch(data, np.arange(0), cfg,
+                               batch_size=cfg.test_batch_size, geom=g)
+                    for g in geoms)
     with OrderedStreamWriter(out_path, expected=n_total) as writer, \
             Feeder(tasks, num_workers=cfg.feeder_workers,
                    depth=cfg.feeder_depth, device=device) as feed:
         emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
                               bleu_by_pos=bleu_by_pos, n_total=n_total,
                               var_maps=var_maps, indices=indices)
-        for item in feed:
-            tokens, probs = search(item.device)
-            tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
-            positions = item.host["_positions"]
-            for i in np.flatnonzero(item.host["valid"]):
-                emit(int(positions[i]), item.host, i, tokens[i], probs[i])
+        if eng is not None:
+            for it in eng.run(feed, refill_order=refill_order):
+                emit(it.position, it.host, it.row, it.tokens, it.probs)
+        else:
+            search = make_beam_search(model, cfg)
+            for item in feed:
+                tokens, probs = search(item.device)
+                tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
+                positions = item.host["_positions"]
+                for i in np.flatnonzero(item.host["valid"]):
+                    emit(int(positions[i]), item.host, i, tokens[i],
+                         probs[i])
     n = len(bleu_by_pos)
     total_bleu = sum(bleu_by_pos[p] for p in sorted(bleu_by_pos))
-    return {"sentence_bleu": total_bleu / max(n, 1), "n": float(n),
-            "output_path": out_path}  # type: ignore[dict-item]
+    out = {"sentence_bleu": total_bleu / max(n, 1), "n": float(n),
+           "output_path": out_path}
+    if eng is not None:
+        out["engine"] = eng.stats.summary()
+    return out  # type: ignore[return-value]

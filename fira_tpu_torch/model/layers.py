@@ -59,7 +59,21 @@ def matmul(a, b):
 class Dense(nn.Linear):
     """Counterpart of the JAX package's ``TorchDense``: f32 parameters
     (weight (out, in)); the input, weight and bias are cast to
-    ``compute_dtype``, multiplied, and the bias added in that dtype."""
+    ``compute_dtype``, multiplied, and the bias added in that dtype.
+
+    Below ``NARROW`` outputs (the copy head's 2-way gate) the product is
+    an elementwise multiply and a sum over the input features, in the
+    stable dtype: MKL's sgemm at so few columns gives a row a result that
+    depends on the row's place among the others, and the slot engine's
+    per-sample bitwise contract needs every row independent of its
+    neighbours. For the same reason a CPU product of fewer than
+    ``CPU_MIN_ROWS`` rows is padded with zero rows to that many: below a
+    row count that grows with the input width (6 rows at 128 inputs, 16
+    at 1024) MKL takes a path whose rounding differs, so a one-slot
+    engine step would not match the batched beam's bits."""
+
+    NARROW = 4
+    CPU_MIN_ROWS = 16
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, device=None,
@@ -70,7 +84,18 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.out_features < self.NARROW:
+            sd = stable_dtype(dt)
+            y = (x.to(sd)[..., None, :] * w.to(sd)).sum(-1).to(dt)
+            return y if b is None else y + b
+        rows = x.numel() // max(1, x.shape[-1])
+        if x.device.type == "cpu" and 0 < rows < self.CPU_MIN_ROWS:
+            flat = x.reshape(rows, -1)
+            pad = flat.new_zeros((self.CPU_MIN_ROWS - rows, flat.shape[1]))
+            y = F.linear(torch.cat([flat, pad]), w, b)[:rows]
+            return y.reshape(*x.shape[:-1], -1)
+        return F.linear(x, w, b)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -318,6 +343,42 @@ class FeedForward(PostLN):
         h = dropout(self.fc2(torch.relu(self.fc1(x))), self.dropout_rate,
                     generator, training=self.training)
         return self.post_ln(h, x)
+
+
+def gather_block_kv(pool_l, block_tab):
+    """One layer's per-row K (or V) cache view out of a paged block pool
+    (the slot engine's arena, decode/engine.py).
+
+    pool_l: one layer's pool, (P + 1, K, H, BS, d_head): P blocks of BS
+    positions for all K beams of the slot that holds them, and the
+    scratch block P. block_tab: (S, W) int64; slot s's positions
+    [w*BS, (w+1)*BS) live in block ``block_tab[s, w]``, and the sentinel
+    id P marks an unmapped entry, which reads the scratch block. The JAX
+    package's gather clamps such an id to block P - 1 instead; either way
+    the position lies past the row's own and the validity mask's -1e9
+    gives it a weight of exactly 0 (``beam.step_valid_mask``).
+
+    Returns (S*K, H, W*BS, d_head) in the stable dtype: (slot, beam) rows
+    in the layout ``Attention.attend`` reads, equal at every written
+    position to the whole-sequence cache it replaces."""
+    _P1, K, H, BS, d_head = pool_l.shape
+    S, W = block_tab.shape
+    blocks = pool_l[block_tab]                      # (S, W, K, H, BS, dh)
+    blocks = blocks.permute(0, 2, 3, 1, 4, 5)       # (S, K, H, W, BS, dh)
+    return blocks.reshape(S * K, H, W * BS, d_head).to(
+        stable_dtype(pool_l.dtype))
+
+
+def append_block_kv(pool, layer: int, blk, krow, off, new) -> None:
+    """Write one decode position into the paged pool, in place: row r's K
+    (or V) lands at ``pool[layer, blk[r], krow[r], :, off[r], :]``.
+    pool: (L, P + 1, K, H, BS, d_head); blk/krow/off: (B,) int64 block
+    id, beam lane and offset in the block; new: (B, H, d_head), cast to
+    the pool's type. A sentinel block id P (an idle or settled slot the
+    engine masked out) writes the scratch block, where the JAX package's
+    ``mode="drop"`` writes nothing: no real block, which harvest may have
+    granted to another slot, is touched either way."""
+    pool[layer, blk, krow, :, off, :] = new.to(pool.dtype)
 
 
 @torch.no_grad()

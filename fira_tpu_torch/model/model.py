@@ -51,8 +51,10 @@ from fira_tpu_torch.model.layers import (
     Combination,
     FeedForward,
     GCN,
+    append_block_kv,
     dense,
     embedding,
+    gather_block_kv,
     init_parameters,
     position_encoding,
     stable_dtype,
@@ -255,11 +257,85 @@ class Decoder(nn.Module):
             k_new, v_new = sa.project_kv(x, x)        # (B, H, 1, d_head)
             k_cache[i, :, :, pos_idx] = k_new[:, :, 0]
             v_cache[i, :, :, pos_idx] = v_new[:, :, 0]
-            x = sa.attend(x, k_cache[i].to(cd), v_cache[i].to(cd), self_mask)
-            x = self._layer("cross_attn", i).attend(x, cross_k[i], cross_v[i],
-                                                    sou_mask)
-            x = self._layer("ffn", i)(x)
+            x = self._layers_after_self(i, x, sa, k_cache[i].to(cd),
+                                        v_cache[i].to(cd), self_mask,
+                                        cross_k, cross_v, sou_mask)
         return x, k_cache, v_cache
+
+    def embed_at(self, tok, pos_idx):
+        """The decoder's input at per-row positions: token embedding plus
+        the position row. tok (B, n) with pos_idx (B, n), or tok (B, 1)
+        with a (B,) vector (the engine's step)."""
+        table = self.pos[pos_idx]
+        if table.dim() == 2:             # (B,) positions -> (B, 1, D)
+            table = table[:, None, :]
+        return _embed(self.embed, tok, self.dtype) + table
+
+    def _layers_after_self(self, i, x, sa, k, v, self_mask, cross_k,
+                           cross_v, sou_mask):
+        """Layer i past its K/V write: self-attention over the cache view,
+        cross-attention, FFN."""
+        x = sa.attend(x, k, v, self_mask)
+        x = self._layer("cross_attn", i).attend(x, cross_k[i], cross_v[i],
+                                                sou_mask)
+        return self._layer("ffn", i)(x)
+
+    def decode_step_multi(self, tok, pos_idx, k_cache, v_cache, cross_k,
+                          cross_v, sou_mask, self_mask):
+        """:meth:`decode_step` at one position PER ROW: ``pos_idx`` is a
+        (B,) vector and row b writes its K/V at ``pos_idx[b]`` (the slot
+        engine holds samples at mixed depths). Per row the same math as
+        :meth:`decode_step` at that row's position. Writes the caches in
+        place; returns (x, k_cache, v_cache)."""
+        B = tok.shape[0]
+        b_idx = torch.arange(B, device=tok.device)
+        x = self.embed_at(tok, pos_idx)
+        cd = stable_dtype(k_cache.dtype)
+        for i in range(self.cfg.num_layers):
+            sa = self._layer("self_attn", i)
+            k_new, v_new = sa.project_kv(x, x)        # (B, H, 1, d_head)
+            k_cache[i, b_idx, :, pos_idx] = k_new[:, :, 0].to(k_cache.dtype)
+            v_cache[i, b_idx, :, pos_idx] = v_new[:, :, 0].to(v_cache.dtype)
+            x = self._layers_after_self(i, x, sa, k_cache[i].to(cd),
+                                        v_cache[i].to(cd), self_mask,
+                                        cross_k, cross_v, sou_mask)
+        return x, k_cache, v_cache
+
+    def decode_step_paged(self, tok, pos_idx, k_pool, v_pool, block_tab,
+                          cross_k, cross_v, sou_mask, self_mask):
+        """:meth:`decode_step_multi` with the self-attention cache in a
+        pool of KV blocks behind a block table (the engine's paged arena):
+        k_pool/v_pool (L, P + 1, K, H, block, d_head), the last block the
+        scratch block that sentinel ids address; ``block_tab`` (S, W)
+        maps slot s's positions [w*block, (w+1)*block) to a pool block
+        (sentinel P: unmapped). Each row appends at its own position in
+        its slot's tail block, then attends over the gathered view, which
+        equals the whole-sequence cache at every written position.
+
+        tok: (S*K, 1); pos_idx: (S*K,) (the rows of a slot share theirs);
+        W*block must equal the attended width ``self_mask.shape[-1]``."""
+        _L, _P1, K, _H, BS, _dh = k_pool.shape
+        B = tok.shape[0]
+        S, W = block_tab.shape
+        if W * BS != self_mask.shape[-1] or B != S * K:
+            raise ValueError(
+                f"paged cache geometry mismatch: table {W} x block {BS} "
+                f"must tile the {self_mask.shape[-1]}-position budget and "
+                f"pool beam lanes {K} x {S} slots must equal the {B} rows")
+        rows = torch.arange(B, device=tok.device)
+        blk = block_tab[rows // K, pos_idx // BS]    # (B,) current tail block
+        krow, off = rows % K, pos_idx % BS
+        x = self.embed_at(tok, pos_idx)
+        for i in range(self.cfg.num_layers):
+            sa = self._layer("self_attn", i)
+            k_new, v_new = sa.project_kv(x, x)        # (B, H, 1, d_head)
+            append_block_kv(k_pool, i, blk, krow, off, k_new[:, :, 0])
+            append_block_kv(v_pool, i, blk, krow, off, v_new[:, :, 0])
+            x = self._layers_after_self(
+                i, x, sa, gather_block_kv(k_pool[i], block_tab),
+                gather_block_kv(v_pool[i], block_tab), self_mask, cross_k,
+                cross_v, sou_mask)
+        return x, k_pool, v_pool
 
 
 class CopyNet(nn.Module):
@@ -457,3 +533,43 @@ class FiraModel(nn.Module):
             mask, tok, pos_idx, k_cache, v_cache, cross_k, cross_v, src_proj,
             self_mask)
         return self._fuse(gen, copy, gate), k_cache, v_cache
+
+    def dist_parts_step_multi(self, mask, tok, pos_idx, k_cache, v_cache,
+                              cross_k, cross_v, src_proj, self_mask):
+        """:meth:`dist_parts_step` at a (B,) vector of positions, one a
+        row (the slot engine's step): ``Decoder.decode_step_multi`` and
+        the same heads. Returns (gen, copy, gate, k_cache, v_cache)."""
+        tar_emb, k_cache, v_cache = self.decoder.decode_step_multi(
+            tok, pos_idx, k_cache, v_cache, cross_k, cross_v, mask, self_mask)
+        return (*self._heads(mask, src_proj, tar_emb), k_cache, v_cache)
+
+    def fused_probs_step_multi(self, mask, tok, pos_idx, k_cache, v_cache,
+                               cross_k, cross_v, src_proj, self_mask):
+        """:meth:`fused_probs_step` at a (B,) vector of positions.
+        Returns (fused (B, 1, V_out), k_cache, v_cache)."""
+        gen, copy, gate, k_cache, v_cache = self.dist_parts_step_multi(
+            mask, tok, pos_idx, k_cache, v_cache, cross_k, cross_v, src_proj,
+            self_mask)
+        return self._fuse(gen, copy, gate), k_cache, v_cache
+
+    def dist_parts_step_paged(self, mask, tok, pos_idx, k_pool, v_pool,
+                              block_tab, cross_k, cross_v, src_proj,
+                              self_mask):
+        """:meth:`dist_parts_step_multi` over the paged arena
+        (``Decoder.decode_step_paged``); the heads are the shared
+        :meth:`_heads`, so per row the factors equal the unpaged step's.
+        Returns (gen, copy, gate, k_pool, v_pool)."""
+        tar_emb, k_pool, v_pool = self.decoder.decode_step_paged(
+            tok, pos_idx, k_pool, v_pool, block_tab, cross_k, cross_v, mask,
+            self_mask)
+        return (*self._heads(mask, src_proj, tar_emb), k_pool, v_pool)
+
+    def fused_probs_step_paged(self, mask, tok, pos_idx, k_pool, v_pool,
+                               block_tab, cross_k, cross_v, src_proj,
+                               self_mask):
+        """:meth:`fused_probs_step_multi` over the paged arena. Returns
+        (fused (B, 1, V_out), k_pool, v_pool)."""
+        gen, copy, gate, k_pool, v_pool = self.dist_parts_step_paged(
+            mask, tok, pos_idx, k_pool, v_pool, block_tab, cross_k, cross_v,
+            src_proj, self_mask)
+        return self._fuse(gen, copy, gate), k_pool, v_pool

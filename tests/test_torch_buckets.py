@@ -308,9 +308,24 @@ def test_dev_gate_text_equal_bucketed_and_not(corpus):
     assert any(g != B.full_geom(tds.cfg) for _, g in plan)
 
 
-def test_decode_tar_buckets_is_refused():
+def test_decode_tar_buckets_is_refused(corpus):
+    """The tar-bucketed decode runs now; what is refused is a paged block
+    size that does not tile a bucket's tar budget, in the JAX package's
+    words. Its decode table keeps each bucket's tar, as the JAX one."""
+    from fira_tpu.decode.paging import paging_errors as jax_paging_errors
     from fira_tpu_torch.config import unsupported
+    from fira_tpu_torch.decode.paging import paging_errors
 
-    errs = unsupported(FiraConfig(decode_tar_buckets=True))
-    assert errs and "decode_tar_buckets" in errs[0]
-    assert not unsupported(FiraConfig(buckets=((8, 192, 8),)))
+    buckets = ((8, 192, 6),)
+    tc = corpus["tcfg"].replace(buckets=buckets, decode_tar_buckets=True,
+                                decode_engine=True)
+    jc = corpus["jcfg"].replace(buckets=buckets, decode_tar_buckets=True,
+                                decode_engine=True)
+    assert not unsupported(tc)
+    assert B.decode_table(tc) == JB.decode_table(jc)
+    assert B.decode_table(tc)[0].tar_len == 6
+    bad = paging_errors(tc.replace(kv_block_size=4))
+    assert bad and "kv_block_size 4 does not divide decode tar budget 6" \
+        in bad[0]
+    assert bad == jax_paging_errors(jc.replace(kv_block_size=4))
+    assert not paging_errors(tc)

@@ -247,11 +247,19 @@ def test_bucketed_grouped_train_then_bucketed_test(tiny_corpus, tmp_path,
     assert outs[0] == outs[1] and outs[0].count(b"\n") > 0
 
 
-def test_decode_tar_buckets_refused():
+def test_decode_tar_buckets_refused(tiny_corpus, tmp_path, capsys):
+    """``--decode-tar-buckets`` runs now (``--engine``); it is refused,
+    exit 2 naming the knob, when ``--kv-block-size`` does not tile every
+    declared tar budget (the fira-tiny tar_len 12 here)."""
     from fira_tpu_torch.config import fira_tiny, unsupported
 
-    (err,) = unsupported(fira_tiny(decode_tar_buckets=True))
-    assert err == ("decode_tar_buckets=True (the port runs False only)")
-    with pytest.raises(ValueError, match="decode_tar_buckets"):
-        FiraModel(fira_tiny(decode_tar_buckets=True, vocab_size=40,
-                            ast_change_vocab_size=10))
+    assert not unsupported(fira_tiny(decode_tar_buckets=True))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    rc = cli.main(["test", "--config", "fira-tiny", "--device", "cpu",
+                   "--data-dir", tiny_corpus, "--out-dir", str(tmp_path),
+                   "--ckpt-dir", str(ckpt), "--engine",
+                   "--decode-tar-buckets", "--kv-block-size", "5"])
+    assert rc == 2
+    assert ("kv_block_size 5 does not divide decode tar budget 12"
+            in capsys.readouterr().err)

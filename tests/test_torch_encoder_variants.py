@@ -282,7 +282,7 @@ def test_invalid_combination_refused_in_jax_words(setup, knobs):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("decode_engine", True), ("decode_tar_buckets", True),
+    ("engine_replicas", 2), ("prefix_cache", True),
     ("kv_dtype", "bf16"), ("serve_precision", "int8w"),
     ("spec_decode", "draft")])
 def test_engine_knobs_still_refused(setup, knob, value):
@@ -294,7 +294,8 @@ def test_engine_knobs_still_refused(setup, knob, value):
     ("adjacency_impl", "segment"), ("flat_scatter", True),
     ("encoder_buffer", "split"), ("typed_edges", True),
     ("beam_compat_prob_space", False), ("beam_kv_cache", False),
-    ("beam_factored_topk", True), ("beam_early_exit", True)])
+    ("beam_factored_topk", True), ("beam_early_exit", True),
+    ("decode_engine", True), ("decode_tar_buckets", True)])
 def test_knob_now_runs(setup, knob, value):
     assert unsupported(setup["tcfg"].replace(**{knob: value})) == []
 

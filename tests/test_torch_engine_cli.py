@@ -1,0 +1,194 @@
+"""The engine's entry points in the port's CLI: ``cli test --engine
+--buckets auto --decode-tar-buckets`` writes the JAX package's
+``output_fira`` (its engine, tar-bucketed, on the same checkpoint) byte
+for byte and prints its decode table; ``--perf production`` sets exactly
+the union of the two production knob sets and writes the bytes of the
+engine in that mode; a bad engine flag exits 2 naming it; and every knob
+the engine does not honour is refused by name, saying which part of the
+JAX package runs it."""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fira_tpu.cli import _load_var_maps
+from fira_tpu.config import fira_tiny as jax_fira_tiny
+from fira_tpu.data import buckets as JB
+from fira_tpu.data import synthetic as jax_synthetic
+from fira_tpu.data.dataset import FiraDataset as JaxDataset
+from fira_tpu.decode.runner import run_test as jax_run_test
+from fira_tpu.model.model import FiraModel as JaxModel
+from fira_tpu_torch import cli, convert
+from fira_tpu_torch.config import (DECODE_PERF_KNOBS, PRODUCTION_PERF_KNOBS,
+                                   FiraConfig, fira_tiny, unsupported)
+from fira_tpu_torch.decode import engine
+from fira_tpu_torch.model.model import FiraModel
+
+N_COMMITS, SEED, TEST_BS = 120, 3, 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file: the engine runs thousands of
+    tiny ops, and with the suite's parallel workers each sharing the cores
+    a full thread pool a worker makes them many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """One corpus written by the JAX package (the port reads the same
+    files) and a checkpoint of the port's seeded initialisation."""
+    d = str(tmp_path_factory.mktemp("corpus"))
+    jax_synthetic.write_corpus_dir(d, n_commits=N_COMMITS, seed=SEED)
+    jds = JaxDataset(d, jax_fira_tiny(copy_head_impl="pallas",
+                                      test_batch_size=TEST_BS))
+    jcfg = jds.cfg
+    model = FiraModel(FiraConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(FiraConfig)}))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    ckpt = tmp_path_factory.mktemp("ckpt")
+    torch.save(model.state_dict(), ckpt / "best.pt")
+    return dict(dir=d, jds=jds, jcfg=jcfg, ckpt=str(ckpt),
+                params=jax.tree_util.tree_map(
+                    jnp.asarray, convert.params_to_flax(model.state_dict())))
+
+
+def port_test(setup, out, *flags):
+    return cli.main(["test", "--config", "fira-tiny", "--device", "cpu",
+                     "--data-dir", setup["dir"], "--out-dir", out,
+                     "--ckpt-dir", setup["ckpt"], "--test-batch-size",
+                     str(TEST_BS), *flags])
+
+
+def read(out):
+    with open(os.path.join(out, "output_fira"), "rb") as f:
+        return f.read()
+
+
+def test_tar_bucketed_engine_writes_the_jax_bytes(setup, tmp_path, capsys):
+    jds = setup["jds"]
+    split = jds.splits["test"]
+    cfg = setup["jcfg"].replace(
+        buckets=JB.choose_buckets(split, setup["jcfg"]), decode_engine=True,
+        decode_tar_buckets=True)
+    table = JB.decode_table(cfg)
+    assert min(g.tar_len for g in table) < cfg.tar_len   # a real cap
+    jout = str(tmp_path / "jax")
+    jax_run_test(JaxModel(cfg), setup["params"], jds, cfg, out_dir=jout,
+                 var_maps=_load_var_maps(setup["dir"]))
+    out = str(tmp_path / "port")
+    assert port_test(setup, out, "--engine", "--buckets", "auto",
+                     "--decode-tar-buckets") == 0
+    printed = capsys.readouterr().out
+    assert ("decode table: " + ", ".join(map(JB.geom_tag, table))
+            in printed)
+    assert '"commits": %d' % len(split) in printed
+    want = read(jout)
+    assert read(out) == want and want.count(b"\n") == len(split)
+    # the cap changed the text: the tar-pinned engine writes other lines
+    pinned = str(tmp_path / "pinned")
+    assert port_test(setup, pinned, "--engine", "--buckets", "auto") == 0
+    assert read(pinned) != want
+
+
+def test_perf_production_sets_the_union_of_both_sets():
+    parity = cli.resolve_config(cli.build_parser().parse_args(["test"]))
+    prod = cli.resolve_config(cli.build_parser().parse_args(
+        ["test", "--perf", "production"]))
+    union = {**PRODUCTION_PERF_KNOBS, **DECODE_PERF_KNOBS}
+    assert len(union) == len(PRODUCTION_PERF_KNOBS) + len(DECODE_PERF_KNOBS)
+    for f in dataclasses.fields(FiraConfig):
+        want = union.get(f.name, getattr(parity, f.name))
+        assert getattr(prod, f.name) == want, f.name
+    assert not unsupported(prod)
+    # a flag given overrides the preset
+    eng_off = cli.resolve_config(cli.build_parser().parse_args(
+        ["test", "--perf", "production", "--engine-slots", "7"]))
+    assert eng_off.engine_slots == 7 and eng_off.decode_engine
+
+
+def test_perf_production_writes_the_engine_bytes(setup, tmp_path, capsys):
+    prod, eng = str(tmp_path / "prod"), str(tmp_path / "engine")
+    assert port_test(setup, prod, "--perf", "production") == 0
+    assert "engine: {" in capsys.readouterr().out
+    assert port_test(setup, eng, "--engine", "--beam-factored-topk",
+                     "--beam-early-exit") == 0
+    assert read(prod) == read(eng)
+    batched = str(tmp_path / "batched")
+    assert port_test(setup, batched, "--beam-factored-topk",
+                     "--beam-early-exit") == 0
+    assert read(batched) == read(prod)
+
+
+@pytest.mark.parametrize("flags,named", [
+    (["--engine-slots", "0"], "--engine-slots"),
+    (["--engine-harvest-every", "0"], "--engine-harvest-every"),
+    (["--engine-prefill-depth", "-1"], "--engine-prefill-depth"),
+    (["--kv-paged", "maybe"], "--kv-paged"),
+    # the JAX package's flags of paths the port does not run yet
+    (["--engine-replicas", "2"], "--engine-replicas"),
+    (["--prefix-cache", "on"], "--prefix-cache"),
+    (["--spec-decode", "copy"], "--spec-decode"),
+    (["--kv-dtype", "bf16"], "--kv-dtype"),
+])
+def test_bad_engine_flag_exits_2_naming_it(setup, tmp_path, capsys, flags,
+                                           named):
+    with pytest.raises(SystemExit) as exit_:
+        port_test(setup, str(tmp_path), "--engine", *flags)
+    assert exit_.value.code == 2
+    assert named in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,named", [
+    (["--kv-block-size", "5"],
+     "kv_block_size 5 does not divide decode tar budget 12"),
+    (["--kv-pool-blocks", "1"], "kv_pool_blocks 1 per replica < engine "
+     "slots 4"),
+    (["--kv-block-size", "-2"], "kv_block_size -2 must be >= 1"),
+])
+def test_bad_paging_knob_exits_2_naming_it(setup, tmp_path, capsys, flags,
+                                           named):
+    assert port_test(setup, str(tmp_path), "--engine", *flags) == 2
+    assert named in capsys.readouterr().err
+
+
+REFUSED = [
+    ("engine_replicas", 2, "parallel/fleet.py (ROADMAP A.8)"),
+    ("engine_spares", 1, "robust/recovery.py (ROADMAP A.8)"),
+    ("prefix_cache", True, "decode/prefix_cache.py, with serving "
+     "(ROADMAP A.8)"),
+    ("inject_faults", "engine.step:1", "robust/faults.py (ROADMAP A.8)"),
+    ("dispatch_watchdog_s", 1.0, "robust/watchdog.py (ROADMAP A.8)"),
+    ("max_respawns", 1, "robust/recovery.py (ROADMAP A.8)"),
+    ("spec_decode", "draft", "decode/spec.py (ROADMAP A.9)"),
+    ("kv_dtype", "bf16", "decode/quant.py (ROADMAP A.9)"),
+    ("serve_precision", "int8w", "decode/quant.py (ROADMAP A.9)"),
+]
+
+
+@pytest.mark.parametrize("knob,value,brings", REFUSED)
+def test_knob_the_engine_does_not_run_is_refused(knob, value, brings):
+    cfg = fira_tiny(decode_engine=True, vocab_size=40,
+                    ast_change_vocab_size=10, **{knob: value})
+    named = [e for e in unsupported(cfg) if e.startswith(f"{knob}=")]
+    assert len(named) == 1 and brings in named[0], unsupported(cfg)
+    model = FiraModel(cfg.replace(**{knob: getattr(fira_tiny(), knob)}))
+    with pytest.raises(ValueError, match=knob):
+        engine.SlotEngine(model, cfg)
+
+
+def test_prefix_cache_is_refused_in_the_jax_words():
+    errs = unsupported(fira_tiny(prefix_cache=True, prefix_cache_entries=0))
+    assert any(e.startswith("prefix_cache requires the decode engine")
+               for e in errs)
+    assert any(e.startswith("prefix_cache_entries 0 must be >= 1")
+               for e in errs)

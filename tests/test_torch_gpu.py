@@ -377,6 +377,76 @@ def test_coo_matvec_on_the_card_equals_dense(cuda):
     torch.testing.assert_close(got16.float(), want, rtol=2e-2, atol=2e-2)
 
 
+# the slot engine's step at 64 slots: (64 x beam 3, T = 1)
+ENGINE_SHAPE = (192, 1, 370, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_copy_scores_kernel_at_engine_shape(cuda, dtype):
+    """K1's row kernel at (192, 1, 370, 256): f32 at rtol / atol 1e-5,
+    bf16 at 1e-2; one launch a call."""
+    src, tgt, w, b = _inputs(*ENGINE_SHAPE, dtype=dtype, device=cuda)
+    before = cs.copy_scores.launches
+    got = cs.copy_scores(src, tgt, w, b)
+    assert cs.copy_scores.launches == before + 1
+    want = cs.copy_scores_reference(src, tgt, w, b)
+    assert got.dtype == dtype and got.shape == ENGINE_SHAPE[:3]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "unpaged"])
+def test_engine_on_the_card_writes_the_batched_beam_bits(cuda, tmp_path,
+                                                         paged):
+    """The slot engine on the card, fira-tiny widths, <eos>-biased random
+    weights (samples settle at mixed depths): per sample the batched
+    beam's tokens and scores bit for bit at the batch's slot count; K1
+    launches R times a step dispatch; the allocator is healthy."""
+    from fira_tpu_torch.config import fira_tiny
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.data import synthetic
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.data.feeder import Feeder
+    from fira_tpu_torch.decode import beam, engine
+    from fira_tpu_torch.model.model import FiraModel
+
+    synthetic.write_corpus_dir(str(tmp_path), n_commits=60, seed=5)
+    ds = FiraDataset(str(tmp_path), fira_tiny(test_batch_size=4,
+                                              engine_paged_kv=paged))
+    cfg, data = ds.cfg, ds.splits["train"]
+    model = FiraModel(cfg).init_parameters(torch.Generator().manual_seed(1))
+    model.load_state_dict(beam.eos_biased(model.state_dict(), 2.0))
+    model = model.to(cuda).eval()
+
+    def feed():
+        return Feeder(B.bucketed_assembly_tasks(
+            data, B.output_plan(data, cfg), cfg, batch_size=4),
+            num_workers=0, depth=1, device=cuda)
+
+    want = {}
+    with feed() as f:
+        search = beam.make_beam_search(model, cfg)
+        for item in f:
+            toks, probs = (t.cpu().numpy() for t in search(item.device))
+            for i in np.flatnonzero(item.host["valid"]):
+                want[int(item.host["_positions"][i])] = (toks[i], probs[i])
+    eng = engine.SlotEngine(model, cfg)
+    before = cs.copy_scores.launches
+    with feed() as f:
+        got = {it.position: (it.tokens, it.probs) for it in eng.run(f)}
+    st = eng.stats
+    assert cs.copy_scores.launches - before == 4 * st.step_dispatches
+    assert set(got) == set(want)
+    for p in want:
+        np.testing.assert_array_equal(got[p][0], want[p][0])
+        assert got[p][1].tobytes() == want[p][1].tobytes(), p
+    assert eng.allocator_invariants() == []
+    assert st.step_dispatches < st.host_syncs <= 2 * st.step_dispatches
+
+
 def test_copy_scores_other_device_raises():
     src, tgt, w, b = _inputs(2, 3, 37, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
