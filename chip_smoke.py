@@ -110,7 +110,20 @@ Phases, each printing its own line; any failure exits non-zero:
             occupancy, steps a commit, pool use, bytes a slot, peak memory
             above what was held, host syncs a dispatch) and one warm engine
             dispatch profiled. K1 (phase 4) also at the 64-slot step
-            (192, 1, 370, 256).
+            (192, 1, 370, 256);
+18. preprocess  the astdiff library built (timed) from the checkout's
+            C++ sources into build/astdiff/; ``cli preprocess`` as a
+            subprocess on the raw streams of 720 synthetic commits, its
+            graph streams and diffatt equal to ``process_commits`` in this
+            process (hard check); commits/s, shards, degraded commits,
+            CPU count;
+19. message ``cli message`` as a subprocess on 2 diffs reconstructed from
+            the test split (f32 checkpoint: exit 0, one line, the
+            in-process message); ``one_shot_message`` on 8 in f32 and
+            bf16 with K1 (once a beam step, 29 a message, counted) and
+            with the plain copy score in turns (f32 messages equal); the
+            ingest stages, beam and message latency, and the beam at 1
+            row against the 20-row batch the path pads to.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -2105,6 +2118,217 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> dict:
     return k1
 
 
+def phase_preprocess(ctx) -> None:
+    """The port's preprocessing: its astdiff library built on this machine
+    (timed), the raw streams of ``N_COMMITS`` ``generate_corpus`` commits,
+    and ``python -m fira_tpu_torch.cli preprocess`` on them as a
+    subprocess (its spawned pool as wide as the machine). Hard check: the
+    six graph streams and ``diffatt.json`` equal ``process_commits`` run
+    in this process. Printed: commits/s of the CLI (its wall, interpreter
+    start included) and of ``process_commits`` on one core, shards,
+    degraded commits and ``os.cpu_count()``."""
+    import subprocess
+
+    from fira_tpu_torch.data.synthetic import generate_corpus
+    from fira_tpu_torch.preprocess import astdiff_binding as ad
+    from fira_tpu_torch.preprocess.pipeline import (GRAPH_STREAMS,
+                                                    derive_diffatt,
+                                                    process_commits)
+
+    # built here from the checkout's sources, whatever a copy brought
+    lib, cli_bin = ad.artifact_paths()
+    for path in (lib, cli_bin):
+        path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    ad.load()
+    build_s = time.perf_counter() - t0
+    print(f"[preprocess] astdiff library and CLI built in {build_s:.2f} s "
+          f"({ad.compiler()} {' '.join(ad.CXXFLAGS + ad.LIB_FLAGS)}, the two "
+          f"compiles side by side) -> {os.path.relpath(lib, ctx['root'])}, "
+          f"{cli_bin.name}", flush=True)
+    data_dir = os.path.join(ctx["work"], "preprocess")
+    os.makedirs(data_dir)
+    corpus = generate_corpus(N_COMMITS, seed=SEED)
+    for name in ("difftoken", "diffmark", "msg", "variable"):
+        with open(os.path.join(data_dir, f"{name}.json"), "w") as f:
+            json.dump(corpus.streams[name], f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fira_tpu_torch.cli",
+                           "preprocess", "--data-dir", data_dir],
+                          cwd=ctx["root"], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli preprocess exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    m = re.search(r"preprocess: (\d+) commits, (\d+) shards \((\d+) "
+                  r"already done\), (\d+) degraded commits", proc.stdout)
+    check(m is not None and int(m.group(1)) == N_COMMITS
+          and int(m.group(3)) == 0, f"cli preprocess said {proc.stdout!r}")
+    t0 = time.perf_counter()
+    streams, errors = process_commits(corpus.streams["difftoken"],
+                                      corpus.streams["diffmark"], 0,
+                                      N_COMMITS)
+    one_core = N_COMMITS / (time.perf_counter() - t0)
+    for name in GRAPH_STREAMS:
+        with open(os.path.join(data_dir, f"{name}.json")) as f:
+            check(json.load(f) == streams[name],
+                  f"cli preprocess {name}.json differs from process_commits")
+    with open(os.path.join(data_dir, "diffatt.json")) as f:
+        check(json.load(f) == derive_diffatt(corpus.streams["difftoken"]),
+              "cli preprocess diffatt.json differs")
+    check(int(m.group(4)) == len(errors), f"{m.group(4)} degraded commits "
+          f"reported, process_commits degraded {len(errors)}")
+    n_ast = sum(map(len, streams["ast"]))
+    n_change = sum(map(len, streams["change"]))
+    print(f"[preprocess] cli preprocess of {N_COMMITS} commits: "
+          f"{m.group(2)} shards, {m.group(4)} degraded commits, wall "
+          f"{wall:.3f} s incl. interpreter start = {N_COMMITS / wall:.1f} "
+          f"commits/s on os.cpu_count() = {os.cpu_count()}; "
+          f"process_commits on one core {one_core:.1f} commits/s; the six "
+          f"graph streams and diffatt.json equal process_commits' "
+          f"({n_ast} AST and {n_change} change nodes); {ctx['smi']}",
+          flush=True)
+
+
+def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
+    """``cli message``, one diff in, one message out. 8 diffs reconstructed
+    from the test split; ``python -m fira_tpu_torch.cli message`` as a
+    subprocess on 2 of them against the f32 trained checkpoint (exit 0,
+    one non-empty line each); then in this process, for f32 and then
+    bf16, ``one_shot_message`` on all 8 with K1, counts from zero around
+    that pass only (K1 once a beam step), then with the plain copy score
+    and K1 in turns. Hard checks: the CLI's lines equal this process's f32
+    K1 messages, and the f32 K1 messages equal the plain ones; bf16's that
+    differ are counted. Printed: the ingest stage times, the beam's and
+    the message's wall time; the cost of the test_batch_size - 1 pad rows
+    (the same messages at ``test_batch_size=1``, in turns). Returns K1's
+    launches a dtype."""
+    import subprocess
+
+    from fira_tpu_torch.data.schema import Corpus
+    from fira_tpu_torch.ingest.difftext import reconstruct_request
+    from fira_tpu_torch.ingest.service import one_shot_message
+    from fira_tpu_torch.model.model import FiraModel
+
+    cs, ds, cfg = ctx["cs"], ctx["ds"], ctx["cfg"]
+    corpus = Corpus.load(ctx["data_dir"])
+    idx = [int(i) for i in ds.split_indices["test"][:8]]
+    texts = [reconstruct_request(corpus.record(i)) for i in idx]
+    work = os.path.join(ctx["work"], "message")
+    os.makedirs(work)
+    paths = []
+    for i, text in zip(idx, texts):
+        paths.append(os.path.join(work, f"commit_{i}.diff"))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    cli_lines = []
+    for path in paths[:2]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fira_tpu_torch.cli", "message", path,
+             "--config", "fira-full", "--data-dir", ctx["data_dir"],
+             "--ckpt-dir", run32["ckpt_dir"]], cwd=ctx["root"],
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0 and len(lines) == 1 and lines[0].strip(),
+              f"cli message {os.path.basename(path)}: exit "
+              f"{proc.returncode}, stdout {proc.stdout[-500:]!r}, stderr "
+              f"{proc.stderr[-2000:]}")
+        cli_lines.append(lines[0])
+        print(f"[message] cli message {os.path.basename(path)} --config "
+              f"fira-full (f32 trained checkpoint): exit 0, {wall:.2f} s "
+              f"wall incl. interpreter start, data and weight load; "
+              f"{lines[0]!r}", flush=True)
+
+    def one_pass(model, c, fn):
+        model.copy_net.score_fn = fn
+        out, stats = [], []
+        for text in texts:
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(one_shot_message(model, ds.word_vocab,
+                                        ds.ast_change_vocab, c, text,
+                                        stats=st))
+            st["latency_s"] = time.perf_counter() - t0
+            stats.append(st)
+        return out, stats
+
+    def med(stats, key):
+        return float(np.median([st[key] for st in stats]))
+
+    k1, stages = {}, ("lex_s", "parse_s", "assemble_s", "beam_s", "cook_s",
+                      "latency_s")
+    for run in (run32, run16):
+        dtype = run["gated"].compute_dtype
+        c = cfg.replace(compute_dtype=dtype)
+        model = FiraModel(c, device="cuda", dtype=dtype).eval()
+        model.load_state_dict(run["state_dict"])
+        cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+        msgs, stats = one_pass(model, c, cs.copy_scores)
+        k1[dtype] = cs.copy_scores.launches
+        want = len(texts) * (c.tar_len - 1)
+        check(k1[dtype] == want and cs.copy_scores_backward.launches == 0,
+              f"{dtype}: copy_score launched {k1[dtype]} times on the "
+              f"message path, expected {want} (one a beam step)")
+        check(all(m.strip() for m in msgs), f"{dtype}: an empty message")
+        lat = {"kernel": [med(stats, "latency_s")], "plain": []}
+        plain = None
+        for label in ("plain", "plain", "kernel"):
+            got, st = one_pass(model, c, cs.copy_scores if label == "kernel"
+                               else cs.copy_scores_reference)
+            lat[label].append(med(st, "latency_s"))
+            if label == "plain":
+                check(plain is None or got == plain,
+                      f"{dtype}: two plain passes differ")
+                plain = got
+            else:
+                check(got == msgs, f"{dtype}: two K1 passes differ")
+        n_diff = sum(a != b for a, b in zip(msgs, plain))
+        if dtype == "float32":
+            check(msgs[:2] == cli_lines, "cli message printed other messages "
+                  "than one_shot_message in this process")
+            check(n_diff == 0, f"f32: {n_diff} of {len(texts)} messages "
+                  f"differ between K1 and the plain copy score")
+        print(f"[message {dtype}] one_shot_message on {len(texts)} diffs "
+              f"(fira-full, a {c.test_batch_size}-row beam batch, "
+              f"{c.tar_len - 1} steps): copy_score launches {k1[dtype]} "
+              f"(expected {want}); medians "
+              + ", ".join(f"{k[:-2]} {1e3 * med(stats, k):.3f} ms"
+                          for k in stages)
+              + f" (first message {1e3 * stats[0]['latency_s']:.1f} ms); "
+              f"message latency in turns K1/plain/plain/K1: K1 "
+              f"{' '.join(f'{1e3 * x:.1f}' for x in lat['kernel'])} ms, "
+              f"plain {' '.join(f'{1e3 * x:.1f}' for x in lat['plain'])} ms; "
+              f"{n_diff} of {len(texts)} messages differ from the plain "
+              f"copy score; truncated "
+              f"{sum(bool(s['truncated']) for s in stats)}, degraded "
+              f"{sum(bool(s['degraded']) for s in stats)}, OOV "
+              f"words {sum(s['oov_words'] for s in stats)}, OOV AST labels "
+              f"{sum(s['oov_ast'] for s in stats)}; on {ctx['smi']}",
+              flush=True)
+        if dtype == "float32":
+            # what the test_batch_size - 1 pad rows cost one message
+            one = c.replace(test_batch_size=1)
+            beam = {c.test_batch_size: [], 1: []}
+            outs = {}
+            for cc in (c, one, one, c):
+                got, st = one_pass(model, cc, cs.copy_scores)
+                beam[cc.test_batch_size].append(med(st, "beam_s"))
+                outs[cc.test_batch_size] = got
+            n_same = sum(a == b for a, b in zip(outs[1], msgs))
+            print(f"[message float32] pad rows: beam wall median in turns "
+                  f"{c.test_batch_size} rows / 1 / 1 / {c.test_batch_size}: "
+                  + " / ".join(f"{1e3 * x:.1f}" for x in (
+                      beam[c.test_batch_size][0], *beam[1],
+                      beam[c.test_batch_size][1]))
+                  + f" ms; {n_same} of {len(texts)} messages at 1 row equal "
+                  f"the {c.test_batch_size}-row ones", flush=True)
+        del model
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -2154,7 +2378,8 @@ def main() -> int:
     gt_file = os.path.join(work, "ground_truth")
     write_ground_truth(ds, var_maps, gt_file)
     ctx = dict(cs=cs, ds=ds, cfg=cfg, work=work, data_dir=data_dir,
-               var_maps=var_maps, kind=kind, gt_file=gt_file, smi=smi)
+               var_maps=var_maps, kind=kind, gt_file=gt_file, smi=smi,
+               root=root)
 
     tables = phase_buckets(ctx)
     bucket_t = tables["main"].tar_len
@@ -2258,6 +2483,9 @@ def main() -> int:
     # the batched bytes, --perf production, tar buckets, mixed depths,
     # engine vs batched in turns ---
     eng_k1 = engine_phase(torch, ctx, run32, run16, modes32)
+    # --- preprocessing and the one-shot raw-diff path, cli message ---
+    phase_preprocess(ctx)
+    msg_k1 = phase_message(torch, ctx, run32, run16)
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -2282,11 +2510,11 @@ def main() -> int:
         dict(name="copy_score_fwd", dtype="float32",
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
-             + eng_k1["float32"], **fwd, **fwd32),
+             + eng_k1["float32"] + msg_k1["float32"], **fwd, **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
              launches=sum(r["k1"] for r in (run16, main16, tb16, mb16, ev16,
-                                            modes16)) + eng_k1["bfloat16"],
-             **fwd, **fwd16),
+                                            modes16)) + eng_k1["bfloat16"]
+             + msg_k1["bfloat16"], **fwd, **fwd16),
         dict(name="copy_score_bwd", dtype="float32",
              launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32)),
              **bwd, **bwd32),

@@ -5,7 +5,17 @@
   ``<ckpt-dir>/latest.pt`` (each epoch; a later call resumes from it);
 - ``test`` beam-decodes the test split with ``<ckpt-dir>/best.pt`` (or,
   when dev BLEU never improved, the model in ``latest.pt``) and writes
-  OUTPUT/output_fira.
+  OUTPUT/output_fira;
+- ``message <diff-file>`` prints the commit message of one unified diff:
+  the diff is lexed, split into hunks and its AST graph extracted (the
+  native astdiff library, built from source at first use into
+  ``build/astdiff/``), then decoded with the batched beam on the same
+  checkpoint ``test`` reads (ingest/service.py ``one_shot_message``); a
+  missing target exits 2, a diff the ingest rejects exits 1;
+- ``preprocess`` turns the raw ``difftoken.json``/``diffmark.json``
+  streams of ``--data-dir`` into the corpus files (the six graph streams,
+  ``diffatt.json``, both vocabularies) over ``--num-procs`` spawned
+  workers, ``--shard-size`` commits a shard; it touches no device.
 
 ``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
 (``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
@@ -40,6 +50,8 @@ Example:
     python -m fira_tpu_torch.cli train --adjacency segment --typed-edges
     python -m fira_tpu_torch.cli test --engine --engine-slots 64
     python -m fira_tpu_torch.cli test --perf production
+    python -m fira_tpu_torch.cli preprocess --data-dir DataSet --num-procs 8
+    python -m fira_tpu_torch.cli message change.diff --config fira-full
 """
 
 from __future__ import annotations
@@ -50,7 +62,9 @@ import os
 import sys
 from typing import List, Optional
 
-import torch
+# torch is imported where it is used: ``preprocess``'s spawned workers
+# import this module (the main module of ``python -m fira_tpu_torch.cli``)
+# and need none of it
 
 
 def _positive(s: str) -> int:
@@ -62,9 +76,15 @@ def _positive(s: str) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fira_tpu_torch", description=__doc__)
-    p.add_argument("command", choices=["train", "test"],
+    p.add_argument("command", choices=["train", "test", "message",
+                                       "preprocess"],
                    help="train: fit + dev-gate; test: beam-decode the test "
-                        "split")
+                        "split; message: one-shot diff-in/message-out on a "
+                        "single diff file; preprocess: raw diffs -> "
+                        "DataSet/ corpus")
+    p.add_argument("target", nargs="?", default=None,
+                   help="message: the unified-diff file to generate a "
+                        "commit message for (unused by other commands)")
     p.add_argument("--config", default="fira-full",
                    help="named config: fira-tiny | fira-full | fira-large")
     p.add_argument("--ablation", default=None,
@@ -174,13 +194,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "bf16; the engine with the cached, factored, "
                         "early-exit beam); 'parity' (default) keeps the "
                         "reference's. Flags given override the preset")
+    p.add_argument("--shard-size", type=int, default=100,
+                   help="preprocess: commits per worker shard (reference "
+                        "each_num=100)")
+    p.add_argument("--num-procs", type=int, default=None,
+                   help="preprocess: worker processes (default: cpu count)")
     return p
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str) -> "torch.device":
     """The run's device. ``cuda`` without a card raises. On the card, f32
     matmuls and convolutions run in full f32 (no TF32), so results match
     the f32 reference."""
+    import torch
+
     if name == "cpu":
         return torch.device("cpu")
     if name != "cuda":
@@ -275,8 +302,29 @@ def resolve_config(args):
     return cfg
 
 
+def message_errors(cfg, target: Optional[str]) -> List[str]:
+    """``cli message``'s parse-time refusals, in the JAX package's words:
+    the ingest knobs, a missing target, one that is not a file."""
+    from fira_tpu_torch.ingest.service import ingest_errors
+
+    errs = ingest_errors(cfg, command="message")
+    if not target:
+        errs.append("message needs a diff file: cli message <diff-file>")
+    elif not os.path.isfile(target):
+        errs.append(f"message target {target}: not a readable file")
+    return errs
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+
+    if args.command == "preprocess":
+        # host work only: no config, no device
+        from fira_tpu_torch.preprocess.pipeline import main as preprocess
+
+        return preprocess(args)
+
+    import torch
 
     from fira_tpu_torch.config import unsupported
     from fira_tpu_torch.data.dataset import FiraDataset
@@ -296,6 +344,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if refused(cfg):
         return 2
+    if args.command == "message":
+        # before the device and the dataset, as the JAX CLI checks them
+        errs = message_errors(cfg, args.target)
+        for e in errs:
+            print(f"parse-time validation: {e}", file=sys.stderr)
+        if errs:
+            return 2
     device = resolve_device(args.device)
     suffix = f"_{args.ablation}" if args.ablation else ""
     ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, f"ckpt{suffix}")
@@ -361,6 +416,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     dataset, cfg = loaded
     model = FiraModel(cfg, device=device, dtype=cfg.compute_dtype)
     model.load_state_dict(state_dict)
+    if args.command == "message":
+        from fira_tpu_torch.ingest.difftext import DiffParseError
+        from fira_tpu_torch.ingest.service import IngestError, one_shot_message
+
+        try:
+            with open(args.target) as f:
+                text = f.read()
+            print(one_shot_message(model, dataset.word_vocab,
+                                   dataset.ast_change_vocab, cfg, text))
+        except (DiffParseError, IngestError, UnicodeDecodeError,
+                OSError) as e:
+            # a request-content failure, named like every rejected input
+            print(f"message: {args.target} rejected: {e}", file=sys.stderr)
+            return 1
+        return 0
     if cfg.decode_tar_buckets and cfg.buckets:
         from fira_tpu_torch.data.buckets import decode_table, geom_tag
 

@@ -107,9 +107,11 @@ class FiraConfig:
     kv_pool_blocks: int = 0
     decode_tar_buckets: bool = False
     # --- knobs of JAX-package paths the port does not run yet (prefix
-    # cache, fleet, serving, spec decode, quant tiers, ingest, fault
-    # injection, ring attention); kept so configs read alike, and
-    # ``unsupported`` refuses each one that selects such a path ---
+    # cache, fleet, serving, spec decode, quant tiers, the ingest fast
+    # path, fault injection, ring attention); kept so configs read alike,
+    # and ``unsupported`` refuses each one that selects such a path.
+    # ``cli message`` reads ingest_truncate; ingest.service.ingest_errors
+    # validates the ingest_* knobs in the JAX package's words ---
     prefix_cache: bool = False
     prefix_cache_entries: int = 256
     prefix_cache_bytes: int = 0

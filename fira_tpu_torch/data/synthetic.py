@@ -233,3 +233,38 @@ def write_corpus_dir(data_dir: str, n_commits: int, seed: int = 0,
     word_vocab.to_json(os.path.join(data_dir, "word_vocab.json"))
     ast_vocab.to_json(os.path.join(data_dir, "ast_change_vocab.json"))
     return corpus
+
+
+def write_extracted_corpus_dir(data_dir: str, n_commits: int, seed: int = 0,
+                               min_freq: int = 1) -> Corpus:
+    """A corpus whose graph streams come from the real extraction
+    pipeline instead of the random synthetic ones: the synthetic
+    difftoken/diffmark/msg/variable streams are kept, ``diffatt`` is
+    re-derived (``pipeline.derive_diffatt``, the reference convention),
+    and ast/change/edge_* are produced by ``pipeline.process_commits``
+    (FSM + native astdiff extraction, per-commit degradation included).
+
+    The round-trip corpus of the ingest equivalence contract
+    (docs/INGEST.md): a commit's reconstructed unified diff pushed
+    through ``ingest`` re-runs the same FSM and extraction and must
+    reproduce these streams, hence byte-identical wire payloads."""
+    import os
+
+    from fira_tpu_torch.preprocess.pipeline import (derive_diffatt,
+                                                    process_commits)
+
+    corpus = generate_corpus(n_commits, seed=seed)
+    corpus.streams["diffatt"] = derive_diffatt(corpus.streams["difftoken"])
+    # index_offset clears the reference's per-corpus commit-70 case
+    # (extract.ast_code_edges' 'nextParent'): ingest extracts requests
+    # with no index, so the round-trip corpus is extracted without one too
+    streams, _errors = process_commits(corpus.streams["difftoken"],
+                                       corpus.streams["diffmark"],
+                                       0, n_commits,
+                                       index_offset=1_000_000)
+    corpus.streams.update(streams)
+    corpus.save(data_dir)
+    word_vocab, ast_vocab = build_vocabs(corpus, min_freq=min_freq)
+    word_vocab.to_json(os.path.join(data_dir, "word_vocab.json"))
+    ast_vocab.to_json(os.path.join(data_dir, "ast_change_vocab.json"))
+    return corpus

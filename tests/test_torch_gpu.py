@@ -453,3 +453,32 @@ def test_copy_scores_other_device_raises():
         cs.copy_scores(src, tgt, w, b)
     with pytest.raises(ValueError, match="no kernel"):
         cs.copy_scores_backward(src, tgt, w, _dout(2, 3, 37, "meta"))
+
+
+@pytest.mark.gpu
+def test_astdiff_in_a_process_on_the_card_equals_its_cli(cuda, tmp_path):
+    """The astdiff library, built by the machine's C++ compiler and loaded
+    in a process that holds torch on the card, parses and diffs as its CLI
+    binary does in a process of its own (a toolchain that links libstdc++
+    statically once crashed the first parse here)."""
+    import json
+    import subprocess
+
+    from fira_tpu_torch.preprocess import astdiff_binding as ad
+
+    torch.zeros(1, device=cuda)
+    old = "class A { int f(int x) { return x + 1; } }"
+    new = "class A { int g(int x) { return x * 2; } }"
+    a, b = tmp_path / "A.java", tmp_path / "B.java"
+    a.write_text(old)
+    b.write_text(new)
+    cli_bin = str(ad.cli_path())
+    out = subprocess.run([cli_bin, "parse", str(a)], capture_output=True,
+                         text=True, check=True)
+    assert ad.parse_json(old) == json.loads(out.stdout)
+    out = subprocess.run([cli_bin, "diff", str(a), str(b)],
+                         capture_output=True, text=True, check=True)
+    assert ad.diff_lines(old, new) == [
+        ln for ln in out.stdout.splitlines() if ln.strip()]
+    assert ad.parse_json("%%% not java") is None
+    assert ad.tokenize("int x = 1;") == ["int", "x", "=", "1", ";"]
