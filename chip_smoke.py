@@ -158,6 +158,7 @@ SEED = 0
 # largest per-step relative difference): a copy-score fault that moves
 # training by more than all of bf16's roundings together fails
 F32_LOSS_RTOL = 1e-4
+PROB_RTOL = 1e-5   # f32 beam probabilities, K1 against the plain copy score
 
 
 def dname(dtype) -> str:
@@ -2197,11 +2198,16 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     one non-empty line each); then in this process, for f32 and then
     bf16, ``one_shot_message`` on all 8 with K1, counts from zero around
     that pass only (K1 once a beam step), then with the plain copy score
-    and K1 in turns. Hard checks: the CLI's lines equal this process's f32
-    K1 messages, and the f32 K1 messages equal the plain ones; bf16's that
-    differ are counted. Printed: the ingest stage times, the beam's and
-    the message's wall time; the cost of the test_batch_size - 1 pad rows
-    (the same messages at ``test_batch_size=1``, in turns). Returns K1's
+    and K1 in turns; f32 also once each in log space. Hard checks: the
+    CLI's lines equal this process's f32 K1 messages; the f32 K1 messages
+    equal the plain ones and their beam probabilities agree within
+    ``PROB_RTOL`` relative (atol the float32 normal minimum, below which
+    the prob-space beam has no relative precision), in prob space and in
+    log space (where nothing underflows); bf16's that differ are counted.
+    Printed: the ingest stage times, the beam's and the message's wall
+    time; the cost of the test_batch_size - 1 pad rows (the same messages
+    at ``test_batch_size=1``, in turns, and one message at each size
+    under the profiler: kernels, device busy, idle share). Returns K1's
     launches a dtype."""
     import subprocess
 
@@ -2258,6 +2264,24 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     def med(stats, key):
         return float(np.median([st[key] for st in stats]))
 
+    def probs_gap(got, want, what):
+        """Largest relative gap of the beams' probabilities ``got`` from
+        ``want`` (entries under float32's normal minimum left out), and
+        whether every entry is within PROB_RTOL of its counterpart."""
+        a = np.stack([st["probs"] for st in got]).astype(np.float64)
+        b = np.stack([st["probs"] for st in want]).astype(np.float64)
+        tiny = float(np.finfo(np.float32).tiny)
+        normal = np.abs(b) >= tiny
+        rel = float((np.abs(a - b)[normal] / np.abs(b)[normal]).max(
+            initial=0.0))
+        best = b.max(axis=1)
+        print(f"[message] {what}: beam probabilities K1 vs plain, largest "
+              f"relative gap {rel:.3e} (limit {PROB_RTOL:g}, atol {tiny:.3e}"
+              f"); best beam {best.min():.6e} .. {best.max():.6e}, "
+              f"{int((~normal).sum())} of {b.size} entries under the normal "
+              f"minimum", flush=True)
+        return rel, bool(np.all(np.abs(a - b) <= tiny + PROB_RTOL * np.abs(b)))
+
     k1, stages = {}, ("lex_s", "parse_s", "assemble_s", "beam_s", "cook_s",
                       "latency_s")
     for run in (run32, run16):
@@ -2282,15 +2306,30 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
             if label == "plain":
                 check(plain is None or got == plain,
                       f"{dtype}: two plain passes differ")
-                plain = got
+                plain, plain_stats = got, st
             else:
                 check(got == msgs, f"{dtype}: two K1 passes differ")
         n_diff = sum(a != b for a, b in zip(msgs, plain))
+        rel, close = probs_gap(stats, plain_stats, f"{dtype} prob space")
         if dtype == "float32":
             check(msgs[:2] == cli_lines, "cli message printed other messages "
                   "than one_shot_message in this process")
             check(n_diff == 0, f"f32: {n_diff} of {len(texts)} messages "
                   f"differ between K1 and the plain copy score")
+            check(close, f"f32: beam probabilities K1 vs plain {rel:.3e} "
+                  f"relative, beyond {PROB_RTOL:g}")
+            # log space: no beam's score underflows, so the probabilities
+            # compare at every entry
+            cl = c.replace(beam_compat_prob_space=False)
+            k_msgs, k_st = one_pass(model, cl, cs.copy_scores)
+            p_msgs, p_st = one_pass(model, cl, cs.copy_scores_reference)
+            model.copy_net.score_fn = cs.copy_scores
+            n_log = sum(a != b for a, b in zip(k_msgs, p_msgs))
+            check(n_log == 0, f"f32 log space: {n_log} of {len(texts)} "
+                  f"messages differ between K1 and the plain copy score")
+            rel, close = probs_gap(k_st, p_st, "float32 log space")
+            check(close, f"f32 log space: beam log-probabilities K1 vs "
+                  f"plain {rel:.3e} relative, beyond {PROB_RTOL:g}")
         print(f"[message {dtype}] one_shot_message on {len(texts)} diffs "
               f"(fira-full, a {c.test_batch_size}-row beam batch, "
               f"{c.tar_len - 1} steps): copy_score launches {k1[dtype]} "
@@ -2325,6 +2364,23 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
                       beam[c.test_batch_size][1]))
                   + f" ms; {n_same} of {len(texts)} messages at 1 row equal "
                   f"the {c.test_batch_size}-row ones", flush=True)
+            prof = {}
+            for cc in (c, one):
+                n = cc.test_batch_size
+                prof[n] = profile_one(
+                    torch, f"one message ({n}-row beam batch, "
+                    f"{c.tar_len - 1} steps, float32, ingest and cook "
+                    f"included)", lambda: one_shot_message(
+                        model, ds.word_vocab, ds.ast_change_vocab, cc,
+                        texts[0]))
+            print(f"[message float32] pad rows under the profiler, one "
+                  f"message: " + "; ".join(
+                      f"{n}-row beam {sum(k for _, k in r['by_name'].values())} "
+                      f"kernels and copies, device busy {r['busy_ms']:.2f} of "
+                      f"{r['wall_ms']:.2f} ms wall (idle "
+                      f"{100 - 100 * r['busy_ms'] / r['wall_ms']:.1f}%)"
+                      for n, r in prof.items())
+                  + f"; on {ctx['smi']}", flush=True)
         del model
     return k1
 

@@ -394,9 +394,10 @@ def one_shot_message(model, word_vocab: Vocab, ast_change_vocab: Vocab,
     ``make_beam_search(model, cfg)`` on the model's device and in its
     compute dtype over a ``cfg.test_batch_size``-row batch (the request
     and padding rows, the JAX package's shapes), cook and de-anonymize the
-    argmax beam. ``stats``, when given, receives the ``_ingest`` stamps
-    and the beam's and the cooking's seconds (``beam_s``, ``cook_s``; the
-    beam's include the copy to the device and the tokens' copy back)."""
+    argmax beam. ``stats``, when given, receives the ``_ingest`` stamps,
+    the beam's and the cooking's seconds (``beam_s``, ``cook_s``; the
+    beam's include the copy to the device and the tokens' copy back) and
+    the request row's beam probabilities (``probs``, beam width floats)."""
     from fira_tpu_torch.data.feeder import batch_to_device
     from fira_tpu_torch.decode.beam import make_beam_search
     from fira_tpu_torch.decode.text import cook_prediction, deanonymize
@@ -417,5 +418,5 @@ def one_shot_message(model, word_vocab: Vocab, ast_change_vocab: Vocab,
     message = " ".join(deanonymize(hyp, host["_var"][0]))
     if stats is not None:
         stats.update(host["_ingest"], beam_s=t1 - t0,
-                     cook_s=time.perf_counter() - t1)
+                     cook_s=time.perf_counter() - t1, probs=probs)
     return message

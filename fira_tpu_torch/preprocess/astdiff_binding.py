@@ -39,7 +39,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 SRC_DIR = Path(__file__).resolve().parent / "astdiff"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "astdiff"
@@ -56,7 +56,7 @@ LIB_FLAGS = ("-shared", "-Wl,--exclude-libs,ALL")
 CLI_FLAGS = ("-DASTDIFF_MAIN",)
 
 _lock = threading.Lock()
-_libs: Dict[Optional[str], ctypes.CDLL] = {}   # build dir -> loaded library
+_lib: Optional[ctypes.CDLL] = None
 
 
 class AstdiffBuildError(RuntimeError):
@@ -74,22 +74,21 @@ def compiler() -> str:
     return found
 
 
-def artifact_paths(build_dir=None) -> Tuple[Path, Path]:
-    """(shared library, CLI binary) under ``build_dir`` (default
-    ``BUILD_DIR``), named by a digest of the sources and the flags."""
+def artifact_paths() -> Tuple[Path, Path]:
+    """(shared library, CLI binary) under ``BUILD_DIR``, named by a digest
+    of the sources and the flags."""
     h = hashlib.sha256()
     for name in HEADERS + UNITS:
         h.update(name.encode() + b"\0" + (SRC_DIR / name).read_bytes())
     h.update(" ".join(CXXFLAGS + LIB_FLAGS + CLI_FLAGS).encode())
     tag = h.hexdigest()[:12]
-    d = Path(build_dir) if build_dir is not None else BUILD_DIR
-    return d / f"libastdiff_{tag}.so", d / f"astdiff_{tag}"
+    return BUILD_DIR / f"libastdiff_{tag}.so", BUILD_DIR / f"astdiff_{tag}"
 
 
-def build(build_dir=None) -> Path:
+def build() -> Path:
     """Build the library and the CLI binary if either is missing; returns
     the library's path. The two compiles run side by side."""
-    lib, cli = artifact_paths(build_dir)
+    lib, cli = artifact_paths()
     if lib.exists() and cli.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -121,23 +120,21 @@ def build(build_dir=None) -> Path:
     return lib
 
 
-def cli_path(build_dir=None) -> Path:
+def cli_path() -> Path:
     """The ``astdiff parse|diff`` CLI binary, built first if needed."""
-    build(build_dir)
-    return artifact_paths(build_dir)[1]
+    build()
+    return artifact_paths()[1]
 
 
-def load(build_dir=None) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The loaded library (built first if needed), its C entry points
-    typed; one build check and one load a build directory per process."""
-    key = None if build_dir is None else str(build_dir)
-    lib = _libs.get(key)
-    if lib is not None:
-        return lib
-    path = build(build_dir)
+    typed; one build check and one load per process."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = build()
     with _lock:
-        lib = _libs.get(key)
-        if lib is None:
+        if _lib is None:
             lib = ctypes.CDLL(str(path))
             for fn in ("astdiff_parse", "astdiff_tokenize"):
                 getattr(lib, fn).argtypes = [ctypes.c_char_p]
@@ -146,8 +143,8 @@ def load(build_dir=None) -> ctypes.CDLL:
             lib.astdiff_diff.restype = ctypes.c_void_p
             lib.astdiff_free.argtypes = [ctypes.c_void_p]
             lib.astdiff_free.restype = None
-            _libs[key] = lib
-    return lib
+            _lib = lib
+    return _lib
 
 
 def take(lib: ctypes.CDLL, ptr: Optional[int]) -> Optional[str]:

@@ -51,7 +51,8 @@ REAL_DIFFS = [
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """The round-trip corpus, JAX-initialised weights, the JAX package's
-    messages (its beam compiled once), and the port's model and
+    messages and request-row beam probabilities (its beam compiled once),
+    and the port's model and
     checkpoint of the same weights."""
     d = str(tmp_path_factory.mktemp("corpus"))
     corpus = write_extracted_corpus_dir(d, N_COMMITS, seed=SEED)
@@ -69,10 +70,16 @@ def setup(tmp_path_factory):
     # built once, for this model and config only
     make_beam_search = jax_beam.make_beam_search
     search = make_beam_search(jmodel, jcfg)
+    want_probs = []
+
+    def recorded(p, wire):
+        tokens, probs = search(p, wire)
+        want_probs.append(np.asarray(probs)[0])
+        return tokens, probs
 
     def cached(model, cfg, with_steps=False):
         assert model is jmodel and cfg == jcfg and not with_steps
-        return search
+        return recorded
 
     jax_beam.make_beam_search = cached
     try:
@@ -93,7 +100,8 @@ def setup(tmp_path_factory):
         paths.append(str(files / f"{i}.diff"))
         with open(paths[-1], "w") as f:
             f.write(t)
-    return dict(dir=d, texts=texts, want=want, ds=ds, model=model,
+    return dict(dir=d, texts=texts, want=want, want_probs=want_probs,
+                ds=ds, model=model,
                 ckpt=str(ckpt), paths=paths)
 
 
@@ -105,6 +113,8 @@ def test_one_shot_message_equals_jax(setup, i):
                            setup["texts"][i], stats=stats)
     assert got == setup["want"][i]
     assert got.strip(), "an empty message tests nothing"
+    np.testing.assert_allclose(stats["probs"], setup["want_probs"][i],
+                               rtol=1e-5, atol=1e-7)
     assert {"lex_s", "parse_s", "assemble_s", "beam_s",
             "cook_s"} <= set(stats)
     if i == 9:
