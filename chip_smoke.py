@@ -111,13 +111,32 @@ Phases, each printing its own line; any failure exits non-zero:
             above what was held, host syncs a dispatch) and one warm engine
             dispatch profiled. K1 (phase 4) also at the 64-slot step
             (192, 1, 370, 256);
-18. preprocess  the astdiff library built (timed) from the checkout's
+18. serve   ``cli serve`` on one engine (20 slots, the f32 checkpoint,
+            the 61 test commits, a replayed trace, the virtual clock):
+            byte-identical to ``cli test --engine`` with the prefix cache
+            off and on; a repeated mix (each sample twice, 122 requests)
+            byte-identical to the cache-off run and to each sample's line,
+            with prefills saved and followers coalesced; the test batches
+            through the engine and again from its cache, every hit's
+            (tokens, probs) bitwise equal to its cold prefill (reported:
+            what other slots change in a sample's last bits); the serve
+            output under K1 equal to the plain copy score's; wall-clock
+            serving at 0.5x and 1.5x the engine's drain commits/s
+            (offered, completed, shed,
+            p50/p99 TTFT and end-to-end, occupancy, host syncs a dispatch,
+            peak memory above held) and a 20-request serve profiled; four
+            seeded faults through the CLI (a raising step retires the
+            engine and sheds the rest with the reason, a raising assembly
+            sheds one request, a corrupt one changes at most its own line,
+            admission faults are absorbed by a retry), each exiting 0 with
+            a valid ``serve_metrics.json``; K1 once a micro-step, counted;
+19. preprocess  the astdiff library built (timed) from the checkout's
             C++ sources into build/astdiff/; ``cli preprocess`` as a
             subprocess on the raw streams of 720 synthetic commits, its
             graph streams and diffatt equal to ``process_commits`` in this
             process (hard check); commits/s, shards, degraded commits,
             CPU count;
-19. message ``cli message`` as a subprocess on 2 diffs reconstructed from
+20. message ``cli message`` as a subprocess on 2 diffs reconstructed from
             the test split (f32 checkpoint: exit 0, one line, the
             in-process message); ``one_shot_message`` on 8 in f32 and
             bf16 with K1 (once a beam step, 29 a message, counted) and
@@ -148,6 +167,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 N_COMMITS = 720            # -> a test split of ~60 commits
 ENGINE_WIDE = 64           # the slot engine's wide arena (--engine-slots)
+WALL_REPEATS = 5           # wall-clock serving: the test split 5x (~305)
 WORD_VOCAB, AST_VOCAB = 24_650, 71   # the paper's vocabulary sizes
 SEED = 0
 # per-step losses of the kernel run against the plain run, f32: 1e-4
@@ -1949,7 +1969,7 @@ def engine_run_test(torch, ctx, run: dict, name: str, knobs: dict) -> dict:
                 path=m["output_path"])
 
 
-def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> dict:
+def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> tuple:
     """The slot engine. Hard checks on the f32 trained checkpoint: ``cli
     test --engine`` writes the batched decode's bytes (``beam_modes``'
     full scans) in the four kv x factored modes, in prob and log space,
@@ -1963,7 +1983,9 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> dict:
     turns a b b a (commits/s, occupancy, steps per commit, pool use,
     bytes a slot, peak memory above what was held, host syncs a
     dispatch) on the trained and the mixed-depth weights, and one warm
-    engine dispatch profiled."""
+    engine dispatch profiled. Returns K1's launches a dtype and the bytes of
+    ``cli test --engine`` in the default mode (cached, fused, prob space,
+    paged)."""
     from collections import Counter
 
     from fira_tpu_torch.decode.beam import eos_biased
@@ -2116,6 +2138,435 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> dict:
                     f"slots x 4 micro-steps + harvest, {dtype})",
                     lambda: (eng.step_dispatch(), eng.harvest()))
         del model, eng, batches
+    return k1, engine_out[True, False, True, True]
+
+
+# seeded faults for the [serve] phase's 61 requests (robust/faults.py
+# draws): feeder.assemble raise seed 0 at rate 0.02 fires at request 10
+# only, corrupt seed 7 at request 3 only; serve.admit seed 1 at rate 0.05
+# fires 5 times, never twice for one request (absorbed by one retry);
+# engine.step hang seed 0 at rate 0.05 first fires at the 24th step
+# dispatch, with requests in flight, and sleeps fault_hang_s (2 s) past
+# the 1 s watchdog
+SERVE_FAULTS = [
+    ("step raise", ["--inject-faults", "engine.step:raise:1:0"]),
+    ("step hang", ["--inject-faults", "engine.step:hang:0.05:0",
+                   "--dispatch-watchdog-s", "1"]),
+    ("assemble raise", ["--inject-faults", "feeder.assemble:raise:0.02:0",
+                        "--robust-retries", "0"]),
+    ("assemble corrupt", ["--inject-faults",
+                          "feeder.assemble:corrupt:0.02:7"]),
+    ("admit raise", ["--inject-faults", "serve.admit:raise:0.05:1",
+                     "--robust-retries", "1"]),
+]
+
+
+def serve_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
+    """``cli serve --dtype float32`` with ``flags`` on the f32 checkpoint
+    (the phase's replayed trace and the virtual clock), counts from zero
+    around it; its summary line kept; ``serve_metrics.json`` must be
+    valid JSON with no ``.partial`` left, a dispatch the watchdog
+    abandoned must return within ``fault_hang_s`` + 10 s, and K1 must
+    launch once a micro-step of the counted dispatches (prewarm's
+    included; an abandoned dispatch that woke and launched would add
+    more)."""
+    import contextlib
+    import io
+    import threading
+
+    from fira_tpu_torch import cli
+
+    cs = ctx["cs"]
+    out_dir = os.path.join(ctx["work"], "serve", name.replace(" ", "_"))
+    buf = io.StringIO()
+    cs.copy_scores.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", "--config", "fira-full", "--data-dir",
+                       ctx["data_dir"], "--out-dir", out_dir, "--ckpt-dir",
+                       run["ckpt_dir"], "--dtype", "float32",
+                       "--serve-trace", ctx["serve_trace"],
+                       "--serve-clock", "virtual", *flags])
+    abandoned = [t for t in threading.enumerate()
+                 if t.name == "fira-dispatch-watchdog"]
+    t0 = time.perf_counter()
+    for t in abandoned:
+        t.join(ctx["cfg"].fault_hang_s + 10.0)
+    check(not any(t.is_alive() for t in abandoned),
+          f"cli serve {name}: an abandoned dispatch is still running")
+    woke_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    k1 = cs.copy_scores.launches
+    printed = buf.getvalue()
+    check(rc == 0, f"cli serve {name} exited {rc}: {printed}")
+    mpath = os.path.join(out_dir, "serve_metrics.json")
+    with open(mpath) as f:
+        metrics = json.load(f)
+    check(not os.path.exists(mpath + ".partial"),
+          f"cli serve {name}: a .partial metrics file was left")
+    s = metrics["engine"]
+    want = ctx["cfg"].engine_harvest_every * (
+        s["step_dispatches"] + s["warm_step_dispatches"])
+    check(k1 == want, f"cli serve {name}: copy_score launched {k1} times, "
+          f"{want} micro-steps")
+    with open(os.path.join(out_dir, "output_fira"), "rb") as f:
+        out = f.read()
+    line = [x for x in printed.splitlines() if x.startswith("serve: ")]
+    return dict(out=out, metrics=metrics, k1=k1, abandoned=len(abandoned),
+                woke_s=woke_s, line=line[0] if line else printed.strip())
+
+
+def serve_bytes(m) -> bytes:
+    with open(m["output_path"], "rb") as f:
+        return f.read()
+
+
+def serve_phase(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
+    """``cli serve`` on one engine (20 slots, the f32 trained checkpoint,
+    the 61 test commits). Hard checks: on a replayed trace under the
+    virtual clock the output is ``cli test --engine``'s bytes, prefix
+    cache off and on; a repeated mix (each sample twice, 122 requests:
+    the second pass arriving once the first is half done) writes every
+    position's line of its sample, the cache-off run's bytes, with
+    prefills saved and followers coalesced; the test batches twice in one
+    stream through one engine (the second in reverse batch order), cache
+    off and on, write every sample's cold output line, and with the cache
+    on the engine's own dedup fans out (reported: which samples moved in
+    their probabilities' last bits, with the slot each had cold and in
+    the second pass); the engine over
+    the test batches, then again from its cache, seats hits whose
+    (tokens, probs) equal the cold prefill's bit for bit; the serve output
+    under K1 equals it under the plain copy score; wall-clock serving
+    writes each request its sample's line; the faults (a raising step
+    retires the engine and sheds all with the reason; a step hanging past
+    the watchdog retires it with requests in flight, sheds the rest with
+    the WatchdogTimeout and its abandoned dispatch returns launching
+    nothing; a raising assembly sheds its one request; a corrupt one
+    changes at most its own line; admission faults are absorbed by one
+    retry) all exit 0 with a valid serve_metrics.json; K1 launches once a
+    micro-step. Reported: the engine's drain commits/s, then wall-clock
+    serving of the split ``WALL_REPEATS`` times over, cache off, at 0.5x
+    and 1.5x that rate (offered, completed, shed, p50/p99 TTFT and
+    end-to-end latency, occupancy, host syncs a dispatch, peak memory
+    above held), and the device idle share of a 20-request serve under
+    the profiler. Returns K1's launches."""
+    from types import SimpleNamespace
+
+    from fira_tpu_torch.decode import engine as engine_lib
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.serve import (poisson_times, read_trace, serve_split,
+                                      write_trace)
+
+    cs, ds, cfg = ctx["cs"], ctx["ds"], ctx["cfg"]
+    t_phase = time.perf_counter()
+    n = len(ds.splits["test"])
+    os.makedirs(os.path.join(ctx["work"], "serve"))
+    ctx["serve_trace"] = os.path.join(ctx["work"], "serve", "trace.txt")
+    write_trace(ctx["serve_trace"], poisson_times(n, rate=0.5, seed=3))
+    want_lines = engine_bytes.decode().split("\n")
+    k1 = 0
+    for name, flags in (("cache off", ["--prefix-cache", "off"]),
+                        ("cache on", [])):
+        r = serve_cli(torch, ctx, run32, name, flags)
+        k1 += r["k1"]
+        e = r["metrics"]["engine"]
+        check(r["out"] == engine_bytes,
+              f"cli serve, {name}: "
+              f"{len(n_lines_differ(r['out'], engine_bytes))} of {n} lines "
+              f"differ from cli test --engine")
+        print(f"[serve] cli serve --serve-clock virtual, {name}: output_fira "
+              f"byte-identical to cli test --engine; {r['line']}; "
+              f"prefills {e['prefills']}, cache misses {e['cache_misses']}, "
+              f"copy_score launches {r['k1']}", flush=True)
+
+    c = cfg.replace(decode_engine=True, compute_dtype="float32")
+    con = c.replace(prefix_cache=True)
+    model = FiraModel(c, device="cuda", dtype="float32").eval()
+    model.load_state_dict(run32["state_dict"])
+    work = os.path.join(ctx["work"], "serve")
+
+    def serve(name, cc, times, mix=None, eng=None, clock="virtual"):
+        return serve_split(model, ds, cc, arrival_times=times,
+                           out_dir=os.path.join(work, name), clock=clock,
+                           var_maps=ctx["var_maps"], request_mix=mix,
+                           engine=eng)
+
+    # --- the repeated mix: the second pass arrives at the first pass's
+    # median completion (virtual clock), so its early samples hit the
+    # cache and its late ones coalesce onto requests still in flight
+    first = serve("pass1", con, np.zeros(n))
+    mid = float(np.median([r["done_t"] for r in first["request_records"]]))
+    mix = np.concatenate([np.arange(n), np.arange(n)])
+    times = np.concatenate([np.zeros(n), np.full(n, mid)])
+    cs.copy_scores.launches = 0
+    on = serve("repeat_on", con, times, mix)
+    k1 += cs.copy_scores.launches
+    off = serve("repeat_off", c, times, mix)
+    got = serve_bytes(on).decode().split("\n")
+    check(got == [want_lines[j] for j in mix] + [""],
+          "repeated mix: a line differs from its sample's engine line")
+    check(serve_bytes(on) == serve_bytes(off),
+          "repeated mix: cache on and off wrote different bytes")
+    sv, e = on["serve"], on["engine"]
+    check(e["prefills_saved"] > 0 and sv["dedup_coalesced"] > 0,
+          f"repeated mix: prefills saved {e['prefills_saved']}, coalesced "
+          f"{sv['dedup_coalesced']}")
+    print(f"[serve] repeated mix (each of the {n} samples twice, the second "
+          f"pass at t={mid}): bytes equal the cache-off run's and each "
+          f"sample's engine line; prefills {e['prefills']} (cache off "
+          f"{off['engine']['prefills']}), prefills saved "
+          f"{e['prefills_saved']}, cache hits {e['cache_hits']} "
+          f"(rate {e['cache_hit_rate']}), artifact bytes served "
+          f"{e['cache_hbm_bytes_saved']}, coalesced {sv['dedup_coalesced']}"
+          f" in {sv['dedup_groups']} groups (largest "
+          f"{sv['dedup_fanout_max']}), engine dedup_fanout "
+          f"{e['dedup_fanout']}", flush=True)
+
+    # --- a cache hit against its cold prefill, bit for bit: the test
+    # batches through a cold engine, then twice through a cached one
+    batches = staged_batches(torch, ctx, c)
+    feed1 = [SimpleNamespace(index=i, host=h, device=d)
+             for i, (_, h, d) in enumerate(batches)]
+    again = []
+    for i, (_, h, d) in enumerate(batches):
+        h2 = dict(h)
+        h2["_positions"] = np.where(h["_positions"] >= 0,
+                                    h["_positions"] + n, -1)
+        again.append(SimpleNamespace(index=len(batches) + i, host=h2,
+                                     device=d))
+    def same(a, b) -> bool:
+        return (np.array_equal(a.tokens, b.tokens)
+                and a.probs.tobytes() == b.probs.tobytes())
+
+    def best(it) -> np.ndarray:   # the tokens its output line is made of
+        return it.tokens[int(np.argmax(it.probs))]
+
+    def seated(eng) -> dict:
+        """position -> the slot it was seated in, read after each refill
+        (a coalesced follower has no seat of its own)."""
+        where = {}
+        refill = eng.refill
+
+        def recording(*a, **k):
+            refill(*a, **k)
+            for slot, (pid, _h, _r) in eng._busy.items():
+                where.setdefault(pid, slot)
+        eng.refill = recording
+        return where
+
+    cold_eng = engine_lib.SlotEngine(model, c)
+    cold_slot = seated(cold_eng)
+    cold = {it.position: it for it in cold_eng.run(feed1)}
+
+    def one_stream(name, cc) -> engine_lib.EngineStats:
+        """The test batches twice in one stream through one fresh engine,
+        the second pass in reverse batch order (its first batches repeat
+        samples still in flight): the second pass sits in other slots
+        than the cold run's, and with the cache on it is coalesced onto
+        first-pass seats still in flight and seated from cache hits.
+        Every sample's output tokens
+        must equal the cold run's (hard); which samples moved in their
+        probabilities' bits, and the slot each had in the cold run and in
+        this pass, are printed."""
+        eng = engine_lib.SlotEngine(model, cc)
+        slot = seated(eng)
+        got = {it.position: it for it in eng.run(feed1 + again[::-1])}
+        check(all(np.array_equal(best(got[p]), best(cold[p]))
+                  and np.array_equal(best(got[p + n]), best(cold[p]))
+                  for p in cold),
+              f"engine, {name}, the test batches twice in one stream: an "
+              f"output line differs from the cold run's")
+        first_moved = [p for p in cold if not same(got[p], cold[p])]
+        moved, rows = [], []
+        for p in cold:
+            s0, s1 = cold_slot[p], slot.get(p + n)
+            if not same(got[p + n], cold[p]):
+                moved.append(p)
+                rows.append(f"{p}: slot {s0} -> "
+                            f"{'coalesced' if s1 is None else s1}, tokens "
+                            f"{'equal' if np.array_equal(got[p + n].tokens, cold[p].tokens) else 'differ'}"
+                            f", {float(np.abs(got[p + n].probs - cold[p].probs).max()):.3e}")
+        reseated = [p for p in cold if slot.get(p + n) not in (None,
+                                                                cold_slot[p])]
+        kept = [p for p in cold if slot.get(p + n) == cold_slot[p]]
+        st = eng.stats
+        print(f"[serve] engine, {name}, the test batches twice in one "
+              f"stream: output lines equal the cold run's; first pass "
+              f"{len(first_moved)} of {n} samples differ from cold bit for "
+              f"bit; second pass {len(moved)} of {n} differ: "
+              f"{len([p for p in moved if p in reseated])} of the "
+              f"{len(reseated)} seated in another slot, "
+              f"{len([p for p in moved if p in kept])} of the {len(kept)} "
+              f"in the same slot, "
+              f"{len([p for p in moved if slot.get(p + n) is None])} of the "
+              f"{n - len(reseated) - len(kept)} coalesced; cache hits "
+              f"{st.cache_hits}, dedup_fanout {st.dedup_fanout}, prefills "
+              f"{st.prefills}, prefills saved {st.prefills_saved}; moved "
+              f"(position: cold slot -> this pass, tokens, largest "
+              f"probability difference): {'; '.join(rows) or 'none'}",
+              flush=True)
+        return st
+
+    one_stream("cache off", c)
+    st = one_stream("cache on", con)
+    # the engine's own dedup (the serve loop coalesces before it, so the
+    # serve runs above leave it at 0)
+    check(st.dedup_fanout > 0 and st.cache_hits > 0,
+          f"engine, cache on, one stream: dedup_fanout {st.dedup_fanout}, "
+          f"cache hits {st.cache_hits}")
+    # the same batches twice through one cached engine, the second stream
+    # after the first drained: every second-stream row is a cache hit,
+    # seated by the schedule (and in the slots) of the cold stream
+    warm_eng = engine_lib.SlotEngine(model, con)
+    warm_slot = seated(warm_eng)
+    cs.copy_scores.launches = 0
+    first_pass = {it.position: it for it in warm_eng.run(feed1)}
+    cold_misses = warm_eng.stats.cache_misses
+    warm = {it.position: it for it in warm_eng.run(again)}
+    k1 += cs.copy_scores.launches
+    st = warm_eng.stats
+    check(st.cache_hits == n and st.prefills_saved == len(batches),
+          f"engine, batches twice: {st.cache_hits} hits, "
+          f"{st.prefills_saved} prefills saved")
+    for p, it in cold.items():
+        check(same(first_pass[p], it) and same(warm[p + n], it),
+              f"engine, batches twice: position {p} or {p + n} differs from "
+              f"its cold prefill")
+    print(f"[serve] engine over the test batches, then again with the "
+          f"cache on: the {n} second-stream samples (cache hits) equal the "
+          f"cold prefill's (tokens, probs) bit for bit, "
+          f"{sum(warm_slot[p + n] == cold_slot[p] for p in cold)} of them "
+          f"seated in their cold slot; cache misses "
+          f"{cold_misses}, then hits {st.cache_hits}, prefills "
+          f"{st.prefills} (cold {len(batches)}), prefills saved "
+          f"{st.prefills_saved}, artifact bytes served "
+          f"{st.cache_hbm_bytes_saved}, host syncs {st.host_syncs} over "
+          f"{st.step_dispatches} dispatches", flush=True)
+
+    # --- K1 against the plain copy score on the serve path
+    cs.copy_scores.launches = 0
+    with_k1 = serve("k1", con, read_trace(ctx["serve_trace"]))
+    launched = cs.copy_scores.launches
+    k1 += launched
+    model.copy_net.score_fn = cs.copy_scores_reference
+    plain = serve("plain", con, read_trace(ctx["serve_trace"]))
+    model.copy_net.score_fn = cs.copy_scores
+    check(cs.copy_scores.launches == launched,
+          "the plain serve run launched K1")
+    check(serve_bytes(with_k1) == serve_bytes(plain),
+          f"serve, K1 vs plain copy score: "
+          f"{len(n_lines_differ(serve_bytes(with_k1), serve_bytes(plain)))}"
+          f" lines differ")
+    print(f"[serve] serve_split (virtual clock, cache on) under K1 vs the "
+          f"plain copy score: output_fira byte-identical; K1 launches "
+          f"{launched}", flush=True)
+
+    # --- wall-clock serving at 0.5x and 1.5x the engine's drain rate: the
+    # split WALL_REPEATS times over, prefix cache off (repeats would hit)
+    drain = engine_decode(torch, ctx, model, c, batches)
+    k1 += drain["k1"]
+    eng = engine_lib.SlotEngine(model, c)
+    serve("warm", c, np.zeros(c.test_batch_size), eng=eng)
+    wall_mix = np.tile(np.arange(n), WALL_REPEATS)
+    for factor in (0.5, 1.5):
+        rate = factor * drain["rate"]
+        eng.stats = engine_lib.EngineStats(slots=eng.slots)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cs.copy_scores.launches = 0
+        m = serve(f"wall_{factor}", c,
+                  poisson_times(len(wall_mix), rate, seed=5), wall_mix,
+                  eng=eng, clock="wall")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        k1 += cs.copy_scores.launches
+        sv, e = m["serve"], m["engine"]
+        check(sv["completed"] == sv["offered"] == len(wall_mix),
+              f"wall clock {factor}x: {sv['completed']} of {len(wall_mix)} "
+              f"completed")
+        check(serve_bytes(m).decode().split("\n")
+              == [want_lines[j] for j in wall_mix] + [""],
+              f"wall clock {factor}x: a line differs from its sample's "
+              f"engine line")
+        shed = sv["shed_queue_full"] + sv["shed_deadline"] + sv["shed_error"]
+        print(f"[serve] wall clock at {factor}x the drain rate "
+              f"({drain['rate']:.2f} commits/s), cache off, each line its "
+              f"sample's engine line: offered {rate:.2f} req/s "
+              f"({sv['offered']} requests, measured "
+              f"{sv['offered_rate_rps']}), completed {sv['completed']}, "
+              f"shed {shed}; p50/p99 TTFT "
+              f"{sv['p50_ttft_s']}/{sv['p99_ttft_s']} s, "
+              f"p50/p99 e2e {sv['p50_e2e_s']}/{sv['p99_e2e_s']} s, "
+              f"throughput {sv['throughput_rps']} req/s; occupancy "
+              f"{e['slot_occupancy']}, host syncs "
+              f"{e['host_syncs'] / max(e['step_dispatches'], 1):.3f}"
+              f"/dispatch over {e['step_dispatches']} dispatches, "
+              f"{sv['rounds']} rounds; peak memory above held "
+              f"{peak / 2**20:.1f} MiB; on {ctx['kind']}, {ctx['smi']}",
+              flush=True)
+    last = {}
+
+    def burst():
+        last["m"] = serve("profiled", c, np.zeros(c.test_batch_size),
+                          eng=eng)
+
+    profile_one(torch, f"one serve run of {c.test_batch_size} requests "
+                f"arriving together (20 slots, cache off)", burst)
+    print(f"[serve] the profiled serve run took {last['m']['serve']['rounds']}"
+          f" rounds", flush=True)
+
+    # --- faults through the CLI
+    for name, flags in SERVE_FAULTS:
+        r = serve_cli(torch, ctx, run32, name, flags)
+        k1 += r["k1"]
+        sv, f = r["metrics"]["serve"], r["metrics"].get("faults", {})
+        recs = r["metrics"]["request_records"]
+        lines = r["out"].decode().split("\n")
+        check(len(lines) == n + 1 and len(recs) == n,
+              f"cli serve {name}: {len(lines) - 1} lines, {len(recs)} records")
+        shed = [r_["position"] for r_ in recs
+                if r_["status"] == "shed_error"]
+        if name == "step raise":
+            check(sv["replica_retirements"] == 1 and sv["completed"] == 0
+                  and sv["shed_error"] == n
+                  and all("no live replicas" in r_["error"] for r_ in recs),
+                  f"cli serve {name}: {sv}")
+        elif name == "step hang":
+            check(sv["replica_retirements"] == 1 and f == {"engine.step": 1}
+                  and 0 < sv["completed"] < n
+                  and sv["completed"] + sv["shed_error"] == n
+                  and r["abandoned"] == 1
+                  and all("no live replicas" in recs[p]["error"]
+                          and "WatchdogTimeout" in recs[p]["error"]
+                          for p in shed),
+                  f"cli serve {name}: {sv}, fired {f}, abandoned "
+                  f"{r['abandoned']}")
+        elif name == "assemble raise":
+            check(shed == [10] and "feeder.assemble" in recs[10]["error"],
+                  f"cli serve {name}: shed {shed}")
+        elif name == "assemble corrupt":
+            check(sv["completed"] == n and f == {"feeder.assemble": 1},
+                  f"cli serve {name}: {sv['completed']} completed, {f}")
+        else:
+            check(sv["completed"] == n and sv["request_retries"] > 0,
+                  f"cli serve {name}: {sv['completed']} completed, "
+                  f"{sv['request_retries']} retries")
+        differ = [i for i in range(n) if lines[i] != want_lines[i]]
+        allowed = {"step raise": set(range(n)), "step hang": set(shed),
+                   "assemble raise": {10}, "assemble corrupt": {3},
+                   "admit raise": set()}[name]
+        check(set(differ) <= allowed, f"cli serve {name}: lines {differ} "
+              f"differ from cli test --engine")
+        print(f"[serve] cli serve --inject-faults {flags[1]}: exit 0, valid "
+              f"serve_metrics.json; fired {f}; {r['line'].split('  p50')[0]};"
+              f" retries {sv['request_retries']}; lines differing from cli "
+              f"test --engine: {differ if len(differ) < 8 else len(differ)}"
+              f"; abandoned dispatches {r['abandoned']}, joined "
+              f"{r['woke_s']:.2f} s after the run returned", flush=True)
+    print(f"[serve] the phase: K1 launched {k1} times over its serve and "
+          f"engine runs (each 4 a step dispatch, prewarm included), "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model, eng, warm_eng, batches
     return k1
 
 
@@ -2538,7 +2989,10 @@ def main() -> int:
     # --- the slot-refill engine: cli test --engine in every mode against
     # the batched bytes, --perf production, tar buckets, mixed depths,
     # engine vs batched in turns ---
-    eng_k1 = engine_phase(torch, ctx, run32, run16, modes32)
+    eng_k1, engine_bytes = engine_phase(torch, ctx, run32, run16, modes32)
+    # --- cli serve on one engine: replayed traces against cli test
+    # --engine, the prefix cache and dedup, wall-clock rates, faults ---
+    serve_k1 = serve_phase(torch, ctx, run32, engine_bytes)
     # --- preprocessing and the one-shot raw-diff path, cli message ---
     phase_preprocess(ctx)
     msg_k1 = phase_message(torch, ctx, run32, run16)
@@ -2566,7 +3020,8 @@ def main() -> int:
         dict(name="copy_score_fwd", dtype="float32",
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
-             + eng_k1["float32"] + msg_k1["float32"], **fwd, **fwd32),
+             + eng_k1["float32"] + msg_k1["float32"] + serve_k1, **fwd,
+             **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
              launches=sum(r["k1"] for r in (run16, main16, tb16, mb16, ev16,
                                             modes16)) + eng_k1["bfloat16"]

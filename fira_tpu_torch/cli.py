@@ -15,7 +15,23 @@
 - ``preprocess`` turns the raw ``difftoken.json``/``diffmark.json``
   streams of ``--data-dir`` into the corpus files (the six graph streams,
   ``diffatt.json``, both vocabularies) over ``--num-procs`` spawned
-  workers, ``--shard-size`` commits a shard; it touches no device.
+  workers, ``--shard-size`` commits a shard; it touches no device;
+- ``serve`` serves the test split's samples as an open-loop request
+  stream on one slot engine (serve/server.py): Poisson arrivals at
+  ``--serve-rate`` requests/s (seeded by the config's seed) or a replayed
+  ``--serve-trace`` file, on the wall clock or ``--serve-clock virtual``
+  (a deterministic unit a dispatch). It writes OUTPUT/output_fira (a shed
+  request leaves an empty line; with nothing shed the bytes of ``test
+  --engine``) and ``serve_metrics.json`` (p50/p99 TTFT and end-to-end
+  latency, shed counts, the engine's stats, every request's record),
+  atomically, with a ``.partial`` snapshot kept through the run. The
+  prefix cache and in-flight dedup are on unless ``--prefix-cache off``.
+  ``--inject-faults`` arms seeded faults at the seven wired sites,
+  ``--dispatch-watchdog-s`` retires an engine whose dispatch outlives it
+  (the rest are then shed with the reason), ``--robust-retries`` is the
+  poisoned request's retry budget. No request journal (``.journal``) is
+  written: ``--resume`` (ROADMAP A.8c) and ``--input diffs`` (A.8b) exit
+  2 naming their item.
 
 ``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
 (``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
@@ -52,6 +68,7 @@ Example:
     python -m fira_tpu_torch.cli test --perf production
     python -m fira_tpu_torch.cli preprocess --data-dir DataSet --num-procs 8
     python -m fira_tpu_torch.cli message change.diff --config fira-full
+    python -m fira_tpu_torch.cli serve --config fira-full --serve-rate 20
 """
 
 from __future__ import annotations
@@ -76,12 +93,13 @@ def _positive(s: str) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fira_tpu_torch", description=__doc__)
-    p.add_argument("command", choices=["train", "test", "message",
+    p.add_argument("command", choices=["train", "test", "serve", "message",
                                        "preprocess"],
                    help="train: fit + dev-gate; test: beam-decode the test "
-                        "split; message: one-shot diff-in/message-out on a "
-                        "single diff file; preprocess: raw diffs -> "
-                        "DataSet/ corpus")
+                        "split; serve: a long-lived server under open-loop "
+                        "load on the test split; message: one-shot "
+                        "diff-in/message-out on a single diff file; "
+                        "preprocess: raw diffs -> DataSet/ corpus")
     p.add_argument("target", nargs="?", default=None,
                    help="message: the unified-diff file to generate a "
                         "commit message for (unused by other commands)")
@@ -194,6 +212,73 @@ def build_parser() -> argparse.ArgumentParser:
                         "bf16; the engine with the cached, factored, "
                         "early-exit beam); 'parity' (default) keeps the "
                         "reference's. Flags given override the preset")
+    p.add_argument("--prefix-cache", default=None, choices=["on", "off"],
+                   help="test/serve: the cross-request prefix cache and "
+                        "in-flight dedup (decode/prefix_cache.py): a "
+                        "byte-identical repeat seats from cached prefill "
+                        "artifacts, one in flight coalesces onto the "
+                        "existing seat; bitwise equal to 'off'. Default: "
+                        "on for serve, off for test (engine path required)")
+    p.add_argument("--prefix-cache-entries", type=int, default=None,
+                   metavar="N",
+                   help="prefix-cache LRU capacity in entries (default "
+                        "256; >= 1 when the cache is on)")
+    p.add_argument("--prefix-cache-bytes", type=int, default=None,
+                   metavar="B",
+                   help="prefix-cache host-memory budget in bytes (0: "
+                        "unbounded, the entry cap the only bound; >= 0)")
+    p.add_argument("--input", default="graphs", choices=["graphs", "diffs"],
+                   help="serve: the request source: 'graphs' (default), "
+                        "the test split's graph requests; 'diffs' (raw "
+                        "diffs) comes with ROADMAP A.8b and exits 2")
+    p.add_argument("--serve-rate", type=float, default=None, metavar="RPS",
+                   help="serve: offered load in requests/s of the "
+                        "open-loop Poisson generator; needed (> 0) unless "
+                        "--serve-trace replays a schedule")
+    p.add_argument("--serve-trace", default=None, metavar="PATH",
+                   help="serve: replay this arrival-trace file (one "
+                        "non-decreasing time a line, line i = test-split "
+                        "position i; serve/arrivals.py)")
+    p.add_argument("--serve-prefill-budget", type=int, default=None,
+                   metavar="P",
+                   help="serve: most prefill dispatches between two step "
+                        "dispatches (default 1; >= 1 and <= the engine's "
+                        "slots); more trades seated requests' tail latency "
+                        "for admission throughput")
+    p.add_argument("--serve-deadline-steps", type=int, default=None,
+                   metavar="D",
+                   help="serve: a request still queued after D step "
+                        "dispatches is shed (recorded); 0 = none (default)")
+    p.add_argument("--serve-queue-cap", type=int, default=None, metavar="Q",
+                   help="serve: admission-queue bound; an arrival past Q "
+                        "queued requests is shed on the spot (recorded); "
+                        "0 = unbounded (default)")
+    p.add_argument("--serve-clock", default="wall",
+                   choices=["wall", "virtual"],
+                   help="serve: 'wall' (default) paces arrivals in real "
+                        "time, the latency measurement; 'virtual' advances "
+                        "a deterministic unit a dispatch, the replay mode")
+    p.add_argument("--resume", action="store_true",
+                   help="serve: resume a killed run from its request "
+                        "journal; the port writes none yet (ROADMAP A.8c): "
+                        "exits 2")
+    p.add_argument("--inject-faults", default=None, metavar="SPEC",
+                   help="seeded fault injection: 'site:kind:rate:seed[,...]'"
+                        " (sites wired: feeder.assemble, feeder.device_put, "
+                        "engine.prefill, engine.step, engine.harvest, "
+                        "serve.admit, cache.lookup; kinds: raise | hang | "
+                        "corrupt); deterministic given the seed; off by "
+                        "default")
+    p.add_argument("--dispatch-watchdog-s", type=float, default=None,
+                   metavar="S",
+                   help="per-dispatch wall-clock watchdog: a serve dispatch "
+                        "outliving S seconds is abandoned and the engine "
+                        "retired; a train dev gate outliving it is skipped "
+                        "with a recorded warning. 0 = off (default)")
+    p.add_argument("--robust-retries", type=int, default=None, metavar="N",
+                   help="retries (with backoff) a request gets when its "
+                        "assembly, admission or prefill raises, before it "
+                        "is shed with its error (default 1; >= 0)")
     p.add_argument("--shard-size", type=int, default=100,
                    help="preprocess: commits per worker shard (reference "
                         "each_num=100)")
@@ -291,9 +376,19 @@ def resolve_config(args):
         if given:
             cfg = cfg.replace(**{knob: value})
     for knob in ("engine_slots", "engine_prefill_depth",
-                 "engine_harvest_every", "kv_block_size", "kv_pool_blocks"):
+                 "engine_harvest_every", "kv_block_size", "kv_pool_blocks",
+                 "prefix_cache_entries", "prefix_cache_bytes", "serve_rate",
+                 "serve_prefill_budget", "serve_deadline_steps",
+                 "serve_queue_cap", "inject_faults",
+                 "dispatch_watchdog_s", "robust_retries"):
         if getattr(args, knob) is not None:
             cfg = cfg.replace(**{knob: getattr(args, knob)})
+    # serve runs on the slot engine, with the prefix cache and in-flight
+    # dedup on unless --prefix-cache off (the JAX CLI's defaults)
+    if args.command == "serve":
+        cfg = cfg.replace(decode_engine=True)
+    if args.prefix_cache is not None or args.command == "serve":
+        cfg = cfg.replace(prefix_cache=args.prefix_cache != "off")
     # an accum request drops a fused value the config carries, unless
     # --fused-steps pinned it (then the two conflict and exit 2 below)
     if (cfg.accum_steps > 1 and cfg.fused_steps > 1
@@ -312,6 +407,19 @@ def message_errors(cfg, target: Optional[str]) -> List[str]:
         errs.append("message needs a diff file: cli message <diff-file>")
     elif not os.path.isfile(target):
         errs.append(f"message target {target}: not a readable file")
+    return errs
+
+
+def serve_input_errors(args) -> List[str]:
+    """``cli serve``'s refusals of paths the port does not run yet, each
+    naming the ROADMAP item that brings it."""
+    errs = []
+    if args.input == "diffs":
+        errs.append("--input diffs: serving raw diffs (the ingest fast "
+                    "path) is not ported yet (ROADMAP A.8b)")
+    if args.resume:
+        errs.append("--resume: the port writes no request journal yet "
+                    "(the journal and crash-resume are ROADMAP A.8c)")
     return errs
 
 
@@ -338,10 +446,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     def refused(c) -> bool:
         """Print one line naming the knob a refusal; True if any."""
         errs = unsupported(c) + paging_errors(c)
+        if args.command == "serve":
+            from fira_tpu_torch.serve.server import serve_errors
+
+            errs += serve_errors(c, trace=args.serve_trace is not None)
         for e in errs:
             print(f"fira_tpu_torch: config error: {e}", file=sys.stderr)
         return bool(errs)
 
+    if args.command == "serve":
+        errs = serve_input_errors(args)
+        for e in errs:
+            print(f"parse-time validation: {e}", file=sys.stderr)
+        if errs:
+            return 2
     if refused(cfg):
         return 2
     if args.command == "message":
@@ -431,6 +549,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"message: {args.target} rejected: {e}", file=sys.stderr)
             return 1
         return 0
+    if args.command == "serve":
+        return serve(args, model, dataset, cfg)
     if cfg.decode_tar_buckets and cfg.buckets:
         from fira_tpu_torch.data.buckets import decode_table, geom_tag
 
@@ -443,6 +563,39 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"{os.path.join(args.out_dir, output_name(args.ablation))}")
     if "engine" in metrics:
         print(f"engine: {json.dumps(metrics['engine'])}")
+    return 0
+
+
+def serve(args, model, dataset, cfg) -> int:
+    """``cli serve`` after the checkpoint is loaded: the arrival times,
+    the serving run, the summary line."""
+    from fira_tpu_torch.serve import poisson_times, read_trace, serve_split
+
+    n_req = len(dataset.splits["test"])
+    if args.serve_trace:
+        times = read_trace(args.serve_trace)
+        if len(times) > n_req:
+            print(f"parse-time validation: --serve-trace has {len(times)} "
+                  f"arrivals but the request source holds only {n_req} "
+                  f"samples", file=sys.stderr)
+            return 2
+    else:
+        times = poisson_times(n_req, cfg.serve_rate, seed=cfg.seed)
+    metrics_path = os.path.join(args.out_dir, "serve_metrics.json")
+    metrics = serve_split(model, dataset, cfg, arrival_times=times,
+                          out_dir=args.out_dir, ablation=args.ablation,
+                          var_maps=_load_var_maps(args.data_dir),
+                          clock=args.serve_clock, metrics_path=metrics_path)
+    sv = metrics["serve"]
+    print(f"serve: {sv['completed']}/{sv['offered']} completed "
+          f"(shed {sv['shed_queue_full']} queue-full, "
+          f"{sv['shed_deadline']} deadline, "
+          f"{sv['shed_error']} error; "
+          f"{sv['replica_retirements']} replica retirements, "
+          f"{sv['respawns']} respawns)  "
+          f"p50/p99 ttft {sv['p50_ttft_s']}/{sv['p99_ttft_s']} s  "
+          f"p50/p99 e2e {sv['p50_e2e_s']}/{sv['p99_e2e_s']} s  "
+          f"-> {metrics_path}")
     return 0
 
 

@@ -106,12 +106,14 @@ class FiraConfig:
     kv_block_size: int = 0
     kv_pool_blocks: int = 0
     decode_tar_buckets: bool = False
-    # --- knobs of JAX-package paths the port does not run yet (prefix
-    # cache, fleet, serving, spec decode, quant tiers, the ingest fast
-    # path, fault injection, ring attention); kept so configs read alike,
-    # and ``unsupported`` refuses each one that selects such a path.
-    # ``cli message`` reads ingest_truncate; ingest.service.ingest_errors
-    # validates the ingest_* knobs in the JAX package's words ---
+    # --- serving (serve/server.py), the prefix cache and in-flight dedup
+    # (decode/prefix_cache.py) and degradation (robust/: fault injection,
+    # the dispatch watchdog, the quarantine retries); beside them the knobs
+    # of JAX-package paths the port does not run yet (fleet, recovery,
+    # spec decode, quant tiers, the disaggregated tier, the ingest fast
+    # path), kept so configs read alike: ``unsupported`` refuses each one
+    # that selects such a path. ``cli message`` reads ingest_truncate;
+    # ingest.service.ingest_errors checks the ingest_* knobs ---
     prefix_cache: bool = False
     prefix_cache_entries: int = 256
     prefix_cache_bytes: int = 0
@@ -284,22 +286,18 @@ _PORTED_PATH = {
                         "decode/quant.py (ROADMAP A.9)"),
     "spec_decode": ("off", "speculative decode, decode/spec.py "
                     "(ROADMAP A.9)"),
-    "prefix_cache": (False, "the prefix cache and in-flight dedup, "
-                     "decode/prefix_cache.py, with serving (ROADMAP A.8)"),
-    "inject_faults": ("", "fault injection, robust/faults.py (ROADMAP "
-                      "A.8)"),
+    "serve_tiers": ("off", "the disaggregated prefill tier, "
+                    "serve/disagg.py (ROADMAP A.9)"),
 }
 
 # knob -> (the largest value the port runs, the part that runs more)
 _PORTED_MAX = {
     "engine_replicas": (1, "the replicated decode fleet, "
-                        "parallel/fleet.py (ROADMAP A.8)"),
+                        "parallel/fleet.py (ROADMAP A.8c)"),
     "engine_spares": (0, "the fleet's spare replicas, robust/recovery.py "
-                      "(ROADMAP A.8)"),
-    "dispatch_watchdog_s": (0.0, "the dispatch watchdog, "
-                            "robust/watchdog.py (ROADMAP A.8)"),
+                      "(ROADMAP A.8c)"),
     "max_respawns": (0, "replica respawn, robust/recovery.py (ROADMAP "
-                     "A.8)"),
+                     "A.8c)"),
 }
 
 
@@ -344,6 +342,12 @@ def unsupported(cfg: FiraConfig) -> List[str]:
         from fira_tpu_torch.decode.paging import prefix_cache_errors
 
         errs += prefix_cache_errors(cfg)
+    # the robustness knobs, every command (the watchdog also guards the
+    # train loop's dev gate), in the JAX package's words; a fault site the
+    # port does not wire names the ROADMAP item that brings it
+    from fira_tpu_torch.robust.faults import robust_errors
+
+    errs += robust_errors(cfg)
     for knob, least in (("engine_slots", 0), ("engine_prefill_depth", 1),
                         ("engine_harvest_every", 1)):
         if getattr(cfg, knob) < least:

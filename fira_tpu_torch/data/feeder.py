@@ -42,8 +42,13 @@ run on the consumer's thread (their time is then all stall), and no thread
 is started.
 
 The Feeder never waits for the device: ``n_valid`` is counted on the host
-batch before the transfer. The JAX package's ``sharding`` (a multi-device
-mesh) and fault ``injector`` hooks are not ported here yet.
+batch before the transfer. ``faults`` (an armed
+``robust.faults.FaultInjector``) checks the ``feeder.assemble`` site
+before each attempt's assembly (raise/hang) and scrambles the assembled
+batch after it (corrupt), then checks ``feeder.device_put`` on the worker
+before the batch is handed to the transfer; each draw keyed by the task's
+sequence number (and the attempt), as in the JAX package. Its ``sharding``
+(a multi-device mesh) is not ported here (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from fira_tpu_torch.robust.faults import backoff_s
 
 Batch = Dict[str, Any]
 Task = Callable[[], Batch]
@@ -93,12 +100,6 @@ def batch_to_device(host: Dict[str, np.ndarray], device: torch.device,
         else:
             out[f] = t if f == "values" else t.long()
     return out
-
-
-def backoff_s(attempt: int) -> float:
-    """The retry backoff curve (``fira_tpu/robust/faults.py``'s): linear
-    in the attempt number, capped at 50 ms."""
-    return min(0.01 * max(1, attempt), 0.05)
 
 
 class FeederTaskError(RuntimeError):
@@ -146,7 +147,7 @@ class Feeder:
     def __init__(self, tasks: Iterable[Task], *, num_workers: int = 2,
                  depth: int = 4, put: bool = True, device="cuda",
                  fields=DEVICE_FIELDS, on_error: str = "raise",
-                 retries: int = 0):
+                 retries: int = 0, faults=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if num_workers < 0:
@@ -163,6 +164,7 @@ class Feeder:
         self._depth = depth
         self._on_error = on_error
         self._retries = retries
+        self._faults = faults
         self._next = 0                 # next sequence number to emit
         self._n_stalls = 0
         self._stall_s = 0.0
@@ -246,10 +248,17 @@ class Feeder:
         while True:
             try:
                 t0 = time.perf_counter()
+                if self._faults is not None:
+                    self._faults.check("feeder.assemble", key=(seq, attempt))
                 host = task()
+                if self._faults is not None:
+                    host = self._faults.corrupt("feeder.assemble", seq, host)
                 # counted on the host before the transfer: reading it back
                 # from the device would wait for the queued steps
                 n_valid = int(host["valid"].sum())
+                if self._faults is not None:
+                    self._faults.check("feeder.device_put",
+                                       key=(seq, attempt))
                 return FedBatch(seq, host, host, n_valid, 0.0, 0,
                                 retries=attempt,
                                 task_s=time.perf_counter() - t0)

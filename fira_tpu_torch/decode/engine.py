@@ -60,9 +60,33 @@ admission, and with it the output, stays a function of the stream). The
 block allocator is refcounted and checks itself
 (:meth:`SlotEngine.allocator_invariants`).
 
+Cross-request reuse (``cfg.prefix_cache``; decode/prefix_cache.py):
+``admit`` content-addresses each valid row by a keyed blake2b digest of
+its packed payload and runs two host-side passes before any prefill. (a)
+In-flight dedup: a row byte-identical to one already admitted on this
+engine coalesces onto that seat as a follower (no seat, no blocks, no
+prefill); ``harvest`` delivers the leader's (tokens, probs) to every
+follower's own position. (b) The prefill-result cache: when every
+remaining row's artifacts are cached, the staged chunk is built from them
+on the host and copied to the device, with no prefill (``prefills_saved``).
+A chunk that does prefill fills the cache: its rows' artifacts (one beam
+lane a row) are copied to the host without blocking at admit (into pinned
+buffers on the card) and stored at the next harvest, whose done-mask read
+has already waited for those copies, so filling adds no host sync. Both
+passes are bitwise: a hit decodes from the same artifact bits as its cold
+prefill (tests/test_torch_prefix_cache.py).
+
+Degradation (robust/faults.py, robust/watchdog.py): ``faults`` (an armed
+injector) is checked at the ``engine.prefill``, ``engine.step`` and
+``engine.harvest`` sites before each piece touches the device. ``retire()``
+marks the engine dead and hands back a re-admission batch for every
+request it still owed; each piece checks ``retired`` right after its fault
+check and after its device work, so a call the watchdog abandoned (an
+injected hang sleeps before any launch) queues nothing on the card and
+touches no scheduling state once it wakes.
+
 Not ported here, each refused by its knob (``config.unsupported``): the
-prefix cache and in-flight dedup, the replicated fleet, fault injection
-and the watchdog's retirement, spec decode and the low-precision tiers.
+replicated fleet, spec decode and the low-precision tiers.
 """
 
 from __future__ import annotations
@@ -77,6 +101,7 @@ import torch
 from fira_tpu_torch.config import FiraConfig, unsupported
 from fira_tpu_torch.data.feeder import batch_to_device
 from fira_tpu_torch.decode import paging
+from fira_tpu_torch.decode import prefix_cache as prefix_cache_lib
 from fira_tpu_torch.decode.beam import (_init_beam, _select, _select_factored,
                                         step_valid_mask)
 from fira_tpu_torch.model.model import FiraModel
@@ -84,9 +109,9 @@ from fira_tpu_torch.model.model import FiraModel
 
 @dataclasses.dataclass
 class EngineStats:
-    """Dispatch and occupancy accounting of one engine. The prefix-cache,
-    dedup and spec fields keep the JAX package's keys and stay 0: those
-    paths are not ported."""
+    """Dispatch and occupancy accounting of one engine. The spec-decode
+    fields keep the JAX package's keys and stay 0: that path is not
+    ported."""
 
     slots: int
     prefills: int = 0            # prefill dispatches (chunks)
@@ -106,14 +131,19 @@ class EngineStats:
     harvest_row_reads: int = 0   # settled rows read back
     harvest_bytes_read: int = 0  # bytes those reads copied
     harvest_bytes_saved: int = 0  # against reading the whole arena
-    cache_hits: int = 0
-    cache_misses: int = 0
-    cache_evictions: int = 0
-    cache_integrity_drops: int = 0
-    prefills_saved: int = 0
-    cache_hbm_bytes_saved: int = 0
-    dedup_fanout: int = 0
-    shared_block_peak: int = 0
+    # cross-request reuse (cfg.prefix_cache; all 0 with it off)
+    cache_hits: int = 0          # seated rows served from the cache
+    cache_misses: int = 0        # seated rows that paid a prefill with
+    #                              the cache on
+    cache_evictions: int = 0     # LRU entries evicted for capacity
+    cache_integrity_drops: int = 0  # entries dropped on checksum mismatch
+    prefills_saved: int = 0      # admitted chunks that ran no prefill
+    #                              (every row a hit or coalesced)
+    cache_hbm_bytes_saved: int = 0  # artifact bytes served from the cache
+    dedup_fanout: int = 0        # requests coalesced onto an existing
+    #                              seat (delivered at its harvest)
+    shared_block_peak: int = 0   # most paged blocks at once whose seat
+    #                              serves a coalesced group
     drafted: int = 0
     accepted: int = 0
     verify_dispatches: int = 0
@@ -236,12 +266,16 @@ class SlotEngine:
 
     def __init__(self, model: FiraModel, cfg: FiraConfig, *,
                  slots: Optional[int] = None,
-                 pool_blocks: Optional[int] = None):
+                 pool_blocks: Optional[int] = None, faults=None):
         errs = unsupported(cfg)
         if errs:
             raise ValueError("config selects paths the port does not run: "
                              + "; ".join(errs))
         self.model, self.cfg = model, cfg
+        # robust.faults.FaultInjector or None; ``retired`` is set by
+        # retire(): every piece returns early on a retired engine
+        self._faults = faults
+        self.retired = False
         self.device = next(model.parameters()).device
         self.slots = int(slots or cfg.engine_slots or cfg.test_batch_size)
         if self.slots < 1:
@@ -267,6 +301,15 @@ class SlotEngine:
                     f"kv_pool_blocks {self._pool_blocks} < table width "
                     f"{self._table_width}: one full-tar sample must fit "
                     f"an empty pool or admission livelocks")
+        # the cross-request prefill cache (None = off)
+        self._cache = None
+        if cfg.prefix_cache:
+            self._cache = prefix_cache_lib.PrefixCache(
+                cfg.prefix_cache_entries, max_bytes=cfg.prefix_cache_bytes,
+                faults=faults)
+        # the torch dtype of each artifact field, from the first prefill:
+        # the cache holds numpy (bf16 as int16 bits)
+        self._artifact_dtypes: Dict[str, torch.dtype] = {}
         self.stats = EngineStats(slots=self.slots)
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self._pending_occ = torch.zeros((), dtype=torch.long,
@@ -303,6 +346,9 @@ class SlotEngine:
             out["cache_seed"] = torch.zeros((), dtype=states.dtype)
         else:
             out["states"] = states.repeat_interleave(K, dim=0)
+        if not self._artifact_dtypes:
+            self._artifact_dtypes = {f: out[f].dtype
+                                     for f in self._artifact_fields()}
         return out
 
     def _ensure_state(self, chunk) -> None:
@@ -540,8 +586,8 @@ class SlotEngine:
     # --- host scheduler ------------------------------------------------
 
     def begin_stream(self) -> None:
-        """Reset the host scheduling state for a fresh stream (the arena
-        and the stats persist)."""
+        """Reset the host scheduling state for a fresh stream (the arena,
+        the prefix cache and the stats persist)."""
         self._staged: "collections.deque[_Staged]" = collections.deque()
         self._staged_rows = 0
         self._free: "collections.deque[int]" = collections.deque(
@@ -553,6 +599,19 @@ class SlotEngine:
             range(self._pool_blocks))
         self._block_refs: Dict[int, int] = {}
         self._slot_blocks: Dict[int, List[int]] = {}
+        # in-flight dedup (cfg.prefix_cache): digest -> leader position of
+        # every admitted, unharvested row, its reverse, and leader position
+        # -> the followers coalesced onto its seat
+        self._inflight: Dict[str, int] = {}
+        self._row_digest: Dict[int, str] = {}
+        self._followers: Dict[int, List[Tuple[int, Dict, int]]] = {}
+        # positions whose seat serves a group coalesced above the engine
+        # (the serve loop keeps those followers): stamped by the loop each
+        # round, read only by the shared-block meter
+        self.shared_positions: set = set()
+        # cache fills waiting for the next harvest: (rows and digests,
+        # the rows' artifacts on their way to the host)
+        self._pending_fills: List[Tuple[List[Tuple[int, str]], Dict]] = []
 
     def _acquire_blocks(self, need: int) -> List[int]:
         """Grant ``need`` free blocks at refcount 1 (the caller checked
@@ -606,6 +665,101 @@ class SlotEngine:
                 f"!= pool ({self._pool_blocks})")
         return errs
 
+    # --- prefix-cache surface -------------------------------------------
+
+    def _artifact_fields(self) -> Tuple[str, ...]:
+        return ((prefix_cache_lib.ARTIFACT_FIELDS_KV + ("cache_seed",))
+                if self.cfg.beam_kv_cache
+                else prefix_cache_lib.ARTIFACT_FIELDS_NOKV)
+
+    def _fill_copies(self, chunk, rows: List[int]) -> Dict[str, torch.Tensor]:
+        """Start the copies to the host of ``rows``' artifacts, one beam
+        lane a row (the K lanes are equal by construction): gathered on
+        the device, then copied without blocking into pinned buffers on
+        the card (on the CPU the gather is the copy). The next harvest's
+        done-mask read waits for them on the same stream."""
+        K, dev = self.cfg.beam_size, self.device
+        r = self._index(rows)
+        lanes = r * K
+        out = {}
+        for f in self._artifact_fields():
+            t = chunk[f]
+            if f == "cache_seed":
+                g = t
+            elif f in ("cross_k", "cross_v"):
+                g = t.index_select(1, lanes)
+            elif f in ("src_proj", "states"):
+                g = t.index_select(0, lanes)
+            else:
+                g = t.index_select(0, r)
+            if dev.type == "cuda":
+                host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                host.copy_(g, non_blocking=True)
+                g = host
+            out[f] = g
+        return out
+
+    def _to_numpy(self, t: torch.Tensor) -> np.ndarray:
+        """A host tensor as numpy (bf16 as its int16 bits)."""
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
+
+    def _drain_pending_fills(self) -> None:
+        """Store the rows of every prefill that filled the cache, by
+        content digest. Runs in harvest, after its done-mask read, which
+        waited for the copies on the same stream: no sync of its own."""
+        while self._pending_fills:
+            fills, host = self._pending_fills.pop(0)
+            compact = {f: self._to_numpy(t) for f, t in host.items()}
+            entries = prefix_cache_lib.extract_payloads(
+                compact, list(range(len(fills))), 1)
+            for i, (_r, d) in enumerate(fills):
+                self.stats.cache_evictions += self._cache.put(d, entries[i])
+
+    def _chunk_from_cache(self, payloads: Dict[int, Dict], C: int
+                          ) -> Dict[str, torch.Tensor]:
+        """The staged chunk of cached rows: one lane a row built on the
+        host, copied to the device and repeated across the beam there,
+        bitwise what the prefill would have produced for those rows."""
+        K, dev = self.cfg.beam_size, self.device
+        compact = prefix_cache_lib.build_chunk(payloads, C, 1)
+        chunk = {}
+        for f, a in compact.items():
+            t = torch.from_numpy(a)
+            if dev.type == "cuda":
+                t = t.pin_memory()
+            t = t.to(dev, non_blocking=dev.type == "cuda")
+            if self._artifact_dtypes.get(f) == torch.bfloat16:
+                t = t.view(torch.bfloat16)   # from its int16 bits
+            if f in ("cross_k", "cross_v"):
+                t = t.repeat_interleave(K, dim=1)
+            elif f in ("src_proj", "states"):
+                t = t.repeat_interleave(K, dim=0)
+            chunk[f] = t
+        return chunk
+
+    def cache_contains(self, digest) -> bool:
+        """Non-mutating cache probe (the serve loop splits a batch into
+        hits and misses with it)."""
+        return self._cache is not None and self._cache.contains(digest)
+
+    def cache_put(self, digest, payload) -> None:
+        """Seed one artifact payload prefilled elsewhere: the next
+        admission of ``digest`` seats from the cache. A no-op without a
+        cache or for a pad row's (None) digest."""
+        if self._cache is not None and digest is not None:
+            self.stats.cache_evictions += self._cache.put(digest, payload)
+
+    def cache_clear(self) -> None:
+        """Drop every cached entry (so a warm pass hands a timed one no
+        hits)."""
+        if self._cache is not None:
+            self._cache.clear()
+
+    def cache_len(self) -> int:
+        return len(self._cache) if self._cache is not None else 0
+
     def wants_input(self) -> bool:
         """Prefill ahead: keep ``engine_prefill_depth`` chunks staged, and
         at least enough rows to refill every free slot."""
@@ -616,48 +770,207 @@ class SlotEngine:
     def in_flight(self) -> int:
         return len(self._busy)
 
+    def in_flight_positions(self) -> List[int]:
+        """Split positions seated in slots (the serve loop stamps seat
+        times from these)."""
+        return [pid for (pid, _host, _row) in self._busy.values()]
+
+    @property
+    def staged_rows(self) -> int:
+        """Admitted (prefilled) rows not yet seated in a slot."""
+        return self._staged_rows
+
+    def pending_positions(self) -> List[int]:
+        """Every admitted, unfinished request: seated, staged, or
+        coalesced onto a seat as a follower; what a retirement owes."""
+        pos = [pid for (pid, _host, _row) in self._busy.values()]
+        pos += [pid for e in self._staged for (_r, pid) in e.rows]
+        pos += [fpos for fl in self._followers.values()
+                for (fpos, _h, _r) in fl]
+        return pos
+
+    def retire(self) -> List[Dict]:
+        """Mark this engine dead and hand back a re-admission batch for
+        every request it still owed: one host batch a partly served chunk,
+        ``valid`` restricted to the owed rows and their split positions in
+        ``_positions`` (followers from their own host batches). Scheduling
+        state clears, every block grant is released through the refcounted
+        path; the arena and the stats stay."""
+        self.retired = True   # first: an abandoned call stops when it wakes
+        groups: Dict[int, List] = {}
+        hosts: Dict[int, Dict] = {}
+        for _slot, (pid, host, r) in sorted(self._busy.items()):
+            hosts[id(host)] = host
+            groups.setdefault(id(host), []).append((r, pid))
+        for entry in self._staged:
+            hosts[id(entry.host)] = entry.host
+            groups.setdefault(id(entry.host), []).extend(entry.rows)
+        for _leader, fl in sorted(self._followers.items()):
+            for fpos, fhost, frow in fl:
+                hosts[id(fhost)] = fhost
+                groups.setdefault(id(fhost), []).append((frow, fpos))
+        payloads: List[Dict] = []
+        for hid, rows in groups.items():
+            host = hosts[hid]
+            requeued = dict(host)
+            valid = np.zeros_like(np.asarray(host["valid"]))
+            positions = np.full(valid.shape[0], -1, dtype=np.int64)
+            for r, pid in rows:
+                valid[r] = True
+                positions[r] = pid
+            requeued["valid"] = valid
+            requeued["_positions"] = positions
+            payloads.append(requeued)
+        # a canonical order: by the smallest owed position
+        payloads.sort(
+            key=lambda b: int(b["_positions"][b["_positions"] >= 0].min()))
+        self._busy.clear()
+        self._staged.clear()
+        self._staged_rows = 0
+        self._free = collections.deque(range(self.slots))
+        for slot in list(self._slot_blocks):
+            self._release_blocks(self._slot_blocks.pop(slot))
+        self._inflight.clear()
+        self._row_digest.clear()
+        self._followers.clear()
+        self._pending_fills.clear()   # a dead engine fills no cache
+        return payloads
+
     @torch.inference_mode()
     def admit(self, host: Dict, index: int, device_batch=None) -> None:
         """Prefill one packed batch and stage its real rows. ``host``:
         the host batch (``_positions`` gives each row's split position;
         without it row r of batch ``index`` is index * C + r);
         ``device_batch``: its fields already on the device (the Feeder's),
-        else they are copied here."""
+        else they are copied here.
+
+        With ``cfg.prefix_cache`` two host passes run first: rows
+        byte-identical to a request in flight coalesce onto its seat, and
+        a chunk whose other rows are all cached seats from the cache with
+        no prefill. The dedup and cache maps change only once staging has
+        succeeded, so a prefill that raises (or that the watchdog
+        abandons) leaves no orphaned follower or in-flight digest."""
+        if self._faults is not None:
+            self._faults.check("engine.prefill")
+        if self.retired:
+            return
         positions = host.get("_positions")
         valid = host["valid"]
         C = valid.shape[0]
-        rows = [(r, int(positions[r]) if positions is not None
-                 else index * C + r) for r in range(C) if valid[r]]
-        if not rows:
+        row_ids = [(r, int(positions[r]) if positions is not None
+                    else index * C + r) for r in range(C) if valid[r]]
+        digests = None
+        if self._cache is not None and row_ids:
+            digests = host.get("_digests")   # stamped on a feeder worker
+            if digests is None:
+                digests = prefix_cache_lib.payload_digests(
+                    host, prefix_cache_lib.tier_namespace(self.cfg))
+        # pass 1, in-flight dedup (reads only; the maps commit below)
+        followers: List[Tuple[int, int, int]] = []   # (leader, pos, row)
+        seat_rows: List[Tuple[int, int]] = []
+        if digests is not None:
+            batch_leaders: Dict[str, int] = {}
+            for r, pos_id in row_ids:
+                d = digests[r]
+                leader = None
+                if d is not None:
+                    leader = self._inflight.get(d)
+                    if leader is None:
+                        leader = batch_leaders.get(d)
+                if leader is not None:
+                    followers.append((leader, pos_id, r))
+                else:
+                    if d is not None:
+                        batch_leaders[d] = pos_id
+                    seat_rows.append((r, pos_id))
+        else:
+            seat_rows = row_ids
+
+        # pass 2, the prefill-result cache: a chunk whose rows are all
+        # cached is built from them, with no prefill
+        chunk = None
+        payloads: Dict[int, Dict] = {}
+        pending_fill = None
+        st = self.stats
+        if seat_rows and self._cache is not None and all(
+                self._cache.contains(digests[r]) for r, _p in seat_rows):
+            for r, _pos in seat_rows:
+                payload, outcome = self._cache.take(digests[r])
+                if outcome == "integrity_drop":
+                    st.cache_integrity_drops += 1
+                if payload is None:   # a fault miss or a dropped entry:
+                    payloads.clear()  # the whole chunk prefills (a cache
+                    break             # fault is a miss, never a wrong
+                #                       answer)
+                payloads[r] = payload
+        if seat_rows and len(payloads) == len(seat_rows) and payloads:
+            st.cache_hits += len(payloads)
+            st.cache_hbm_bytes_saved += sum(
+                prefix_cache_lib.payload_nbytes(p) for p in payloads.values())
+            st.prefills_saved += 1
+            chunk = self._chunk_from_cache(payloads, C)
+            self._ensure_state(chunk)
+        elif seat_rows:
+            if device_batch is None:
+                device_batch = batch_to_device(host, self.device)
+            chunk = self._prefill(device_batch)
+            if self.retired:
+                # the watchdog expired during the prefill and the engine
+                # was retired: its requests were handed back already
+                return
+            self._ensure_state(chunk)
+            st.prefills += 1
+            if self._cache is not None:
+                st.cache_misses += len(seat_rows)
+                fills = [(r, digests[r]) for r, _pos in seat_rows
+                         if digests[r] is not None]
+                if fills:
+                    pending_fill = (fills, self._fill_copies(
+                        chunk, [r for r, _d in fills]))
+
+        # commit, on a live engine only
+        if self.retired:
             return
-        if device_batch is None:
-            device_batch = batch_to_device(host, self.device)
-        chunk = self._prefill(device_batch)
-        self._ensure_state(chunk)
-        self.stats.prefills += 1
+        if pending_fill is not None:
+            self._pending_fills.append(pending_fill)
+        if followers:
+            for leader, pos_id, r in followers:
+                self._followers.setdefault(leader, []).append(
+                    (pos_id, host, r))
+            st.dedup_fanout += len(followers)
+            if not seat_rows:
+                st.prefills_saved += 1   # the whole chunk coalesced
+        if not seat_rows:
+            return
+        if digests is not None:
+            for r, pos_id in seat_rows:
+                if digests[r] is not None:
+                    self._inflight[digests[r]] = pos_id
+                    self._row_digest[pos_id] = digests[r]
         # the chunk's tar budget is its bucket's, visible in the packed
         # msg width, under decode_tar_buckets; else the full tar_len
         limit = (int(host["msg"].shape[1]) if self.cfg.decode_tar_buckets
                  else self.cfg.tar_len)
         self._staged.append(_Staged(chunk=chunk, host=host,
-                                    rows=collections.deque(rows),
+                                    rows=collections.deque(seat_rows),
                                     limit=limit))
-        self._staged_rows += len(rows)
+        self._staged_rows += len(seat_rows)
 
     @torch.inference_mode()
     def refill(self, refill_order: str = "fifo") -> None:
         """Seat staged rows in every free slot, one insert a staged chunk
         touched. Paged: each seated row is granted ceil(limit / block)
         blocks; when the pool cannot cover the head row's reservation the
-        refill stops there until harvests return blocks (head-of-line)."""
-        while self._free and self._staged:
+        refill stops there until harvests return blocks (head-of-line).
+        A retired engine seats nothing, checked at every loop boundary."""
+        while not self.retired and self._free and self._staged:
             entry = self._staged[0]
             need = (paging.blocks_per_seq(entry.limit, self._block_size)
                     if self._paged else 0)
             if self._paged and len(self._free_blocks) < need:
                 break
             rows, slots, grants = [], [], []
-            while self._free and entry.rows and (
+            while not self.retired and self._free and entry.rows and (
                     not self._paged or len(self._free_blocks) >= need):
                 r, pos_id = entry.rows.popleft()
                 slot = (self._free.popleft() if refill_order == "fifo"
@@ -670,8 +983,12 @@ class SlotEngine:
                 self._busy[slot] = (pos_id, entry.host, r)
                 rows.append(r)
                 slots.append(slot)
+            if self.retired:
+                return
             self._insert(entry.chunk, rows, slots, entry.limit,
                          np.asarray(grants) if self._paged else None)
+            if self.retired:
+                return
             self.stats.refills += 1
             self.stats.slots_refilled += len(rows)
             self._staged_rows -= len(rows)
@@ -682,7 +999,14 @@ class SlotEngine:
     def step_dispatch(self) -> None:
         """Queue one step dispatch (R micro-steps); nothing is read
         back."""
-        self._pending_occ = self._step()
+        if self._faults is not None:
+            self._faults.check("engine.step")
+        if self.retired:
+            return
+        occ = self._step()
+        if self.retired:
+            return   # abandoned by the watchdog: the loop owns the stats
+        self._pending_occ = occ
         st = self.stats
         st.steps += max(1, int(self.cfg.engine_harvest_every))
         st.step_dispatches += 1
@@ -695,23 +1019,46 @@ class SlotEngine:
             used = self._pool_blocks - len(self._free_blocks)
             st.block_steps += used
             st.peak_blocks = max(st.peak_blocks, used)
+            if self._followers or self.shared_positions:
+                # blocks whose seat serves a coalesced group: one grant,
+                # the decode of every request in it
+                fan = self.shared_positions
+                shared = sum(
+                    len(self._slot_blocks.get(s, ()))
+                    for s, (pid, _h, _r) in self._busy.items()
+                    if pid in self._followers or pid in fan)
+                st.shared_block_peak = max(st.shared_block_peak, shared)
 
     @torch.inference_mode()
     def harvest(self) -> List[EngineItem]:
         """Read the last dispatch's done mask and occupancy (one host
-        sync), then the settled slots' rows (one more, when any settled);
-        free their slots and blocks and return their samples."""
+        sync), store the pending cache fills, then read the settled slots'
+        rows (one more sync, when any settled); free their slots and
+        blocks and return their samples, each leader's followers
+        included."""
+        if self._faults is not None:
+            self._faults.check("engine.harvest")
+        if self.retired:
+            return []
         st, stats = self._state, self.stats
         flags = torch.cat([st["done"].long(),
                            self._pending_occ.reshape(1).long()]).cpu()
+        if self.retired:
+            return []
         stats.host_syncs += 1
         stats.occupied_slot_steps += int(flags[-1])
+        if self._pending_fills:
+            # stored before any dedup entry is popped below: a digest
+            # leaves _inflight only once its cache entry exists
+            self._drain_pending_fills()
         done = flags[:-1].numpy()
         newly = [s for s in self._busy if done[s]]
         items: List[EngineItem] = []
         if not newly:
             return items
         toks, probs = self._read_rows(newly)
+        if self.retired:
+            return []   # abandoned mid-read: retire() requeued them all
         K, T = self.cfg.beam_size, self.cfg.tar_len
         row_bytes = (K * T + K) * 8   # the f64 rows harvest copies
         for i, s in enumerate(newly):
@@ -722,6 +1069,16 @@ class SlotEngine:
             stats.harvest_row_reads += 1
             items.append(EngineItem(position=pos_id, host=host, row=r,
                                     tokens=toks[i], probs=probs[i]))
+            # fan-out: every follower coalesced onto this seat gets the
+            # leader's beams at its own position (same digest, same
+            # payload bytes, so the same decode)
+            d = self._row_digest.pop(pos_id, None)
+            if d is not None:
+                self._inflight.pop(d, None)
+            for fpos, fhost, frow in self._followers.pop(pos_id, ()):
+                stats.commits += 1
+                items.append(EngineItem(position=fpos, host=fhost, row=frow,
+                                        tokens=toks[i], probs=probs[i]))
         stats.harvest_bytes_read += row_bytes * len(newly)
         stats.harvest_bytes_saved += row_bytes * (self.slots - len(newly))
         return items

@@ -129,10 +129,9 @@ def paging_errors(cfg: FiraConfig) -> List[str]:
 
 
 def prefix_cache_errors(cfg: FiraConfig) -> List[str]:
-    """Parse-time prefix-cache knob checks (the JAX package's words). The
-    port has no prefix cache yet: ``config.unsupported`` refuses
-    ``prefix_cache=True`` and adds these messages to say what else the
-    knob would need."""
+    """Parse-time prefix-cache knob checks (the JAX package's words;
+    ``config.unsupported`` runs them): the cache needs the engine, at
+    least one entry, and a byte budget >= 0."""
     if not cfg.prefix_cache:
         return []
     errs: List[str] = []

@@ -16,6 +16,10 @@ Two decode paths, in the model's compute dtype, per sample bitwise equal:
   call a batch;
 - under ``cfg.decode_engine`` the slot-refill engine (decode/engine.py),
   which prefills the same batches and yields each sample as it settles.
+  The fault injector of ``cfg.inject_faults`` (robust/faults.py) goes to
+  the engine and to its Feeder, whose retry budget is
+  ``cfg.robust_retries``: transient assembly faults are absorbed, and a
+  fault nothing absorbs fails loudly, naming the sample.
 
 Tokens come back to the host to be cooked into text, and lines stream to
 disk in split order through the ordered writer (decode/stream.py), each
@@ -41,6 +45,7 @@ from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
 from fira_tpu_torch.model.model import FiraModel
+from fira_tpu_torch.robust.faults import injector_from
 
 def output_name(ablation: Optional[str]) -> str:
     """OUTPUT file naming per paper ablation (BASELINE.md rows)."""
@@ -82,14 +87,18 @@ def run_test(model: FiraModel, dataset: FiraDataset,
              var_maps: Optional[List[Dict[str, str]]] = None,
              split: str = "test",
              engine_slots: Optional[int] = None,
-             refill_order: str = "fifo") -> Dict[str, float]:
+             refill_order: str = "fifo", faults=None) -> Dict[str, float]:
     """Decode ``split`` on the model's device, in the model's compute
     dtype, with the batched beam ``cfg`` selects or, under
     ``cfg.decode_engine``, the slot engine (``engine_slots`` slots,
     default the config's; ``refill_order`` "fifo" or "lifo"). Returns mean
     sentence BLEU, the sample count and the path, and with the engine its
-    ``stats.summary()`` under "engine"."""
+    ``stats.summary()`` under "engine". ``faults``: an armed
+    ``robust.faults.FaultInjector`` (None resolves from
+    ``cfg.inject_faults``; "" keeps it off)."""
     cfg = cfg or dataset.cfg
+    if faults is None:
+        faults = injector_from(cfg)
     device = next(model.parameters()).device
     data = dataset.splits[split]
     vocab = dataset.word_vocab
@@ -105,16 +114,19 @@ def run_test(model: FiraModel, dataset: FiraDataset,
         data, plan, cfg, batch_size=cfg.test_batch_size)
     eng = None
     if cfg.decode_engine:
-        eng = engine_lib.SlotEngine(model, cfg, slots=engine_slots)
+        eng = engine_lib.SlotEngine(model, cfg, slots=engine_slots,
+                                    faults=faults)
         # one all-pad batch a geometry of the plan: the kernels' build and
         # first launch, outside the decode
         geoms = list(dict.fromkeys(g for _, g in plan))
         eng.prewarm(make_batch(data, np.arange(0), cfg,
                                batch_size=cfg.test_batch_size, geom=g)
                     for g in geoms)
+    robust = (dict(retries=max(0, cfg.robust_retries), faults=faults)
+              if eng is not None else {})
     with OrderedStreamWriter(out_path, expected=n_total) as writer, \
             Feeder(tasks, num_workers=cfg.feeder_workers,
-                   depth=cfg.feeder_depth, device=device) as feed:
+                   depth=cfg.feeder_depth, device=device, **robust) as feed:
         emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
                               bleu_by_pos=bleu_by_pos, n_total=n_total,
                               var_maps=var_maps, indices=indices)

@@ -295,12 +295,18 @@ class Attention(PostLN):
         offset decode goes through the cache path). K and V may be in the
         stable dtype (the decode caches); the logits, the mask fill and the
         softmax run in the stable dtype, as the JAX package's numpy-float64
-        ``1/sqrt(d_head)`` promotes them there."""
+        ``1/sqrt(d_head)`` promotes them there. The logits' product runs
+        there too, from bf16 operands, unrounded: XLA keeps a bf16 product
+        that is promoted right after in f32 (its default excess
+        precision), and rounding it would make the cached decode (K in a
+        cache of the stable dtype) and the full prefix (K in bf16) see
+        different logits."""
         B, q_len = query.shape[0], query.shape[1]
         d_head = self.d_model // self.num_heads
         q = self._split_heads(self.q_proj(query))
-        weight = matmul(q, k.transpose(-1, -2))
-        weight = weight.to(stable_dtype(weight.dtype)) / math.sqrt(d_head)
+        sd = stable_dtype(q.dtype)
+        weight = matmul(q.to(sd), k.to(sd).transpose(-1, -2)) / math.sqrt(
+            d_head)
         if mask.dim() < 4:
             mask = mask[:, None, None, :]
         weight = weight.masked_fill(mask == 0, NEG_INF)

@@ -1,0 +1,1252 @@
+"""Arrival-timed serving loop over the slot engine (counterpart of
+``fira_tpu/serve/server.py``).
+
+The drain decode (decode/runner.py) hands the engine a pre-packed corpus
+stream and measures commits/s. This module is the long-lived server under
+open-loop load: requests arrive over time (serve/arrivals.py), the
+scheduler refills slots from live arrivals, and the numbers that matter
+are p50/p99 time to first token (TTFT) and end-to-end latency against the
+offered rate.
+
+One scheduler round:
+
+1. **poll arrivals**: every request whose arrival time has passed moves
+   into the admission queue (bounded by ``cfg.serve_queue_cap``; an
+   arrival that finds it full is shed on the spot, recorded). Payloads are
+   assembled ahead of time by the Feeder (one single-row ``make_batch``
+   task a request, split order), so admission never waits on assembly.
+   With ``cfg.prefix_cache``, an arrival byte-identical to a request in
+   flight (the same worker-stamped digest, decode/prefix_cache.py)
+   coalesces onto that leader instead of taking a queue slot: one decode,
+   N output positions, each request keeping its own stamps. A shed
+   follower detaches without killing the leader; a shed leader hands its
+   group to the oldest surviving follower.
+2. **shed deadlines**: queued requests older than
+   ``cfg.serve_deadline_steps`` step dispatches are shed (seated requests
+   always run to harvest; a late completion is flagged, not killed).
+3. **admit**: up to ``cfg.serve_prefill_budget`` prefill dispatches: the
+   head request's bucket is flushed into one packed batch (up to
+   ``test_batch_size`` same-bucket requests in arrival order, padded with
+   invalid rows) and prefilled. Each prefill stalls the seated slots' next
+   step, so a small budget bounds the stall a new admission costs them.
+4. **refill / step / harvest**: the engine's own pieces; harvested samples
+   are cooked and written through the position-keyed ordered writer.
+
+Equivalence (tests/test_torch_serve.py): on a replayed trace with nothing
+shed, the output file's bytes equal the drain decode's (every op of the
+beam is row-wise, and the writer keys by split position), and under the
+virtual clock the request records equal the JAX package's field for field.
+
+Degradation (robust/): an assembly, admission or prefill fault is retried
+``cfg.robust_retries`` times and then sheds its requests with the error
+recorded; a step or harvest that raises, or any dispatch that outlives
+``cfg.dispatch_watchdog_s``, retires the engine. With one engine that
+sheds everything still owed, with the reason recorded, as the JAX package
+does when every replica is lost. The output file stays position-complete
+(a shed request writes an empty line), and ``serve_metrics.json`` is kept
+through the run as an atomic ``.partial`` snapshot.
+
+Clocks: ``wall`` (arrivals paced in real time, idle waits sleep) or
+``virtual`` (time advances a fixed cost a prefill or step dispatch and
+jumps idle gaps). Both observe latencies only at dispatch and harvest
+boundaries, which is what the host can see.
+
+Not ported here: the replicated fleet, respawn and the request journal
+behind ``--resume`` (ROADMAP A.8c), raw-diff requests (A.8b) and the
+disaggregated prefill tier (A.9). ``ServeStats`` keeps their JAX keys, at
+their idle values.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from fira_tpu_torch.config import FiraConfig
+from fira_tpu_torch.data import buckets as buckets_lib
+from fira_tpu_torch.data.dataset import FiraDataset
+from fira_tpu_torch.data.feeder import Feeder
+from fira_tpu_torch.decode import paging
+from fira_tpu_torch.decode.engine import SlotEngine
+from fira_tpu_torch.decode.runner import output_name, sample_emitter
+from fira_tpu_torch.decode.stream import OrderedStreamWriter
+from fira_tpu_torch.model.model import FiraModel
+from fira_tpu_torch.robust import faults as faults_lib
+from fira_tpu_torch.robust.watchdog import WatchdogTimeout, run_with_watchdog
+
+# the partial metrics snapshot refreshes every this many rounds (and once
+# at the start and once on an abort), so a kill leaves a recent, valid one
+SNAPSHOT_EVERY_ROUNDS = 16
+
+# with the cache serving hits, a partial miss group waits (back at the
+# queue head) until it fills, its head has waited this many step rounds,
+# or the engine would otherwise idle: misses pack into fuller prefill
+# batches. Cache off: never holds
+MISS_HOLD_ROUNDS = 16
+
+# the one engine's name in the retirement and heartbeat records (the JAX
+# fleet's replica tag r<i>)
+ENGINE_TAG = "r0"
+
+
+def serve_errors(cfg: FiraConfig, *, trace: bool = False) -> List[str]:
+    """Named-knob serving checks (CLI exit 2), in the JAX package's words.
+    ``trace``: an arrival-trace file was given (the rate is then unused)."""
+    errs: List[str] = []
+    if cfg.serve_rate < 0:
+        errs.append(f"serve_rate {cfg.serve_rate} must be >= 0 requests/s")
+    elif not trace and cfg.serve_rate == 0:
+        errs.append(
+            "serve_rate must be > 0 requests/s when no arrival trace is "
+            "given (the open-loop Poisson generator needs an offered rate)")
+    slots, _reps = paging.resolved_slots(cfg)
+    if not 1 <= cfg.serve_prefill_budget <= slots:
+        errs.append(
+            f"serve_prefill_budget {cfg.serve_prefill_budget} must be >= 1 "
+            f"and <= the per-replica engine slots ({slots}): it caps "
+            f"prefill dispatches interleaved between step dispatches, and "
+            f"a budget past the slot count can never seat more rows")
+    if cfg.serve_deadline_steps < 0:
+        errs.append(
+            f"serve_deadline_steps {cfg.serve_deadline_steps} must be 0 "
+            f"(no deadline) or >= 1: a request cannot complete in less "
+            f"than one step dispatch")
+    if cfg.serve_queue_cap < 0:
+        errs.append(
+            f"serve_queue_cap {cfg.serve_queue_cap} must be 0 (unbounded) "
+            f"or >= 1 queued request")
+    return errs
+
+
+# --------------------------------------------------------------------------
+# clocks
+# --------------------------------------------------------------------------
+
+class VirtualClock:
+    """Deterministic replay clock: one second a prefill or step dispatch,
+    idle gaps jumped. A replayed trace's schedule, and with it its
+    latency records, is a function of the trace and the knobs."""
+
+    def __init__(self):
+        self._now = 0.0
+
+    def now(self) -> float:
+        return self._now
+
+    def advance_to(self, t: float) -> None:
+        self._now = max(self._now, float(t))
+
+    def on_prefill(self) -> None:
+        self._now += 1.0
+
+    def on_step(self) -> None:
+        self._now += 1.0
+
+
+class WallClock:
+    """Real time: arrivals are paced against the monotonic clock and an
+    idle server sleeps until the next arrival (open loop: the generator
+    never waits for the server)."""
+
+    def __init__(self):
+        self._t0 = time.perf_counter()
+
+    def now(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def advance_to(self, t: float) -> None:
+        dt = float(t) - self.now()
+        if dt > 0:
+            time.sleep(dt)
+
+    def on_prefill(self) -> None:
+        pass
+
+    def on_step(self) -> None:
+        pass
+
+
+# --------------------------------------------------------------------------
+# per-request metering
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RequestRecord:
+    """One request's lifecycle stamps (clock units: wall seconds or
+    virtual units), each observed at a dispatch or harvest boundary. The
+    JAX package's fields; the raw-diff and prefill-tier stamps stay None
+    here (ROADMAP A.8b, A.9)."""
+
+    position: int            # split-local sample position
+    arrival_t: float         # scheduled (open-loop) arrival time
+    status: str = "pending"  # queued|staged|seated|done|shed_queue_full|
+                             # shed_deadline|shed_error
+    arrival_round: int = -1  # step-dispatch counter at arrival
+    admit_t: float = math.nan       # prefill dispatched (chunk staged)
+    seat_t: float = math.nan        # inserted into a slot
+    first_step_t: float = math.nan  # end of its first step dispatch's
+                                    # harvest: the TTFT stamp
+    done_t: float = math.nan        # harvested (all beams settled)
+    done_round: int = -1
+    deadline_missed: bool = False   # completed, but past its deadline
+    error: Optional[str] = None     # the recorded failure (shed_error)
+    retries: int = 0                # assembly/admission/prefill retries
+    requeues: int = 0               # times handed back by a retirement
+    coalesced_into: Optional[int] = None  # the leader it was delivered
+    #                                       with (in-flight dedup)
+    ingest: Optional[Dict] = None
+    prefill_queue_s: Optional[float] = None
+    transport_s: Optional[float] = None
+    artifact_bytes: Optional[int] = None
+
+    @property
+    def queue_wait_s(self) -> float:
+        return self.seat_t - self.arrival_t
+
+    @property
+    def ttft_s(self) -> float:
+        return self.first_step_t - self.arrival_t
+
+    @property
+    def e2e_s(self) -> float:
+        return self.done_t - self.arrival_t
+
+
+def _pct(values: List[float], q: float) -> Optional[float]:
+    return round(float(np.percentile(np.asarray(values), q)), 6) \
+        if values else None
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Aggregate serving accounting: the request records and the
+    scheduler's counters, with the JAX package's fields. The recovery
+    fields (respawns, admission pauses, resumed positions) stay at their
+    idle values: respawn and resume are ROADMAP A.8c."""
+
+    records: List[RequestRecord]
+    completions: List[int] = dataclasses.field(default_factory=list)
+    rounds: int = 0
+    admits: int = 0                 # prefill batches formed from arrivals
+    max_admits_per_round: int = 0   # <= serve_prefill_budget
+    peak_queue_depth: int = 0
+    shed_queue_full: int = 0
+    shed_deadline: int = 0
+    shed_error: int = 0
+    retirements: List[Dict] = dataclasses.field(default_factory=list)
+    requeues: int = 0
+    # one entry a change in the live-engine set, and the engine's last
+    # dispatch round and rounds (recorded unconditionally, as in JAX)
+    replicas_alive_over_time: List[Dict] = dataclasses.field(
+        default_factory=list)
+    respawns: List[Dict] = dataclasses.field(default_factory=list)
+    heartbeats: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+    admission_paused_rounds: int = 0
+    resumed: int = 0
+    # in-flight dedup: requests coalesced onto a leader, groups delivered,
+    # the largest group (leader + followers)
+    dedup_coalesced: int = 0
+    dedup_groups: int = 0
+    dedup_fanout_max: int = 0
+    # seconds the scheduler waited at arrival for a payload still on the
+    # Feeder's workers, and the loop's real elapsed seconds
+    assembly_stall_s: float = 0.0
+    wall_s: float = 0.0
+    # meters of raw-diff ingest and the prefill tier (None: not ported)
+    ingest_cache: Optional[object] = None
+    ingest_pipeline: Optional[tuple] = None
+    tiers: Optional[object] = None
+
+    def summary(self) -> Dict:
+        done = [r for r in self.records if r.status == "done"]
+        ttft = [r.ttft_s for r in done if not math.isnan(r.first_step_t)]
+        e2e = [r.e2e_s for r in done]
+        qw = [r.queue_wait_s for r in done]
+        last_done = max((r.done_t for r in done), default=0.0)
+        last_arr = max((r.arrival_t for r in self.records), default=0.0)
+        n = len(self.records)
+        return {
+            "offered": n,
+            "completed": len(done),
+            "completion_order": list(self.completions),
+            "shed_queue_full": self.shed_queue_full,
+            "shed_deadline": self.shed_deadline,
+            "shed_error": self.shed_error,
+            "replica_retirements": len(self.retirements),
+            "retired_replicas": [r["replica"] for r in self.retirements],
+            "requeued_requests": self.requeues,
+            "respawns": len(self.respawns),
+            "respawned_replicas": [r["replica"] for r in self.respawns],
+            "spare_attaches": sum(1 for r in self.respawns if r["spare"]),
+            "replicas_alive_over_time": list(self.replicas_alive_over_time),
+            "heartbeats": {t: dict(h)
+                           for t, h in sorted(self.heartbeats.items())},
+            "admission_paused_rounds": self.admission_paused_rounds,
+            "resumed": self.resumed,
+            "request_retries": sum(r.retries for r in self.records),
+            "deadline_missed": sum(r.deadline_missed for r in done),
+            "dedup_coalesced": self.dedup_coalesced,
+            "dedup_groups": self.dedup_groups,
+            "dedup_fanout_max": self.dedup_fanout_max,
+            "rounds": self.rounds,
+            "admits": self.admits,
+            "max_admits_per_round": self.max_admits_per_round,
+            "peak_queue_depth": self.peak_queue_depth,
+            "offered_rate_rps": round(n / last_arr, 4) if last_arr else None,
+            "makespan_s": round(last_done, 6),
+            "throughput_rps": round(len(done) / last_done, 4)
+            if last_done else None,
+            "p50_ttft_s": _pct(ttft, 50), "p99_ttft_s": _pct(ttft, 99),
+            "p50_e2e_s": _pct(e2e, 50), "p99_e2e_s": _pct(e2e, 99),
+            "mean_e2e_s": round(float(np.mean(e2e)), 6) if e2e else None,
+            "p50_queue_wait_s": _pct(qw, 50), "p99_queue_wait_s": _pct(qw, 99),
+            **self._ingest_summary(),
+            **({"tiers": dict(self.tiers()
+                              if callable(self.tiers) else self.tiers)}
+               if self.tiers is not None else {}),
+        }
+
+    def _ingest_summary(self) -> Dict:
+        """The raw-diff ingest aggregates, present only when a request ran
+        ingest (``RequestRecord.ingest``): none does until raw-diff
+        serving comes (ROADMAP A.8b), so the summary's keys are the JAX
+        package's for graph requests."""
+        ing = [r.ingest for r in self.records if r.ingest]
+        if not ing:
+            return {}
+        stage = {s: [i[s] for i in ing if s in i]
+                 for s in ("lex_s", "parse_s", "assemble_s")}
+        totals = [sum(i.get(s, 0.0) for s in
+                      ("lex_s", "parse_s", "assemble_s")) for i in ing]
+        out = {"requests_ingested": len(ing),
+               "truncated": sum(1 for i in ing if i.get("truncated")),
+               "degraded": sum(1 for i in ing if i.get("degraded")),
+               "oov_word_fallbacks": sum(int(i.get("oov_words", 0))
+                                         for i in ing),
+               "oov_ast_fallbacks": sum(int(i.get("oov_ast", 0))
+                                        for i in ing),
+               "cache_hits": sum(1 for i in ing if i.get("cached")),
+               "memo_hits": sum(int(i.get("memo_hits", 0)) for i in ing),
+               "memo_misses": sum(int(i.get("memo_misses", 0))
+                                  for i in ing)}
+        if self.ingest_cache is not None:
+            out["cache"] = dict(self.ingest_cache()
+                                if callable(self.ingest_cache)
+                                else self.ingest_cache)
+        if self.ingest_pipeline is not None:
+            out["workers"], out["pipeline_depth"] = self.ingest_pipeline
+        for s, vals in stage.items():
+            out[f"mean_{s}"] = (round(float(np.mean(vals)), 9)
+                                if vals else None)
+        out["p50_total_s"] = _pct(totals, 50)
+        out["p99_total_s"] = _pct(totals, 99)
+        # the scheduler's wait for payloads at arrival, and its share of
+        # the run's real wall time
+        out["stall_s"] = round(self.assembly_stall_s, 6)
+        out["stall_frac"] = (round(self.assembly_stall_s / self.wall_s, 4)
+                             if self.wall_s else None)
+        return {"ingest": out}
+
+
+@dataclasses.dataclass
+class _Queued:
+    record: RequestRecord
+    host: Dict      # the request's single-row assembled batch
+    bucket: int     # decode-table index (0 when unbucketed)
+    digest: Optional[str] = None  # content digest (cfg.prefix_cache)
+
+
+# --------------------------------------------------------------------------
+# the serving loop
+# --------------------------------------------------------------------------
+
+class ServeLoop:
+    """Drives the engine under arrival-timed admission. ``emit`` / ``shed``
+    are callbacks into the output layer (serve_split wires them to the
+    ordered writer). ``engines`` is a list of one: the JAX loop's
+    round-robin over replicas, kept so a retirement empties it."""
+
+    def __init__(self, engines: Sequence[SlotEngine], cfg: FiraConfig, *,
+                 arrival_times: np.ndarray, feed, table, assignment,
+                 templates: Dict[int, Dict], clock, emit, shed,
+                 faults=None, snapshot=None):
+        self.engines = list(engines)
+        self.cfg = cfg
+        self.clock = clock
+        self.emit = emit
+        self.shed_cb = shed
+        self._table = table
+        self._assignment = assignment
+        self._templates = templates
+        self._bs = int(cfg.test_batch_size)
+        self._budget = max(1, int(cfg.serve_prefill_budget))
+        self._deadline = max(0, int(cfg.serve_deadline_steps))
+        self._cap = max(0, int(cfg.serve_queue_cap))
+        # degradation: the poison-request retry budget, the per-dispatch
+        # watchdog (0 = off), the armed injector (None = off) and the
+        # partial-metrics snapshot hook
+        self._retries = max(0, int(cfg.robust_retries))
+        self._watchdog = float(cfg.dispatch_watchdog_s)
+        self._faults = faults
+        self._snapshot = snapshot
+        self._times = np.asarray(arrival_times, dtype=np.float64)
+        self._feed_iter = iter(feed)
+        self._arr_idx = 0
+        self._queue: "collections.deque[_Queued]" = collections.deque()
+        # in-flight dedup (cfg.prefix_cache): digest -> leader position of
+        # every non-final queued request, its reverse, leader -> coalesced
+        # followers, and followers promoted when their leader shed
+        self._dedup_on = bool(cfg.prefix_cache)
+        self._leaders: Dict[str, int] = {}
+        self._leader_digest: Dict[int, str] = {}
+        self._followers: Dict[int, List[_Queued]] = {}
+        self._promoted: List[_Queued] = []
+        # single-row payloads of every taken, unfinished request, by
+        # position: what a retirement hands back to the queue
+        self._payloads: Dict[int, _Queued] = {}
+        self._awaiting_first_step: List[RequestRecord] = []
+        self._final = 0
+        self.stats = ServeStats(records=[
+            RequestRecord(position=i, arrival_t=float(t))
+            for i, t in enumerate(self._times)])
+        self._rec_by_pos: Dict[int, RequestRecord] = {
+            r.position: r for r in self.stats.records}
+        self._alive_changed()
+
+    # --- pieces ---------------------------------------------------------
+
+    def _bucket_of(self, i: int) -> int:
+        """A request's decode bucket (0 when unbucketed)."""
+        if self._assignment is not None:
+            return int(self._assignment[i])
+        return 0
+
+    def _poll_arrivals(self, now: float) -> None:
+        """Move every due request into the admission queue. An arrival is
+        shed on the spot when the queue is full, when its payload arrived
+        poisoned (assembly failed after the Feeder's retries: recorded,
+        never re-raised), or when the serve.admit fault site rejects it
+        past the retry budget."""
+        while self._arr_idx < len(self._times) \
+                and self._times[self._arr_idx] <= now:
+            item = next(self._feed_iter)   # pre-assembled, split order
+            i = self._arr_idx
+            rec = self.stats.records[i]
+            rec.arrival_round = self.stats.rounds
+            rec.retries += int(item.retries)
+            self.stats.assembly_stall_s += float(item.stall_s)
+            digest = None
+            if self._dedup_on and item.host is not None:
+                dl = item.host.get("_digests")
+                digest = dl[0] if dl else None
+            if item.error is not None:
+                # poison-request quarantine: shed with the error recorded;
+                # its output position holds an empty line
+                rec.error = str(item.error)
+                self._shed(rec, "shed_error")
+            elif digest is not None and digest in self._leaders:
+                # in-flight dedup: coalesce onto the leader's seat. The
+                # follower takes no seat, but its payload is host memory
+                # held until the leader harvests, so the queue cap bounds
+                # each group too
+                leader = self._leaders[digest]
+                if self._cap and len(self._followers.get(leader, [])) \
+                        >= self._cap:
+                    self._shed(rec, "shed_queue_full")
+                else:
+                    lrec = self._rec_by_pos[leader]
+                    e = _Queued(rec, item.host, self._bucket_of(i),
+                                digest=digest)
+                    self._followers.setdefault(leader, []).append(e)
+                    rec.coalesced_into = leader
+                    rec.status = "queued"
+                    if lrec.status in ("staged", "seated"):
+                        # the leader's prefill (and seat) happened already:
+                        # the follower takes those milestones now
+                        rec.admit_t = now
+                        rec.status = "staged"
+                    if lrec.status == "seated":
+                        rec.seat_t = now
+                        rec.status = "seated"
+                        self._awaiting_first_step.append(rec)
+                    self.stats.dedup_coalesced += 1
+            elif self._cap and len(self._queue) >= self._cap:
+                self._shed(rec, "shed_queue_full")
+            elif not self._admit_gate(rec):
+                pass  # serve.admit fault past the retry budget: shed inside
+            else:
+                rec.status = "queued"
+                if digest is not None:
+                    self._leaders[digest] = rec.position
+                    self._leader_digest[rec.position] = digest
+                self._queue.append(_Queued(rec, item.host,
+                                           self._bucket_of(i),
+                                           digest=digest))
+            self._arr_idx += 1
+        self.stats.peak_queue_depth = max(self.stats.peak_queue_depth,
+                                          len(self._queue))
+
+    def _backoff(self, attempt: int) -> None:
+        """Quarantine retry backoff: a real sleep on the wall clock only (a
+        virtual replay draws every retry afresh and needs no wait)."""
+        if isinstance(self.clock, WallClock):
+            time.sleep(faults_lib.backoff_s(attempt))
+
+    def _admit_gate(self, rec: RequestRecord) -> bool:
+        """The serve.admit fault site under the retry policy: a transient
+        fault is absorbed by the retry budget, a persistent one sheds the
+        request with its error recorded."""
+        if self._faults is None or not self._faults.armed("serve.admit"):
+            return True
+        attempt = 0
+        while True:
+            try:
+                self._faults.check("serve.admit")
+                return True
+            except Exception as e:
+                if attempt < self._retries:
+                    attempt += 1
+                    rec.retries += 1
+                    self._backoff(attempt)
+                    continue
+                rec.error = (f"admission rejected after {attempt + 1} "
+                             f"attempt(s): {e}")
+                self._shed(rec, "shed_error")
+                return False
+
+    def _shed(self, rec: RequestRecord, status: str) -> None:
+        rec.status = status
+        if status == "shed_queue_full":
+            self.stats.shed_queue_full += 1
+        elif status == "shed_deadline":
+            self.stats.shed_deadline += 1
+        else:
+            self.stats.shed_error += 1
+        self._final += 1
+        self._payloads.pop(rec.position, None)
+        # a shed follower detaches; the leader's seat is untouched
+        if rec.coalesced_into is not None:
+            fl = self._followers.get(rec.coalesced_into)
+            if fl:
+                self._followers[rec.coalesced_into] = [
+                    e for e in fl if e.record is not rec]
+        # a shed leader hands its group to the oldest surviving follower,
+        # who re-enters the queue (through _drain_promotions, never in the
+        # middle of a walk of it) with its own stamps and payload
+        d = self._leader_digest.pop(rec.position, None)
+        if d is not None:
+            self._leaders.pop(d, None)
+            fl = self._followers.pop(rec.position, [])
+            if fl:
+                head, rest = fl[0], fl[1:]
+                head.record.coalesced_into = None
+                self._leaders[d] = head.record.position
+                self._leader_digest[head.record.position] = d
+                for e in rest:
+                    e.record.coalesced_into = head.record.position
+                if rest:
+                    self._followers[head.record.position] = rest
+                self._promoted.append(head)
+        self.shed_cb(rec)
+
+    def _drain_promotions(self) -> None:
+        """Queue followers promoted by a leader's shed. A promotee whose
+        own deadline lapsed is shed here, which may promote the next; the
+        loop runs until the chain settles."""
+        while self._promoted:
+            e = self._promoted.pop(0)
+            rec = e.record
+            if self._deadline and (self.stats.rounds - rec.arrival_round
+                                   >= self._deadline):
+                self._shed(rec, "shed_deadline")
+                continue
+            rec.status = "queued"
+            rec.admit_t = rec.seat_t = rec.first_step_t = math.nan
+            self._queue.append(e)
+
+    def _shed_deadlines(self) -> None:
+        """Drop queued requests whose whole deadline elapsed unseated.
+        Followers of a leader not yet seated are held to their own
+        deadlines (they detach; the leader lives); once the leader is
+        seated the group rides to harvest."""
+        if not self._deadline:
+            return
+        keep: "collections.deque[_Queued]" = collections.deque()
+        for e in self._queue:
+            if self.stats.rounds - e.record.arrival_round >= self._deadline:
+                self._shed(e.record, "shed_deadline")
+            else:
+                keep.append(e)
+        self._queue = keep
+        self._drain_promotions()
+        for leader, fl in list(self._followers.items()):
+            lrec = self._rec_by_pos[leader]
+            if lrec.status not in ("queued", "staged"):
+                continue
+            for e in list(fl):
+                if (self.stats.rounds - e.record.arrival_round
+                        >= self._deadline):
+                    self._shed(e.record, "shed_deadline")
+        self._drain_promotions()
+
+    def _take_chunk(self, eng: SlotEngine):
+        """Same-bucket requests off the queue head, arrival order kept for
+        the taken and the left; returns (bucket, groups). Cache off: one
+        group of up to ``test_batch_size``. Cache on: the walk splits into
+        a hit group (artifacts in the engine's cache: admitted with no
+        prefill) and a miss group, each up to a full batch, so repeats
+        cannot fragment the misses' prefill batches."""
+        bucket = self._queue[0].bucket
+        hits: List[_Queued] = []
+        misses: List[_Queued] = []
+        rest: "collections.deque[_Queued]" = collections.deque()
+        probe = self._dedup_on
+        while self._queue and len(hits) < self._bs \
+                and len(misses) < self._bs:
+            e = self._queue.popleft()
+            if e.bucket != bucket:
+                rest.append(e)
+                continue
+            if probe and eng.cache_contains(e.digest):
+                hits.append(e)
+            else:
+                misses.append(e)
+        held: List[_Queued] = []
+        if probe and 0 < len(misses) < self._bs:
+            # a partial miss group waits at the queue head to pack with
+            # later misses, bounded by MISS_HOLD_ROUNDS and by the engine
+            # having other work (rounds advance only while work is in
+            # flight, so the hold cannot deadlock)
+            busy = eng.in_flight() > 0 or eng.staged_rows > 0
+            warm = bool(hits) or eng.stats.cache_hits > 0
+            head_wait = self.stats.rounds - min(
+                e.record.arrival_round for e in misses)
+            if busy and warm and head_wait < MISS_HOLD_ROUNDS:
+                held, misses = misses, []
+        rest.extend(self._queue)
+        self._queue = rest
+        for e in reversed(held):
+            self._queue.appendleft(e)
+        for e in hits + misses:
+            # kept until the request finishes: what a retirement requeues
+            self._payloads[e.record.position] = e
+        return bucket, [g for g in (hits, misses) if g]
+
+    def _form_batch(self, bucket: int, take: List[_Queued]) -> Dict:
+        """Pack the taken requests' rows into one batch at the bucket's
+        geometry (pad rows from the all-pad template): a drain batch whose
+        members the server chose."""
+        tmpl = self._templates[bucket]
+        batch = {k: np.array(v) for k, v in tmpl.items()}
+        positions = np.full(self._bs, -1, dtype=np.int64)
+        for j, e in enumerate(take):
+            for k in batch:
+                batch[k][j] = e.host[k][0]
+            positions[j] = e.record.position
+        batch["_positions"] = positions
+        if self._table is not None:
+            batch["_tag"] = buckets_lib.geom_tag(self._table[bucket])
+        if self._dedup_on:
+            # the worker-stamped digests, so the engine never re-hashes
+            batch["_digests"] = ([e.digest for e in take]
+                                 + [None] * (self._bs - len(take)))
+        return batch
+
+    def _prefill_quarantined(self, eng: SlotEngine, batch: Dict,
+                             take: List[_Queued]) -> Optional[bool]:
+        """One prefill under the quarantine policy: a raise is the
+        request's problem (retried with backoff, each attempt a fresh
+        draw, then the chunk is shed with its error); a watchdog expiry is
+        the engine's (retired, the chunk handed back). Returns True
+        (staged), False (chunk shed) or None (engine retired)."""
+        attempt = 0
+        while True:
+            try:
+                run_with_watchdog(lambda: eng.admit(batch, 0),
+                                  self._watchdog,
+                                  label=f"serve_prefill[{ENGINE_TAG}]")
+                return True
+            except WatchdogTimeout as e:
+                self._retire_replica(eng, e, requeue=take)
+                return None
+            except Exception as e:
+                if attempt < self._retries:
+                    attempt += 1
+                    for el in take:
+                        el.record.retries += 1
+                    self._backoff(attempt)
+                    continue
+                for el in take:
+                    el.record.error = (f"prefill failed after "
+                                       f"{attempt + 1} attempt(s): {e}")
+                    self._shed(el.record, "shed_error")
+                return False
+
+    def _retire_replica(self, eng: SlotEngine, err: BaseException, *,
+                        requeue: Optional[List[_Queued]] = None) -> None:
+        """Retire the engine (a dispatch raised or outlived the watchdog):
+        drop it from the rotation and put every request it owed (seated,
+        staged, and the caller's unstaged ``requeue`` chunk) back at the
+        queue's front in position order, stamps reset to queued (the
+        deadline clock does not reset). With no engine left, the next
+        round sheds them with the reason recorded."""
+        if eng not in self.engines:
+            return
+        owed = set(eng.pending_positions())
+        eng.retire()
+        self.engines.remove(eng)
+        self.stats.retirements.append(
+            {"replica": ENGINE_TAG,
+             "error": f"{type(err).__name__}: {err}"})
+        hb = self.stats.heartbeats.get(ENGINE_TAG)
+        if hb is not None:
+            hb["alive"] = False
+        self._alive_changed()
+        entries: List[_Queued] = []
+        seen: set = set()
+        for pos in owed:
+            e = self._payloads.get(pos)
+            if e is not None and pos not in seen:
+                seen.add(pos)
+                entries.append(e)
+        for e in (requeue or []):
+            if e.record.position not in seen:
+                seen.add(e.record.position)
+                entries.append(e)
+        entries.sort(key=lambda e: e.record.position)
+        for e in entries:
+            rec = e.record
+            rec.requeues += 1
+            rec.status = "queued"
+            rec.admit_t = rec.seat_t = rec.first_step_t = math.nan
+            # a requeued leader takes its followers back to queued
+            for f in self._followers.get(rec.position, []):
+                f.record.status = "queued"
+                f.record.admit_t = f.record.seat_t = math.nan
+                f.record.first_step_t = math.nan
+        self.stats.requeues += len(entries)
+        for e in reversed(entries):
+            self._queue.appendleft(e)
+        self._awaiting_first_step = [
+            r for r in self._awaiting_first_step if r.status == "seated"]
+
+    def _shed_all_remaining(self, reason: str) -> None:
+        """No live engine: every request not yet final is shed with the
+        reason recorded; the run ends with a position-complete output file
+        and honest metrics, never a hang."""
+        while self._queue or self._promoted:
+            e = (self._promoted.pop(0) if self._promoted
+                 else self._queue.popleft())
+            e.record.error = e.record.error or reason
+            self._shed(e.record, "shed_error")
+        # followers whose leader is neither queued nor promoted
+        for _leader, fl in list(self._followers.items()):
+            for e in list(fl):
+                if e.record.status not in _TERMINAL_STATUSES:
+                    e.record.error = e.record.error or reason
+                    self._shed(e.record, "shed_error")
+        self._followers.clear()
+        while self._arr_idx < len(self._times):
+            item = next(self._feed_iter)
+            rec = self.stats.records[self._arr_idx]
+            rec.retries += int(item.retries)
+            rec.error = rec.error or (str(item.error) if item.error
+                                      else reason)
+            self._shed(rec, "shed_error")
+            self._arr_idx += 1
+
+    def _admit(self) -> None:
+        """Budgeted admission: at most ``serve_prefill_budget`` prefill
+        dispatches between step dispatches; a cache-served or fully
+        coalesced admission runs no prefill and is not charged."""
+        admitted = 0
+        for eng in list(self.engines):
+            n = 0
+            retired = False
+            while n < self._budget and self._queue and eng.wants_input():
+                bucket, groups = self._take_chunk(eng)
+                if not groups:
+                    break  # a held miss group
+                for gi, group in enumerate(groups):
+                    before = eng.stats.prefills
+                    staged = self._prefill_quarantined(
+                        eng, self._form_batch(bucket, group), group)
+                    if staged is None:
+                        retired = True
+                        # groups taken but not yet dispatched go back too
+                        for g in reversed(groups[gi + 1:]):
+                            for e in reversed(g):
+                                self._queue.appendleft(e)
+                        break
+                    if not staged:
+                        self._drain_promotions()
+                        continue
+                    # the clock and the budget charge a prefill dispatch
+                    if eng.stats.prefills > before:
+                        self.clock.on_prefill()
+                        n += 1
+                    t = self.clock.now()
+                    for e in group:
+                        e.record.admit_t = t
+                        e.record.status = "staged"
+                        for f in self._followers.get(e.record.position, []):
+                            f.record.admit_t = t
+                            f.record.status = "staged"
+                if retired:
+                    break
+            admitted += n
+            if eng not in self.engines:
+                continue
+            try:
+                run_with_watchdog(eng.refill,
+                                  self._watchdog,
+                                  label=f"serve_refill[{ENGINE_TAG}]")
+            except Exception as e:
+                self._retire_replica(eng, e)
+        self.stats.admits += admitted
+        self.stats.max_admits_per_round = max(
+            self.stats.max_admits_per_round, admitted)
+        t = self.clock.now()
+        for eng in self.engines:
+            for pid in eng.in_flight_positions():
+                rec = self._rec_by_pos[pid]
+                if math.isnan(rec.seat_t):
+                    rec.seat_t = t
+                    rec.status = "seated"
+                    self._awaiting_first_step.append(rec)
+                    # a seated leader seats its whole group
+                    for f in self._followers.get(pid, []):
+                        if math.isnan(f.record.seat_t):
+                            f.record.seat_t = t
+                            f.record.status = "seated"
+                            self._awaiting_first_step.append(f.record)
+
+    # --- health signals ---------------------------------------------------
+
+    def _deadline_pressure(self) -> float:
+        """Share of queued requests past half their deadline (0.0 with no
+        deadline or an empty queue)."""
+        if not self._deadline or not self._queue:
+            return 0.0
+        tight = sum(1 for e in self._queue
+                    if self.stats.rounds - e.record.arrival_round
+                    >= self._deadline / 2)
+        return round(tight / len(self._queue), 4)
+
+    def _alive_changed(self) -> None:
+        """One entry of the alive trace: at the start and at a
+        retirement."""
+        self.stats.replicas_alive_over_time.append({
+            "round": self.stats.rounds,
+            "alive": len(self.engines),
+            "queue_depth": len(self._queue),
+            "deadline_pressure": self._deadline_pressure(),
+        })
+
+    def _stamp_heartbeats(self) -> None:
+        """The engine's last dispatch round and rounds served."""
+        for _eng in self.engines:
+            hb = self.stats.heartbeats.setdefault(
+                ENGINE_TAG,
+                {"last_dispatch_round": -1, "rounds": 0, "alive": True})
+            hb["last_dispatch_round"] = self.stats.rounds
+            hb["rounds"] += 1
+            hb["alive"] = True
+
+    # --- the loop -------------------------------------------------------
+
+    def run(self) -> ServeStats:
+        t0 = time.perf_counter()
+        n = len(self._times)
+        for eng in self.engines:
+            # fresh scheduling state for this stream (a warm engine may
+            # have served another)
+            eng.begin_stream()
+        if self._snapshot is not None:
+            self._snapshot(self)   # a valid partial artifact from the start
+        while self._final < n:
+            if not self.engines:
+                # the engine retired: shed the rest with the reason
+                last = (self.stats.retirements[-1]["error"]
+                        if self.stats.retirements else "unknown")
+                self._shed_all_remaining(
+                    f"no live replicas (all retired; last error: {last})")
+                break
+            self._poll_arrivals(self.clock.now())
+            self._shed_deadlines()
+            self._admit()
+            live = [e for e in self.engines if e.in_flight()]
+            if not live:
+                if self._queue or self._promoted \
+                        or any(e.staged_rows for e in self.engines):
+                    continue    # seats free up / budget admits next round
+                if self._arr_idx < n:
+                    # idle: jump (virtual) or sleep (wall) to the next
+                    # arrival
+                    self.clock.advance_to(self._times[self._arr_idx])
+                    continue
+                if self._final < n:   # pragma: no cover - loop invariant
+                    raise RuntimeError(
+                        "serve loop stalled with requests unaccounted for")
+                break
+            if self._dedup_on:
+                # the seats serving a coalesced group, for the engine's
+                # shared-block meter
+                leaders = {p for p, fl in self._followers.items() if fl}
+                for eng in live:
+                    eng.shared_positions = leaders
+            for eng in live:
+                try:
+                    run_with_watchdog(eng.step_dispatch, self._watchdog,
+                                      label=f"serve_step[{ENGINE_TAG}]")
+                except Exception as e:
+                    self._retire_replica(eng, e)
+            self.clock.on_step()
+            self.stats.rounds += 1
+            self._stamp_heartbeats()
+            items = []
+            for eng in live:
+                if eng.retired:
+                    continue
+                try:
+                    items.extend(run_with_watchdog(
+                        eng.harvest, self._watchdog,
+                        label=f"serve_harvest[{ENGINE_TAG}]"))
+                except Exception as e:
+                    self._retire_replica(eng, e)
+            t = self.clock.now()   # after the harvest: what the host sees
+            for rec in self._awaiting_first_step:
+                if rec.status == "seated":   # not requeued this round
+                    rec.first_step_t = t
+            self._awaiting_first_step = []
+            for it in items:
+                rec = self._rec_by_pos[it.position]
+                rec.done_t = t
+                rec.done_round = self.stats.rounds
+                rec.status = "done"
+                if self._deadline and (rec.done_round - rec.arrival_round
+                                       > self._deadline):
+                    rec.deadline_missed = True
+                self._final += 1
+                self._payloads.pop(it.position, None)
+                self.stats.completions.append(it.position)
+                self.emit(it.position, it.host, it.row, it.tokens, it.probs)
+                # fan-out: the leader's beams are what each follower's own
+                # decode would give (same digest, same payload), emitted at
+                # the follower's position with its own stamps
+                d = self._leader_digest.pop(it.position, None)
+                if d is not None:
+                    self._leaders.pop(d, None)
+                group = self._followers.pop(it.position, [])
+                if group:
+                    self.stats.dedup_groups += 1
+                    self.stats.dedup_fanout_max = max(
+                        self.stats.dedup_fanout_max, 1 + len(group))
+                for f in group:
+                    fr = f.record
+                    if math.isnan(fr.first_step_t):
+                        # coalesced after the leader's first step: its
+                        # first observable progress is this harvest
+                        fr.first_step_t = t
+                    fr.done_t = t
+                    fr.done_round = self.stats.rounds
+                    fr.status = "done"
+                    if self._deadline and (fr.done_round - fr.arrival_round
+                                           > self._deadline):
+                        fr.deadline_missed = True
+                    self._final += 1
+                    self.stats.completions.append(fr.position)
+                    self.emit(fr.position, f.host, 0, it.tokens, it.probs)
+            if (self._snapshot is not None
+                    and self.stats.rounds % SNAPSHOT_EVERY_ROUNDS == 0):
+                self._snapshot(self)
+        self.stats.wall_s = time.perf_counter() - t0
+        return self.stats
+
+
+# --------------------------------------------------------------------------
+# the serving entry point (the twin of decode.runner.run_test)
+# --------------------------------------------------------------------------
+
+def make_clock(clock: str):
+    """The clock of a serve run: ``wall`` or ``virtual``."""
+    if clock == "wall":
+        return WallClock()
+    if clock == "virtual":
+        return VirtualClock()
+    raise ValueError(f"clock {clock!r} not in {{'wall', 'virtual'}}")
+
+
+def build_engines(model: FiraModel, cfg: FiraConfig, *, engine=None,
+                  faults=None):
+    """(owner, engines, built): the caller's (presumably warm) ``engine``,
+    built False so its prewarm does not rerun, or one new ``SlotEngine``.
+    More than one replica is the fleet (ROADMAP A.8c), refused by
+    ``config.unsupported``."""
+    if engine is not None:
+        return engine, [engine], False
+    owner = SlotEngine(model, cfg, faults=faults)
+    return owner, [owner], True
+
+
+def prepare_templates(owner: SlotEngine, split, cfg: FiraConfig, table, *,
+                      prewarm: bool = True) -> Dict[int, Dict]:
+    """An all-pad batch a decode bucket (the rows a packed batch is padded
+    from), and the engine's prewarm on them when serve_split built the
+    engine itself (so no kernel builds or first launch inside a timed
+    dispatch, and the watchdog never reads one as a hang)."""
+    from fira_tpu_torch.data.batching import make_batch
+
+    bs = int(cfg.test_batch_size)
+    if table is not None:
+        templates = {b: make_batch(split, np.arange(0), cfg, batch_size=bs,
+                                   geom=g)
+                     for b, g in enumerate(table)}
+    else:
+        templates = {0: make_batch(split, np.arange(0), cfg,
+                                   batch_size=bs)}
+    if prewarm:
+        owner.prewarm(templates.values())
+    return templates
+
+
+def run_loop_guarded(loop: "ServeLoop", snapshot) -> ServeStats:
+    """Run the loop; on any failure the freshest partial metrics snapshot
+    survives beside the ordered writer's ``.partial`` prefix."""
+    try:
+        return loop.run()
+    except BaseException:
+        if snapshot is not None:
+            try:
+                snapshot(loop)
+            except Exception:
+                pass
+        raise
+
+
+def finalize_serve_result(stats: ServeStats, owner, faults, *,
+                          out_path: str, bleu_by_pos: Dict[int, float],
+                          metrics_path: Optional[str]) -> Dict:
+    """BLEU summed in split order, the result dict, and the final metrics
+    artifact written atomically (its ``.partial`` removed)."""
+    n_done = len(bleu_by_pos)
+    total_bleu = sum(bleu_by_pos[p] for p in sorted(bleu_by_pos))
+    result = {
+        "sentence_bleu": total_bleu / max(n_done, 1),
+        "n": float(n_done),
+        "output_path": out_path,
+        "serve": stats.summary(),
+        "engine": owner.stats.summary(),
+        **({"faults": faults.summary()} if faults else {}),
+        "request_records": [dataclasses.asdict(r) for r in stats.records],
+    }
+    if metrics_path:
+        write_metrics_atomic(metrics_path, {
+            "serve": result["serve"],
+            "engine": result["engine"],
+            **({"faults": faults.summary()} if faults else {}),
+            "request_records": _json_safe_records(stats.records),
+        })
+        if os.path.exists(metrics_path + ".partial"):
+            os.remove(metrics_path + ".partial")
+        result["metrics_path"] = metrics_path
+    return result
+
+
+def metrics_snapshotter(metrics_path: Optional[str], owner, faults):
+    """The partial-metrics hook of ServeLoop (None without an artifact):
+    ``<metrics_path>.partial``, rewritten atomically."""
+    if not metrics_path:
+        return None
+    partial_path = metrics_path + ".partial"
+    # a terminal record never changes: serialized once across snapshots
+    done_cache: Dict[int, Dict] = {}
+
+    def snapshot(loop):
+        write_metrics_atomic(partial_path, {
+            "in_progress": True,
+            "serve": loop.stats.summary(),
+            "engine": owner.stats.summary(),
+            **({"faults": faults.summary()} if faults else {}),
+            "request_records": _json_safe_records(loop.stats.records,
+                                                  done_cache),
+        })
+
+    return snapshot
+
+
+def _request_tasks(data, cfg: FiraConfig, n: int, table, assignment,
+                   mix=None):
+    """One single-row ``make_batch`` task a request, request order: the
+    Feeder assembles payloads ahead of their arrival (an open-loop
+    generator knows its requests up front). Each task's ``note`` names the
+    request's sample and bucket, so a poisoned payload's error names them.
+
+    ``mix``: request -> split position (identity when None): repeated
+    entries are byte-identical requests at distinct output positions, the
+    traffic the prefix cache and dedup exist for. With
+    ``cfg.prefix_cache`` each task stamps its payload's digest on the
+    worker (prefix_cache.stamp_digests), so the scheduler never hashes."""
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import task_note
+    from fira_tpu_torch.decode.prefix_cache import (stamp_digests,
+                                                    tier_namespace)
+
+    stamp = cfg.prefix_cache
+    tier_ns = tier_namespace(cfg)
+    for i in range(n):
+        j = int(mix[i]) if mix is not None else i
+        geom = table[int(assignment[i])] if table is not None else None
+
+        def task(j=j, geom=geom):
+            b = make_batch(data, np.asarray([j]), cfg, batch_size=1,
+                           geom=geom)
+            return stamp_digests(b, tier_ns) if stamp else b
+        task.note = task_note(
+            [j], geom_tag=buckets_lib.geom_tag(geom) if geom else None,
+            site="serve request")
+        yield task
+
+
+_TERMINAL_STATUSES = ("done", "shed_queue_full", "shed_deadline",
+                      "shed_error")
+
+
+def _json_safe_records(records: List[RequestRecord],
+                       cache: Optional[Dict[int, Dict]] = None
+                       ) -> List[Dict]:
+    """Request-record dicts with NaN stamps (a shed request was never
+    seated) as null: the metrics artifact is strict JSON. ``cache``:
+    id(record) -> its dict, for records in a terminal status (they never
+    change again), so each snapshot serializes only the active ones."""
+    out = []
+    for r in records:
+        if cache is not None:
+            hit = cache.get(id(r))
+            if hit is not None:
+                out.append(hit)
+                continue
+        d = dataclasses.asdict(r)
+        d = {k: (None if isinstance(v, float) and v != v else v)
+             for k, v in d.items()}
+        if cache is not None and r.status in _TERMINAL_STATUSES:
+            cache[id(r)] = d
+        out.append(d)
+    return out
+
+
+def write_metrics_atomic(path: str, payload: Dict) -> str:
+    """Write a metrics artifact atomically: the whole dump to ``path +
+    ".tmp"``, flushed and fsynced, then one ``os.replace``, so a kill
+    leaves the previous complete file or the new one, never a torn one."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=1, allow_nan=False)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def serve_split(model: FiraModel, dataset: FiraDataset,
+                cfg: Optional[FiraConfig] = None, *,
+                arrival_times: np.ndarray,
+                out_dir: str = "OUTPUT",
+                ablation: Optional[str] = None,
+                var_maps: Optional[List[Dict[str, str]]] = None,
+                split: str = "test",
+                clock: str = "wall",
+                engine=None,
+                metrics_path: Optional[str] = None,
+                request_mix=None) -> Dict:
+    """Serve the first ``len(arrival_times)`` samples of ``split`` as an
+    open-loop request stream (request ``i`` is split position ``i``,
+    arriving at ``arrival_times[i]``) on the model's device. Writes the
+    drain decode's position-ordered output file (a shed request writes an
+    empty line; with nothing shed the bytes are the drain's) and returns
+    its metrics with ``serve`` (ServeStats.summary), ``engine`` (the
+    engine's stats) and ``request_records``.
+
+    ``engine``: an engine already built (and warmed) to serve on: a bench
+    reuses one across rates, so the rows measure serving, not cold
+    starts; the caller owns its config and its stats resets. The faults
+    armed are ``cfg.inject_faults``'s. ``metrics_path``: the metrics
+    artifact, kept through the run as an atomic ``<path>.partial``
+    snapshot and written atomically at the end. ``request_mix``: request
+    -> split position (identity when None), for repeated traffic."""
+    cfg = cfg or dataset.cfg
+    faults = faults_lib.injector_from(cfg)
+    data = dataset.splits[split]
+    vocab = dataset.word_vocab
+    indices = dataset.split_indices[split]
+    times = np.asarray(arrival_times, dtype=np.float64)
+    n_req = len(times)
+    mix = None
+    if request_mix is not None:
+        mix = np.asarray(request_mix, dtype=np.int64)
+        if len(mix) != n_req:
+            raise ValueError(
+                f"request_mix has {len(mix)} entries for {n_req} arrivals")
+        if len(mix) and (mix.min() < 0 or mix.max() >= len(data)):
+            raise ValueError(
+                f"request_mix references split position "
+                f"{int(mix.min()) if mix.min() < 0 else int(mix.max())} "
+                f"outside split {split!r} (size {len(data)})")
+        indices = np.asarray(indices)[mix]
+    elif n_req > len(data):
+        raise ValueError(
+            f"arrival trace has {n_req} requests but split {split!r} holds "
+            f"only {len(data)} samples")
+    errs = serve_errors(cfg, trace=True)
+    if errs:
+        raise ValueError("; ".join(errs))
+    clk = make_clock(clock)
+
+    if cfg.buckets:
+        table = buckets_lib.decode_table(cfg)
+        ext = buckets_lib.sample_extents(data, cfg)
+        assignment = buckets_lib.assign_buckets(
+            ext, table, use_msg=cfg.decode_tar_buckets)
+        if mix is not None:
+            assignment = np.asarray(assignment)[mix]
+    else:
+        table = assignment = None
+
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, output_name(ablation))
+    model.eval()
+    owner, engines, built = build_engines(model, cfg, engine=engine,
+                                          faults=faults)
+    templates = prepare_templates(owner, data, cfg, table, prewarm=built)
+    bleu_by_pos: Dict[int, float] = {}
+    snapshot = metrics_snapshotter(metrics_path, owner, faults)
+    with OrderedStreamWriter(out_path, expected=n_req) as writer, \
+            Feeder(_request_tasks(data, cfg, n_req, table, assignment, mix),
+                   num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
+                   put=False,
+                   # the per-task error channel: a poisoned payload is
+                   # retried on the worker, then delivered with its error
+                   # for the loop to shed
+                   on_error="record", retries=max(0, cfg.robust_retries),
+                   faults=faults) as feed:
+        emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
+                              bleu_by_pos=bleu_by_pos, n_total=n_req,
+                              var_maps=var_maps, indices=indices)
+        loop = ServeLoop(
+            engines, cfg, arrival_times=times, feed=feed, table=table,
+            assignment=assignment, templates=templates, clock=clk,
+            emit=emit,
+            # a shed request keeps its output position: an empty line
+            shed=lambda rec: writer.add(rec.position, "\n"),
+            faults=faults, snapshot=snapshot)
+        stats = run_loop_guarded(loop, snapshot)
+    return finalize_serve_result(stats, owner, faults, out_path=out_path,
+                                 bleu_by_pos=bleu_by_pos,
+                                 metrics_path=metrics_path)

@@ -36,12 +36,19 @@ gates and the checkpoint writes excluded, and the first interval (the
 kernels' first build and launch) dropped, as the JAX loop's
 ``Meter(warmup=1)``. The feed share is the time the loop waited for the
 Feeder, over the measured wall.
+
+With ``cfg.dispatch_watchdog_s`` > 0 each dev gate runs under the dispatch
+watchdog (robust/watchdog.py), as the JAX loop's does: a gate that
+outlives it is abandoned (its cancel event set, which ``run_dev`` polls a
+batch) and skipped with a recorded warning, and training goes on without
+that gate's checkpoint decision.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -56,6 +63,7 @@ from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
+from fira_tpu_torch.robust.watchdog import WatchdogTimeout, run_with_watchdog
 from fira_tpu_torch.train import step as step_lib
 from fira_tpu_torch.train.state import (CheckpointManager, TrainState,
                                         init_state)
@@ -86,12 +94,15 @@ class TrainLog:
 
 def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
             var_maps: Optional[List[Dict[str, str]]] = None,
-            split: str = "valid", plan=None) -> tuple:
+            split: str = "valid", plan=None, cancel=None) -> tuple:
     """Greedy teacher-forced validation (run_model.py:118-184). Returns
     (mean sentence BLEU over the split, dev_output text in split order,
     number of dev batches). The batches follow ``plan`` (default
     ``buckets.decode_plan``; it never changes, so ``train`` computes it
-    once) and each line goes to its ``_positions`` place."""
+    once) and each line goes to its ``_positions`` place. ``cancel``: a
+    zero-arg callable polled a batch, the watchdog's cooperative kill
+    switch: a gate the watchdog abandoned stops launching instead of
+    racing the training it was abandoned for."""
     data = dataset.splits[split]
     vocab = dataset.word_vocab
     indices = dataset.split_indices[split]
@@ -107,6 +118,9 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
                 depth=cfg.feeder_depth, device=device,
                 fields=TRAIN_FIELDS) as feed:
         for item in feed:
+            if cancel is not None and cancel():
+                raise WatchdogTimeout(
+                    "dev gate abandoned by the dispatch watchdog")
             host = item.host
             ids = step_lib.dev_step(model, item.device).cpu().numpy()
             for i in np.flatnonzero(host["valid"]):
@@ -276,17 +290,31 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                     sync_tick(last)
                     meter.pause()   # dev time is not train time
                     t0 = time.perf_counter()
-                    bleu, text, n_batches = run_dev(model, dataset, cfg,
-                                                    var_maps, plan=eval_plan)
-                    better = bleu > best_bleu
-                    log.gate(epoch, idx, bleu, better)
-                    if better:
-                        best_bleu = bleu
-                        ckpt.save_best(model)
-                        log.dev_output(text)
+                    gate_cancel = threading.Event()
+                    try:
+                        bleu, text, n_batches = run_with_watchdog(
+                            lambda: run_dev(model, dataset, cfg, var_maps,
+                                            plan=eval_plan,
+                                            cancel=gate_cancel.is_set),
+                            float(cfg.dispatch_watchdog_s),
+                            label=f"dev_gate[e{epoch}b{idx}]",
+                            cancel_event=gate_cancel)
+                    except WatchdogTimeout as e:
+                        w = (f"dev gate at epoch {epoch} batch {idx} "
+                             f"skipped: {e}; training continues without "
+                             f"this gate's checkpoint decision")
+                        log.console(f"WARNING: {w}")
+                        warnings.append(w)
+                    else:
+                        better = bleu > best_bleu
+                        log.gate(epoch, idx, bleu, better)
+                        if better:
+                            best_bleu = bleu
+                            ckpt.save_best(model)
+                            log.dev_output(text)
+                        gates += 1
+                        dev_batches += n_batches
                     dev_seconds += time.perf_counter() - t0
-                    gates += 1
-                    dev_batches += n_batches
                     meter.start()
 
                 # fetched after the gate, inside the measured interval (the

@@ -134,9 +134,10 @@ def test_perf_production_writes_the_engine_bytes(setup, tmp_path, capsys):
     (["--engine-harvest-every", "0"], "--engine-harvest-every"),
     (["--engine-prefill-depth", "-1"], "--engine-prefill-depth"),
     (["--kv-paged", "maybe"], "--kv-paged"),
-    # the JAX package's flags of paths the port does not run yet
+    # the JAX package's flags of paths the port does not run yet, and a
+    # bad value of one it does
     (["--engine-replicas", "2"], "--engine-replicas"),
-    (["--prefix-cache", "on"], "--prefix-cache"),
+    (["--prefix-cache", "maybe"], "--prefix-cache"),
     (["--spec-decode", "copy"], "--spec-decode"),
     (["--kv-dtype", "bf16"], "--kv-dtype"),
 ])
@@ -162,13 +163,13 @@ def test_bad_paging_knob_exits_2_naming_it(setup, tmp_path, capsys, flags,
 
 
 REFUSED = [
-    ("engine_replicas", 2, "parallel/fleet.py (ROADMAP A.8)"),
-    ("engine_spares", 1, "robust/recovery.py (ROADMAP A.8)"),
-    ("prefix_cache", True, "decode/prefix_cache.py, with serving "
-     "(ROADMAP A.8)"),
-    ("inject_faults", "engine.step:1", "robust/faults.py (ROADMAP A.8)"),
-    ("dispatch_watchdog_s", 1.0, "robust/watchdog.py (ROADMAP A.8)"),
-    ("max_respawns", 1, "robust/recovery.py (ROADMAP A.8)"),
+    ("engine_replicas", 2, "parallel/fleet.py (ROADMAP A.8c)"),
+    ("engine_spares", 1, "robust/recovery.py (ROADMAP A.8c)"),
+    ("serve_tiers", "prefill-pool", "serve/disagg.py (ROADMAP A.9)"),
+    ("inject_faults", "fleet.replica:raise:1:0",
+     "the replicated decode fleet (ROADMAP A.8c)"),
+    ("dispatch_watchdog_s", -1.0, "must be 0 (watchdog off) or > 0"),
+    ("max_respawns", 1, "robust/recovery.py (ROADMAP A.8c)"),
     ("spec_decode", "draft", "decode/spec.py (ROADMAP A.9)"),
     ("kv_dtype", "bf16", "decode/quant.py (ROADMAP A.9)"),
     ("serve_precision", "int8w", "decode/quant.py (ROADMAP A.9)"),
@@ -179,7 +180,8 @@ REFUSED = [
 def test_knob_the_engine_does_not_run_is_refused(knob, value, brings):
     cfg = fira_tiny(decode_engine=True, vocab_size=40,
                     ast_change_vocab_size=10, **{knob: value})
-    named = [e for e in unsupported(cfg) if e.startswith(f"{knob}=")]
+    named = [e for e in unsupported(cfg)
+             if e.startswith((f"{knob}=", f"{knob} "))]
     assert len(named) == 1 and brings in named[0], unsupported(cfg)
     model = FiraModel(cfg.replace(**{knob: getattr(fira_tiny(), knob)}))
     with pytest.raises(ValueError, match=knob):

@@ -447,6 +447,50 @@ def test_engine_on_the_card_writes_the_batched_beam_bits(cuda, tmp_path,
     assert st.step_dispatches < st.host_syncs <= 2 * st.step_dispatches
 
 
+@pytest.mark.gpu
+def test_serve_on_the_card_writes_the_drain_bits(cuda, tmp_path):
+    """``serve_split`` on the card, 8 requests of a replayed trace (the
+    virtual clock), fira-tiny widths, <eos>-biased random weights: the
+    drain engine's output bytes with the prefix cache off and on (each
+    sample twice in the second run, so hits and coalesced followers
+    happen); K1 launches R times a step dispatch."""
+    from fira_tpu_torch.config import fira_tiny
+    from fira_tpu_torch.data import synthetic
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.decode import beam
+    from fira_tpu_torch.decode.runner import run_test
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.serve import poisson_times, serve_split
+
+    synthetic.write_corpus_dir(str(tmp_path / "d"), n_commits=60, seed=5)
+    ds = FiraDataset(str(tmp_path / "d"), fira_tiny(test_batch_size=4,
+                                                    decode_engine=True))
+    cfg = ds.cfg
+    model = FiraModel(cfg).init_parameters(torch.Generator().manual_seed(1))
+    model.load_state_dict(beam.eos_biased(model.state_dict(), 2.0))
+    model = model.to(cuda).eval()
+    drain = run_test(model, ds, cfg, out_dir=str(tmp_path / "drain"),
+                     split="train")
+    lines = open(drain["output_path"]).read().split("\n")
+    times = poisson_times(8, rate=0.5, seed=3)
+    before = cs.copy_scores.launches
+    m = serve_split(model, ds, cfg, arrival_times=times, split="train",
+                    out_dir=str(tmp_path / "off"), clock="virtual")
+    st = m["engine"]
+    assert cs.copy_scores.launches - before == 4 * (
+        st["step_dispatches"] + st["warm_step_dispatches"])
+    assert m["serve"]["completed"] == 8
+    assert open(m["output_path"]).read().split("\n") == lines[:8] + [""]
+    mix = np.arange(8) // 2
+    m = serve_split(model, ds, cfg.replace(prefix_cache=True),
+                    arrival_times=times, split="train",
+                    out_dir=str(tmp_path / "on"), clock="virtual",
+                    request_mix=mix)
+    got = open(m["output_path"]).read().split("\n")
+    assert got == [lines[j] for j in mix] + [""]
+    assert m["engine"]["cache_hits"] + m["engine"]["dedup_fanout"] > 0
+
+
 def test_copy_scores_other_device_raises():
     src, tgt, w, b = _inputs(2, 3, 37, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):

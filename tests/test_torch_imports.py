@@ -21,13 +21,21 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned)
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
+
+# modules each slice added, which the walk must find and import
+REQUIRED = ("fira_tpu_torch.robust.faults", "fira_tpu_torch.robust.watchdog",
+            "fira_tpu_torch.serve.arrivals", "fira_tpu_torch.serve.server",
+            "fira_tpu_torch.decode.prefix_cache",
+            "fira_tpu_torch.decode.engine", "fira_tpu_torch.cli")
 
 
 def test_port_imports_no_jax_and_nothing_of_fira_tpu():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = proc.stdout.split("\n")[:2]
+    n_modules, bad, names = proc.stdout.split("\n")[:3]
     assert int(n_modules) >= 20          # the walk found the whole package
     assert bad == "", f"the port imported {bad}"
+    assert not set(REQUIRED) - set(names.split(","))
