@@ -142,7 +142,23 @@ Phases, each printing its own line; any failure exits non-zero:
             bf16 with K1 (once a beam step, 29 a message, counted) and
             with the plain copy score in turns (f32 messages equal); the
             ingest stages, beam and message latency, and the beam at 1
-            row against the 20-row batch the path pads to.
+            row against the 20-row batch the path pads to;
+21. serve-diffs  ``cli serve --input diffs`` on the test diffs of an
+            extracted corpus (720 commits whose graphs come from the
+            astdiff extraction, vocabularies padded to the paper's sizes;
+            the f32 checkpoint, 20 slots, a replayed trace, the virtual
+            clock): byte-identical to ``cli serve --input graphs`` on the
+            same corpus with the ingest cache off and on and the parse
+            stage on threads and on a spawned pool (whose processes map no
+            torch and no CUDA library); the diffs twice (second pass
+            reversed), each line its first pass's, with result-cache hits;
+            three malformed diffs shed at exactly their positions; the
+            ``ingest.parse`` raise and corrupt and ``ingest.cache`` corrupt
+            faults (a line moves only where it is shed or its payload was
+            scrambled); K1 once a micro-step, counted; the ingest stage
+            times, stall, cache and memo meters; wall-clock serving at 1.5x
+            the engine's drain rate over the split 5 times, ingest and
+            prefix caches off, threads and pool in turns.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -460,6 +476,12 @@ def write_corpus(data_dir: str) -> None:
     from fira_tpu_torch.data import synthetic
 
     synthetic.write_corpus_dir(data_dir, n_commits=N_COMMITS, seed=SEED)
+    pad_vocabs(data_dir)
+
+
+def pad_vocabs(data_dir: str) -> None:
+    """Pad a corpus' vocabularies with filler tokens to the paper's
+    sizes."""
     for fname, size in (("word_vocab.json", WORD_VOCAB),
                         ("ast_change_vocab.json", AST_VOCAB)):
         path = os.path.join(data_dir, fname)
@@ -2161,10 +2183,61 @@ SERVE_FAULTS = [
 ]
 
 
-def serve_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
+def spawned_children() -> dict:
+    """pid -> (libtorch mapped, a CUDA library mapped) for each live child
+    of this process that multiprocessing's spawn started, read from
+    /proc (nothing is reaped or signalled)."""
+    out, me = {}, os.getpid()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != me:
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                if b"spawn_main" not in f.read():
+                    continue
+            with open(f"/proc/{d}/maps") as f:
+                maps = f.read()
+        except (OSError, IndexError, ValueError):
+            continue
+        out[int(d)] = ("libtorch" in maps,
+                       "libcuda" in maps or "libcudart" in maps)
+    return out
+
+
+def watch_children(fn):
+    """``fn()`` while a thread samples :func:`spawned_children` every
+    50 ms; returns (fn's result, pid -> flags OR-ed over the samples)."""
+    import threading
+
+    seen, done = {}, threading.Event()
+
+    def sample():
+        while True:
+            for pid, flags in spawned_children().items():
+                old = seen.get(pid, (False, False))
+                seen[pid] = (old[0] or flags[0], old[1] or flags[1])
+            if done.wait(0.05):
+                return
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        return fn(), seen
+    finally:
+        done.set()
+        t.join(10.0)
+
+
+def serve_cli(torch, ctx, run: dict, name: str, flags: list, *,
+              data_dir=None, trace=None, sub="serve") -> dict:
     """``cli serve --dtype float32`` with ``flags`` on the f32 checkpoint
-    (the phase's replayed trace and the virtual clock), counts from zero
-    around it; its summary line kept; ``serve_metrics.json`` must be
+    (the phase's replayed trace and the virtual clock; ``data_dir`` and
+    ``trace``, when given, in place of the smoke's corpus and the [serve]
+    trace, the output under ``work/<sub>/<name>``), counts from zero
+    around it; its summary lines kept; ``serve_metrics.json`` must be
     valid JSON with no ``.partial`` left, a dispatch the watchdog
     abandoned must return within ``fault_hang_s`` + 10 s, and K1 must
     launch once a micro-step of the counted dispatches (prewarm's
@@ -2177,14 +2250,14 @@ def serve_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
     from fira_tpu_torch import cli
 
     cs = ctx["cs"]
-    out_dir = os.path.join(ctx["work"], "serve", name.replace(" ", "_"))
+    out_dir = os.path.join(ctx["work"], sub, name.replace(" ", "_"))
     buf = io.StringIO()
     cs.copy_scores.launches = 0
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["serve", "--config", "fira-full", "--data-dir",
-                       ctx["data_dir"], "--out-dir", out_dir, "--ckpt-dir",
-                       run["ckpt_dir"], "--dtype", "float32",
-                       "--serve-trace", ctx["serve_trace"],
+                       data_dir or ctx["data_dir"], "--out-dir", out_dir,
+                       "--ckpt-dir", run["ckpt_dir"], "--dtype", "float32",
+                       "--serve-trace", trace or ctx["serve_trace"],
                        "--serve-clock", "virtual", *flags])
     abandoned = [t for t in threading.enumerate()
                  if t.name == "fira-dispatch-watchdog"]
@@ -2211,8 +2284,10 @@ def serve_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
     with open(os.path.join(out_dir, "output_fira"), "rb") as f:
         out = f.read()
     line = [x for x in printed.splitlines() if x.startswith("serve: ")]
+    ingest = [x for x in printed.splitlines() if x.startswith("ingest: ")]
     return dict(out=out, metrics=metrics, k1=k1, abandoned=len(abandoned),
-                woke_s=woke_s, line=line[0] if line else printed.strip())
+                woke_s=woke_s, line=line[0] if line else printed.strip(),
+                ingest_line=ingest[0] if ingest else None)
 
 
 def serve_bytes(m) -> bytes:
@@ -2515,7 +2590,20 @@ def serve_phase(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     print(f"[serve] the profiled serve run took {last['m']['serve']['rounds']}"
           f" rounds", flush=True)
 
-    # --- faults through the CLI
+    # --- faults through the CLI. The step hang runs under a 1 s dispatch
+    # watchdog: a full collection of this process's accumulated objects
+    # inside a dispatch would count against it, so the objects alive now
+    # are collected once and frozen out of later collections (timed)
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_s = time.perf_counter() - t0
+    n_obj = len(gc.get_objects())
+    gc.freeze()
+    print(f"[serve] before the fault runs: a full collection took "
+          f"{gc_s:.3f} s over {n_obj} tracked objects, then frozen",
+          flush=True)
     for name, flags in SERVE_FAULTS:
         r = serve_cli(torch, ctx, run32, name, flags)
         k1 += r["k1"]
@@ -2540,7 +2628,8 @@ def serve_phase(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
                           and "WatchdogTimeout" in recs[p]["error"]
                           for p in shed),
                   f"cli serve {name}: {sv}, fired {f}, abandoned "
-                  f"{r['abandoned']}")
+                  f"{r['abandoned']}, first error "
+                  f"{recs[0]['error'] if recs else None!r}")
         elif name == "assemble raise":
             check(shed == [10] and "feeder.assemble" in recs[10]["error"],
                   f"cli serve {name}: shed {shed}")
@@ -2836,6 +2925,310 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     return k1
 
 
+DIFF_FAULTS = [
+    ("parse raise, cache corrupt",
+     ["--inject-faults",
+      "ingest.parse:raise:0.04:1,ingest.cache:corrupt:0.3:5",
+      "--robust-retries", "0"]),
+    ("parse corrupt", ["--inject-faults", "ingest.parse:corrupt:0.04:7"]),
+]
+
+
+def stage_ms(records, key: str) -> str:
+    """Median and p99 of one ingest stage over the requests that ran it
+    (cache hits replay their first computation's stamps: left out)."""
+    vals = [r["ingest"][key] for r in records
+            if r["ingest"] and not r["ingest"].get("cached")]
+    if not vals:
+        return f"{key[:-2]} -"
+    return (f"{key[:-2]} {1e3 * float(np.median(vals)):.3f}/"
+            f"{1e3 * float(np.percentile(vals, 99)):.3f}")
+
+
+def ingest_report(m: dict) -> str:
+    """The printed ingest meters of one serve run."""
+    ing = m["serve"]["ingest"]
+    cache = ing.get("cache") or {}
+    return (f"ingest stages p50/p99 ms: "
+            + ", ".join(stage_ms(m["request_records"], k)
+                        for k in ("lex_s", "parse_s", "assemble_s"))
+            + f"; stall_s {ing['stall_s']}, stall_frac {ing['stall_frac']}, "
+            f"workers {ing['workers']}, pipeline_depth "
+            f"{ing['pipeline_depth']}; cache hits {ing['cache_hits']} "
+            f"(result cache {cache.get('hits', '-')} hits, "
+            f"{cache.get('coalesced', '-')} coalesced, "
+            f"{cache.get('integrity_drops', '-')} integrity drops), memo "
+            f"hits/misses {ing['memo_hits']}/{ing['memo_misses']}")
+
+
+def phase_serve_diffs(torch, ctx, run32: dict) -> int:
+    """``cli serve --input diffs``: the ``[serve]`` phase's loop and engine
+    (20 slots, R = 4, f32 trained checkpoint) fed raw diffs through the
+    ingest path. An extracted corpus of ``N_COMMITS`` commits (graphs from
+    the astdiff extraction, so a reconstructed diff ingests to its corpus
+    row; vocabularies padded to the paper's sizes), its test diffs as a
+    ``#! request`` trace, a replayed arrival trace, the virtual clock.
+    Hard checks: (1) ``--input diffs`` with ``--ingest-cache off|on`` x
+    ``--ingest-exec thread|process`` writes the bytes of ``--input
+    graphs``, and the pool's processes map neither libtorch nor a CUDA
+    library; (2) the diffs twice (second pass reversed), cache on: every
+    line its first pass's, ``ingest.cache_hits`` at least the second-pass
+    requests not coalesced in flight; (3) three malformed diffs are shed
+    at exactly their positions with their errors and empty lines, every
+    other line unchanged; (4) ``ingest.parse`` raise with
+    ``ingest.cache`` corrupt, and ``ingest.parse`` corrupt, on the doubled
+    trace: exit 0 with valid metrics, every line the clean run's, a
+    recorded shed, or (corrupt) at a position whose payload the site's
+    keyed draw scrambled; (5) K1 = 4 x (counted step dispatches +
+    prewarm) a serve. Printed beside the card: the ingest stage times,
+    stall, workers and depth, cache and memo meters; then wall-clock
+    serving at 1.5x the engine's drain rate on this corpus over the split
+    ``WALL_REPEATS`` times, ingest and prefix caches off, thread / process
+    / process / thread. Returns K1's launches."""
+    from fira_tpu_torch.config import fira_full
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.data.synthetic import write_extracted_corpus_dir
+    from fira_tpu_torch.decode import engine as engine_lib
+    from fira_tpu_torch.ingest.difftext import (reconstruct_request,
+                                                write_diff_trace)
+    from fira_tpu_torch.ingest.service import build_fast_path, serve_diffs
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.robust.faults import FaultInjector, parse_fault_specs
+    from fira_tpu_torch.serve import poisson_times, write_trace
+
+    cs = ctx["cs"]
+    t_phase = time.perf_counter()
+    work = os.path.join(ctx["work"], "serve_diffs")
+    data_dir = os.path.join(work, "DataSet")
+    t0 = time.perf_counter()
+    corpus = write_extracted_corpus_dir(data_dir, N_COMMITS, seed=SEED)
+    pad_vocabs(data_dir)
+    ds = FiraDataset(data_dir, fira_full())
+    cfg = ds.cfg
+    check(cfg.vocab_size == WORD_VOCAB and cfg.ast_change_vocab_size
+          == AST_VOCAB, f"extracted corpus widths {cfg.vocab_size}/"
+          f"{cfg.ast_change_vocab_size}")
+    texts = [reconstruct_request(corpus.record(int(i)))
+             for i in ds.split_indices["test"]]
+    n = len(texts)
+    diffs = os.path.join(work, "diffs.trace")
+    write_diff_trace(diffs, texts)
+    trace = os.path.join(work, "trace.txt")
+    times = poisson_times(n, rate=0.5, seed=3)
+    write_trace(trace, times)
+    twice = os.path.join(work, "diffs_twice.trace")
+    write_diff_trace(twice, texts + texts[::-1])
+    trace2 = os.path.join(work, "trace_twice.txt")
+    write_trace(trace2, np.concatenate([times, times[-1] + 1.0 + times]))
+    print(f"[serve-diffs] extracted corpus of {N_COMMITS} commits and its "
+          f"{n} test diffs written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    def run(name, flags, tr=trace, watch=False):
+        fn = lambda: serve_cli(torch, ctx, run32, name, flags,  # noqa: E731
+                               data_dir=data_dir, trace=tr,
+                               sub="serve_diffs")
+        if not watch:
+            return fn()
+        r, kids = watch_children(fn)
+        check(kids and not any(t or c for t, c in kids.values()),
+              f"cli serve {name}: the ingest pool's processes {kids} "
+              f"(pid: libtorch, CUDA library mapped)")
+        r["kids"] = kids
+        return r
+
+    k1 = 0
+    graphs = run("graphs", [])
+    k1 += graphs["k1"]
+    ref = graphs["out"]
+    ref_lines = ref.decode().split("\n")
+    nonempty = sum(bool(x) for x in ref_lines[:n])
+    print(f"[serve-diffs] cli serve --input graphs on the extracted corpus: "
+          f"{graphs['line']}; {nonempty} of {n} lines not empty; "
+          f"copy_score launches {graphs['k1']}", flush=True)
+    for cache in ("off", "on"):
+        for mode in ("thread", "process"):
+            name = f"diffs cache {cache} {mode}"
+            r = run(name, ["--input", "diffs", "--diff-trace", diffs,
+                           "--ingest-cache", cache, "--ingest-exec", mode],
+                    watch=mode == "process")
+            k1 += r["k1"]
+            m = r["metrics"]
+            check(r["out"] == ref,
+                  f"cli serve {name}: {len(n_lines_differ(r['out'], ref))} "
+                  f"of {n} lines differ from --input graphs")
+            check(m["serve"]["ingest"]["requests_ingested"] == n
+                  and all(x["ingest"] for x in m["request_records"]),
+                  f"cli serve {name}: ingest stamps missing")
+            kids = (f"; pool processes {sorted(r['kids'])}, none with "
+                    f"libtorch or a CUDA library mapped"
+                    if "kids" in r else "")
+            print(f"[serve-diffs] cli serve --input diffs, ingest cache "
+                  f"{cache}, {mode}: output_fira byte-identical to --input "
+                  f"graphs; {r['line'].split('  p50')[0]}; "
+                  f"{ingest_report(m)}; copy_score launches {r['k1']}"
+                  f"{kids}; on {ctx['smi']}", flush=True)
+
+    # --- the diffs twice, the second pass reversed, cache on
+    r = run("twice", ["--input", "diffs", "--diff-trace", twice], tr=trace2)
+    k1 += r["k1"]
+    twice_lines = r["out"].decode().split("\n")
+    check(twice_lines[:n] == ref_lines[:n]
+          and twice_lines[n:2 * n] == ref_lines[:n][::-1],
+          "diffs twice: a line differs from its first pass's")
+    ing = r["metrics"]["serve"]["ingest"]
+    coalesced = ing["cache"]["coalesced"]
+    check(ing["cache_hits"] >= n - coalesced,
+          f"diffs twice: {ing['cache_hits']} cache hits, {n} repeats, "
+          f"{coalesced} coalesced in flight")
+    sv = r["metrics"]["serve"]
+    print(f"[serve-diffs] the {n} diffs twice (second pass reversed), cache "
+          f"on: every line its first pass's; ingest cache hits "
+          f"{ing['cache_hits']} of {n} repeats ({coalesced} coalesced in "
+          f"flight), prefix-cache coalesced {sv['dedup_coalesced']}, "
+          f"prefills {r['metrics']['engine']['prefills']}; "
+          f"{ingest_report(r['metrics'])}", flush=True)
+
+    # --- malformed diffs
+    bad = {7: "garbage that is not a diff\n",
+           n // 2: "diff --git a/A.java b/A.java\n+int x = 1 ;\n",
+           n - 3: "@@ -1,1 +1,1 @@ class A\n?int x ;\n"}
+    broken = [bad.get(i, t) for i, t in enumerate(texts)]
+    bpath = os.path.join(work, "diffs_malformed.trace")
+    write_diff_trace(bpath, broken)
+    r = run("malformed", ["--input", "diffs", "--diff-trace", bpath])
+    k1 += r["k1"]
+    recs = r["metrics"]["request_records"]
+    lines = r["out"].decode().split("\n")
+    shed = [x["position"] for x in recs if x["status"] == "shed_error"]
+    check(shed == sorted(bad)
+          and all("DiffParseError" in recs[p]["error"] and lines[p] == ""
+                  for p in bad)
+          and all(lines[i] == ref_lines[i] for i in range(n)
+                  if i not in bad),
+          f"malformed diffs: shed {shed}, expected {sorted(bad)}")
+    print(f"[serve-diffs] {len(bad)} malformed diffs at {sorted(bad)}: "
+          f"exactly those shed with their errors and empty lines, every "
+          f"other line unchanged; e.g. {recs[sorted(bad)[0]]['error']!r}",
+          flush=True)
+
+    # --- the ingest fault sites, on the doubled trace
+    for name, flags in DIFF_FAULTS:
+        r = run(name, ["--input", "diffs", "--diff-trace", twice, *flags],
+                tr=trace2)
+        k1 += r["k1"]
+        recs = r["metrics"]["request_records"]
+        lines = r["out"].decode().split("\n")
+        fired = r["metrics"].get("faults", {})
+        shed = {x["position"] for x in recs if x["status"] == "shed_error"}
+        scrambled = set()
+        for spec in parse_fault_specs(flags[1]):
+            if spec.site == "ingest.parse" and spec.kind == "corrupt":
+                scrambled = {i for i in range(2 * n)
+                             if FaultInjector._draw(spec, i)}
+        moved = {i for i in range(2 * n) if lines[i] != twice_lines[i]}
+        check(len(lines) == 2 * n + 1 and len(recs) == 2 * n,
+              f"cli serve {name}: {len(lines) - 1} lines")
+        check(moved <= shed | scrambled
+              and all(lines[p] == "" and recs[p]["error"] for p in shed),
+              f"cli serve {name}: lines {sorted(moved - shed - scrambled)} "
+              f"moved without a shed or a scramble")
+        cache = r["metrics"]["serve"]["ingest"]["cache"]
+        if "ingest.cache" in flags[1]:
+            check(cache["integrity_drops"] == fired.get("ingest.cache", 0)
+                  > 0 and fired.get("ingest.parse", 0) > 0,
+                  f"cli serve {name}: fired {fired}, cache {cache}")
+        else:
+            check(not shed and len(scrambled) == fired.get("ingest.parse"),
+                  f"cli serve {name}: shed {sorted(shed)}, fired {fired}, "
+                  f"{len(scrambled)} scrambled by the draw")
+        print(f"[serve-diffs] cli serve --input diffs --inject-faults "
+              f"{flags[1]} on the doubled trace: exit 0, valid "
+              f"serve_metrics.json; fired {fired}; shed {sorted(shed)}; "
+              f"scrambled payloads {sorted(scrambled)}; lines moved from the "
+              f"clean run {sorted(moved)}; integrity drops "
+              f"{cache['integrity_drops']}", flush=True)
+
+    # --- wall clock at 1.5x the drain rate, ingest and prefix caches off,
+    # the parse stage on threads and on the pool in turns
+    c = cfg.replace(decode_engine=True, compute_dtype="float32",
+                    prefix_cache=False, ingest_cache=False)
+    model = FiraModel(c, device="cuda", dtype="float32").eval()
+    model.load_state_dict(run32["state_dict"])
+    from fira_tpu_torch.cli import _load_var_maps
+
+    dctx = dict(ctx, ds=ds, var_maps=_load_var_maps(data_dir))
+    drain = engine_decode(torch, dctx, model, c, staged_batches(torch, dctx,
+                                                                c))
+    k1 += drain["k1"]
+    eng = engine_lib.SlotEngine(model, c)
+    mix = np.tile(np.arange(n), WALL_REPEATS)
+    wall_reqs = [texts[j] for j in mix]
+    rate = 1.5 * drain["rate"]
+    arrivals_w = poisson_times(len(mix), rate, seed=5)
+    fast = {}
+    try:
+        for mode in ("thread", "process"):
+            cm = c.replace(ingest_exec=mode)
+            fast[mode] = build_fast_path(
+                cm, context=(ds.word_vocab, ds.ast_change_vocab, cm, None))
+            # warm the engine and the pool outside the timed runs
+            serve_diffs(model, ds.word_vocab, ds.ast_change_vocab, cm,
+                        requests=texts[:c.test_batch_size],
+                        arrival_times=np.zeros(c.test_batch_size),
+                        out_dir=os.path.join(work, f"warm_{mode}"),
+                        engine=eng, fast_path=fast[mode])
+        for i, mode in enumerate(("thread", "process", "process",
+                                  "thread")):
+            cm = c.replace(ingest_exec=mode)
+            eng.stats = engine_lib.EngineStats(slots=eng.slots)
+            cs.copy_scores.launches = 0
+
+            def wall_run():
+                return serve_diffs(
+                    model, ds.word_vocab, ds.ast_change_vocab, cm,
+                    requests=wall_reqs, arrival_times=arrivals_w,
+                    out_dir=os.path.join(work, f"wall_{i}_{mode}"),
+                    clock="wall", engine=eng, fast_path=fast[mode])
+            if mode == "process":
+                m, kids = watch_children(wall_run)
+                check(kids and not any(t or g for t, g in kids.values()),
+                      f"wall {mode}: pool processes {kids}")
+            else:
+                m = wall_run()
+            torch.cuda.synchronize()
+            launched = cs.copy_scores.launches
+            k1 += launched
+            sv, e = m["serve"], m["engine"]
+            check(launched == c.engine_harvest_every * e["step_dispatches"],
+                  f"wall {mode}: copy_score launched {launched} times for "
+                  f"{e['step_dispatches']} step dispatches")
+            check(sv["completed"] == sv["offered"] == len(mix),
+                  f"wall {mode}: {sv['completed']} of {len(mix)} completed")
+            check(serve_bytes(m).decode().split("\n")
+                  == [ref_lines[j] for j in mix] + [""],
+                  f"wall {mode}: a line differs from its diff's graphs line")
+            print(f"[serve-diffs] wall clock at 1.5x the drain rate "
+                  f"({drain['rate']:.2f} commits/s on this corpus), ingest "
+                  f"and prefix caches off, --ingest-exec {mode} (turn "
+                  f"{i + 1} of 4): offered {rate:.2f} req/s ({sv['offered']} "
+                  f"requests, measured {sv['offered_rate_rps']}), completed "
+                  f"{sv['completed']} at {sv['throughput_rps']} req/s; p50/"
+                  f"p99 TTFT {sv['p50_ttft_s']}/{sv['p99_ttft_s']} s, p50/"
+                  f"p99 e2e {sv['p50_e2e_s']}/{sv['p99_e2e_s']} s; "
+                  f"{ingest_report(m)}; each line its diff's graphs line; "
+                  f"on {ctx['smi']}", flush=True)
+    finally:
+        for f in fast.values():
+            if f[2] is not None:
+                f[2].close()
+    print(f"[serve-diffs] the phase: K1 launched {k1} times over its serve "
+          f"runs and the drain (each 4 a step dispatch, prewarm included), "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model, eng
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -2996,6 +3389,8 @@ def main() -> int:
     # --- preprocessing and the one-shot raw-diff path, cli message ---
     phase_preprocess(ctx)
     msg_k1 = phase_message(torch, ctx, run32, run16)
+    # --- cli serve --input diffs and the ingest fast path ---
+    diffs_k1 = phase_serve_diffs(torch, ctx, run32)
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -3020,7 +3415,8 @@ def main() -> int:
         dict(name="copy_score_fwd", dtype="float32",
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
-             + eng_k1["float32"] + msg_k1["float32"] + serve_k1, **fwd,
+             + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1,
+             **fwd,
              **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
              launches=sum(r["k1"] for r in (run16, main16, tb16, mb16, ev16,

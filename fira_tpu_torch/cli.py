@@ -26,12 +26,18 @@
   latency, shed counts, the engine's stats, every request's record),
   atomically, with a ``.partial`` snapshot kept through the run. The
   prefix cache and in-flight dedup are on unless ``--prefix-cache off``.
-  ``--inject-faults`` arms seeded faults at the seven wired sites,
-  ``--dispatch-watchdog-s`` retires an engine whose dispatch outlives it
-  (the rest are then shed with the reason), ``--robust-retries`` is the
-  poisoned request's retry budget. No request journal (``.journal``) is
-  written: ``--resume`` (ROADMAP A.8c) and ``--input diffs`` (A.8b) exit
-  2 naming their item.
+  ``--input diffs --diff-trace PATH`` serves raw unified diffs instead
+  (ingest/service.py ``serve_diffs``): each request is lexed, split into
+  hunks, its AST graph extracted and encoded on the feeder workers
+  (``--ingest-workers``), behind the whole-diff result cache and the hunk
+  and lexer memos (``--ingest-cache``), the parse stage inline or on a
+  spawned process pool (``--ingest-exec``); a malformed diff is shed with
+  its error recorded. ``--inject-faults`` arms seeded faults at the nine
+  wired sites, ``--dispatch-watchdog-s`` retires an engine whose dispatch
+  outlives it (the rest are then shed with the reason),
+  ``--robust-retries`` is the poisoned request's retry budget. No request
+  journal (``.journal``) is written: ``--resume`` (ROADMAP A.8c) exits 2
+  naming its item.
 
 ``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
 (``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
@@ -69,6 +75,7 @@ Example:
     python -m fira_tpu_torch.cli preprocess --data-dir DataSet --num-procs 8
     python -m fira_tpu_torch.cli message change.diff --config fira-full
     python -m fira_tpu_torch.cli serve --config fira-full --serve-rate 20
+    python -m fira_tpu_torch.cli serve --input diffs --diff-trace reqs.trace
 """
 
 from __future__ import annotations
@@ -229,8 +236,51 @@ def build_parser() -> argparse.ArgumentParser:
                         "unbounded, the entry cap the only bound; >= 0)")
     p.add_argument("--input", default="graphs", choices=["graphs", "diffs"],
                    help="serve: the request source: 'graphs' (default), "
-                        "the test split's graph requests; 'diffs' (raw "
-                        "diffs) comes with ROADMAP A.8b and exits 2")
+                        "the test split's graph requests; 'diffs', raw "
+                        "unified diffs from --diff-trace, each parsed, "
+                        "lexed, split into hunks, its AST graph extracted "
+                        "and encoded on the feeder workers (a malformed "
+                        "one is shed with its error recorded); a "
+                        "reconstructed corpus diff serves the graphs "
+                        "path's line")
+    p.add_argument("--diff-trace", default=None, metavar="PATH",
+                   help="serve --input diffs: the requests, a file of "
+                        "'#! request'-separated unified diffs or a "
+                        "directory of .diff files served in sorted name "
+                        "order (checked at parse time, exit 2); arrival "
+                        "times still come from --serve-rate or "
+                        "--serve-trace")
+    p.add_argument("--ingest-workers", type=int, default=None, metavar="N",
+                   help="serve --input diffs: feeder workers of the "
+                        "ingest tasks (0/unset: --feeder-workers; >= 0)")
+    p.add_argument("--ingest-truncate", default=None,
+                   choices=["clip", "shed"],
+                   help="serve --input diffs: an over-budget diff is "
+                        "truncated to the config geometry, what was "
+                        "dropped recorded ('clip', default), or shed with "
+                        "its error recorded ('shed')")
+    p.add_argument("--ingest-cache", default=None, choices=["on", "off"],
+                   help="serve --input diffs: the ingest fast path "
+                        "(default on): a byte-identical repeat of a raw "
+                        "diff seats from an LRU of assembled payloads "
+                        "(its ingest stamps replayed with `cached`), and "
+                        "the AST stage is memoized per hunk; bitwise "
+                        "equal to 'off'")
+    p.add_argument("--ingest-cache-entries", type=int, default=None,
+                   metavar="N",
+                   help="whole-diff result-cache LRU capacity in payloads "
+                        "(default 512; 0 = unbounded; >= 0)")
+    p.add_argument("--ingest-cache-bytes", type=int, default=None,
+                   metavar="B",
+                   help="whole-diff result-cache host-memory budget in "
+                        "bytes (0/unset: unbounded; >= 0)")
+    p.add_argument("--ingest-exec", default=None,
+                   choices=["thread", "process"],
+                   help="serve --input diffs: the AST parse stage runs "
+                        "inline on the feeder workers ('thread', default) "
+                        "or on a spawned process pool of --ingest-workers "
+                        "processes that import no torch ('process'); "
+                        "bitwise equal either way")
     p.add_argument("--serve-rate", type=float, default=None, metavar="RPS",
                    help="serve: offered load in requests/s of the "
                         "open-loop Poisson generator; needed (> 0) unless "
@@ -265,10 +315,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inject-faults", default=None, metavar="SPEC",
                    help="seeded fault injection: 'site:kind:rate:seed[,...]'"
                         " (sites wired: feeder.assemble, feeder.device_put, "
-                        "engine.prefill, engine.step, engine.harvest, "
-                        "serve.admit, cache.lookup; kinds: raise | hang | "
-                        "corrupt); deterministic given the seed; off by "
-                        "default")
+                        "ingest.parse, ingest.cache, engine.prefill, "
+                        "engine.step, engine.harvest, serve.admit, "
+                        "cache.lookup; kinds: raise | hang | corrupt); "
+                        "deterministic given the seed; off by default")
     p.add_argument("--dispatch-watchdog-s", type=float, default=None,
                    metavar="S",
                    help="per-dispatch wall-clock watchdog: a serve dispatch "
@@ -380,9 +430,13 @@ def resolve_config(args):
                  "prefix_cache_entries", "prefix_cache_bytes", "serve_rate",
                  "serve_prefill_budget", "serve_deadline_steps",
                  "serve_queue_cap", "inject_faults",
-                 "dispatch_watchdog_s", "robust_retries"):
+                 "dispatch_watchdog_s", "robust_retries", "ingest_workers",
+                 "ingest_truncate", "ingest_cache_entries",
+                 "ingest_cache_bytes", "ingest_exec"):
         if getattr(args, knob) is not None:
             cfg = cfg.replace(**{knob: getattr(args, knob)})
+    if args.ingest_cache is not None:
+        cfg = cfg.replace(ingest_cache=args.ingest_cache == "on")
     # serve runs on the slot engine, with the prefix cache and in-flight
     # dedup on unless --prefix-cache off (the JAX CLI's defaults)
     if args.command == "serve":
@@ -410,13 +464,14 @@ def message_errors(cfg, target: Optional[str]) -> List[str]:
     return errs
 
 
-def serve_input_errors(args) -> List[str]:
-    """``cli serve``'s refusals of paths the port does not run yet, each
-    naming the ROADMAP item that brings it."""
-    errs = []
-    if args.input == "diffs":
-        errs.append("--input diffs: serving raw diffs (the ingest fast "
-                    "path) is not ported yet (ROADMAP A.8b)")
+def serve_input_errors(args, cfg) -> List[str]:
+    """``cli serve``'s parse-time refusals: the request source and the
+    ingest knobs (in the JAX package's words), and the paths the port does
+    not run yet, each naming the ROADMAP item that brings it."""
+    from fira_tpu_torch.ingest.service import ingest_errors
+
+    errs = ingest_errors(cfg, input_mode=args.input,
+                         diff_trace=args.diff_trace, command="serve")
     if args.resume:
         errs.append("--resume: the port writes no request journal yet "
                     "(the journal and crash-resume are ROADMAP A.8c)")
@@ -455,7 +510,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return bool(errs)
 
     if args.command == "serve":
-        errs = serve_input_errors(args)
+        errs = serve_input_errors(args, cfg)
         for e in errs:
             print(f"parse-time validation: {e}", file=sys.stderr)
         if errs:
@@ -567,25 +622,45 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def serve(args, model, dataset, cfg) -> int:
-    """``cli serve`` after the checkpoint is loaded: the arrival times,
-    the serving run, the summary line."""
+    """``cli serve`` after the checkpoint is loaded: the requests (the
+    test split, or the ``--diff-trace`` diffs), the arrival times, the
+    serving run, the summary lines."""
     from fira_tpu_torch.serve import poisson_times, read_trace, serve_split
 
-    n_req = len(dataset.splits["test"])
+    if args.input == "diffs":
+        from fira_tpu_torch.ingest.difftext import read_diff_trace
+
+        requests = read_diff_trace(args.diff_trace)
+        n_req = len(requests)
+    else:
+        n_req = len(dataset.splits["test"])
     if args.serve_trace:
         times = read_trace(args.serve_trace)
         if len(times) > n_req:
             print(f"parse-time validation: --serve-trace has {len(times)} "
                   f"arrivals but the request source holds only {n_req} "
-                  f"samples", file=sys.stderr)
+                  f"{'diffs' if args.input == 'diffs' else 'samples'}",
+                  file=sys.stderr)
             return 2
     else:
         times = poisson_times(n_req, cfg.serve_rate, seed=cfg.seed)
     metrics_path = os.path.join(args.out_dir, "serve_metrics.json")
-    metrics = serve_split(model, dataset, cfg, arrival_times=times,
-                          out_dir=args.out_dir, ablation=args.ablation,
-                          var_maps=_load_var_maps(args.data_dir),
-                          clock=args.serve_clock, metrics_path=metrics_path)
+    if args.input == "diffs":
+        from fira_tpu_torch.ingest.service import serve_diffs
+
+        metrics = serve_diffs(model, dataset.word_vocab,
+                              dataset.ast_change_vocab, cfg,
+                              requests=requests[: len(times)],
+                              arrival_times=times, out_dir=args.out_dir,
+                              ablation=args.ablation,
+                              clock=args.serve_clock,
+                              metrics_path=metrics_path)
+    else:
+        metrics = serve_split(model, dataset, cfg, arrival_times=times,
+                              out_dir=args.out_dir, ablation=args.ablation,
+                              var_maps=_load_var_maps(args.data_dir),
+                              clock=args.serve_clock,
+                              metrics_path=metrics_path)
     sv = metrics["serve"]
     print(f"serve: {sv['completed']}/{sv['offered']} completed "
           f"(shed {sv['shed_queue_full']} queue-full, "
@@ -596,6 +671,12 @@ def serve(args, model, dataset, cfg) -> int:
           f"p50/p99 ttft {sv['p50_ttft_s']}/{sv['p99_ttft_s']} s  "
           f"p50/p99 e2e {sv['p50_e2e_s']}/{sv['p99_e2e_s']} s  "
           f"-> {metrics_path}")
+    if "ingest" in sv:
+        ing = sv["ingest"]
+        print(f"ingest: {ing['requests_ingested']} requests "
+              f"({ing['truncated']} truncated, {ing['degraded']} "
+              f"degraded)  p50 ingest {ing['p50_total_s']} s  "
+              f"ingest_stall_frac {ing['stall_frac']}")
     return 0
 
 

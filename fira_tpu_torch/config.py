@@ -107,13 +107,13 @@ class FiraConfig:
     kv_pool_blocks: int = 0
     decode_tar_buckets: bool = False
     # --- serving (serve/server.py), the prefix cache and in-flight dedup
-    # (decode/prefix_cache.py) and degradation (robust/: fault injection,
-    # the dispatch watchdog, the quarantine retries); beside them the knobs
-    # of JAX-package paths the port does not run yet (fleet, recovery,
-    # spec decode, quant tiers, the disaggregated tier, the ingest fast
-    # path), kept so configs read alike: ``unsupported`` refuses each one
-    # that selects such a path. ``cli message`` reads ingest_truncate;
-    # ingest.service.ingest_errors checks the ingest_* knobs ---
+    # (decode/prefix_cache.py), raw-diff ingest and its fast path
+    # (ingest/: ingest.service.ingest_errors checks the ingest_* knobs)
+    # and degradation (robust/: fault injection, the dispatch watchdog,
+    # the quarantine retries); beside them the knobs of JAX-package paths
+    # the port does not run yet (fleet, recovery, spec decode, quant
+    # tiers, the disaggregated tier), kept so configs read alike:
+    # ``unsupported`` refuses each one that selects such a path ---
     prefix_cache: bool = False
     prefix_cache_entries: int = 256
     prefix_cache_bytes: int = 0

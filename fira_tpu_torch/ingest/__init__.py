@@ -1,10 +1,19 @@
 """Raw-diff ingest (the port's ``fira_tpu/ingest``, docs/INGEST.md):
 ``difftext`` is the text front end (unified-diff parse/reconstruct + Java
 lexing); ``service`` the per-request pipeline (FSM -> AST extraction ->
-frozen-vocab encode -> wire payload) and ``one_shot_message``, the
-diff-in, message-out path of ``cli message``.
+frozen-vocab encode -> wire payload), ``serve_diffs`` (``cli serve --input
+diffs``) and ``one_shot_message`` (``cli message``); ``cache`` the ingest
+fast path (the whole-diff result cache, the hunk and lexer memos, the
+parse-stage process executor).
 """
 
+from fira_tpu_torch.ingest.cache import (  # noqa: F401
+    HunkMemo,
+    IngestCache,
+    IngestExecutor,
+    LexMemo,
+    text_digest,
+)
 from fira_tpu_torch.ingest.difftext import (  # noqa: F401
     DiffParseError,
     DiffRequest,
@@ -16,8 +25,11 @@ from fira_tpu_torch.ingest.difftext import (  # noqa: F401
 )
 from fira_tpu_torch.ingest.service import (  # noqa: F401
     IngestError,
+    build_fast_path,
     ingest_errors,
     ingest_record,
     ingest_request,
+    ingest_request_tasks,
     one_shot_message,
+    serve_diffs,
 )

@@ -34,9 +34,9 @@ regardless of the lines they arrived on, so splitting a run across body
 lines is a no-op downstream.
 
 Trace I/O: :func:`read_diff_trace` / :func:`write_diff_trace` handle the
-request sources of the JAX package's ``cli serve --input diffs``: a
-single file of ``#! request``-separated diffs, or a directory of
-``*.diff`` files served in sorted name order.
+request sources of ``cli serve --input diffs``: a single file of
+``#! request``-separated diffs, or a directory of ``*.diff`` files served
+in sorted name order.
 """
 
 from __future__ import annotations
@@ -54,7 +54,9 @@ from fira_tpu_torch.preprocess.fsm import NB, NL
 
 class DiffParseError(ValueError):
     """Malformed diff text, named with its line: ``cli message`` rejects
-    the request with it (exit 1), never a crash (docs/INGEST.md)."""
+    the request with it (exit 1), and the serving loop's poison-request
+    quarantine sheds it with the reason recorded, never a crash
+    (docs/INGEST.md)."""
 
 
 # one unified-diff hunk header; group(1) is git's trailing section text
@@ -92,21 +94,25 @@ class DiffRequest:
     var_map: Dict[str, str]
 
 
-def _lex(text: str, where: str) -> List[str]:
+def _lex(text: str, where: str, lex=None) -> List[str]:
     if not text.strip():
         return []
-    toks = astdiff.tokenize(text)
+    toks = (lex or astdiff.tokenize)(text)
     if toks is None:
         raise DiffParseError(f"{where}: unlexable content {text!r}")
     return toks
 
 
-def parse_request(text: str) -> DiffRequest:
+def parse_request(text: str, *, lex=None) -> DiffRequest:
     """Raw request text -> :class:`DiffRequest`. Raises
     :class:`DiffParseError` (with the offending line number) on anything
     that is not a unified diff: a body line before any ``@@`` hunk
     header, an unknown marker character, malformed ``#!`` metadata, or a
-    request with no diff content at all."""
+    request with no diff content at all.
+
+    ``lex``: a text -> tokens callable in place of the native lexer (the
+    ingest fast path passes ``ingest.cache.LexMemo``: a repeated body line
+    lexes once a process), with the bare lexer's output."""
     tokens: List[str] = []
     marks: List[int] = []
     msg_tokens: List[str] = []
@@ -153,7 +159,7 @@ def parse_request(text: str) -> DiffRequest:
             in_hunk = True
             section = m.group(1).strip()
             if section:
-                toks = _lex(section, f"line {ln}")
+                toks = _lex(section, f"line {ln}", lex)
                 if toks:
                     tokens += [NB] + toks + [NL]
                     marks += [2] * (len(toks) + 2)
@@ -166,7 +172,7 @@ def parse_request(text: str) -> DiffRequest:
         if not in_hunk:
             raise DiffParseError(
                 f"line {ln}: diff body line before any @@ hunk header")
-        toks = _lex(line[1:], f"line {ln}")
+        toks = _lex(line[1:], f"line {ln}", lex)
         tokens += toks
         marks += [_MARK_BY_CHAR[c]] * len(toks)
     if not tokens:
@@ -269,7 +275,7 @@ def reconstruct_request(record) -> str:
 
 
 # --------------------------------------------------------------------------
-# diff-trace I/O (the request sources of serving raw diffs)
+# diff-trace I/O (cli serve --input diffs)
 # --------------------------------------------------------------------------
 
 _REQUEST_SEP = "#! request"

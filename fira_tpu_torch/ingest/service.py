@@ -29,12 +29,16 @@ DEGRADATION CONTRACT, in order of severity:
 - an over-budget diff is deterministically truncated to the config
   geometry (``cfg.ingest_truncate = "clip"``, recorded per request) or
   rejected with ``IngestError`` (``"shed"``);
-- malformed diff text raises ``difftext.DiffParseError``.
+- malformed diff text raises ``difftext.DiffParseError``; the serving
+  loop sheds such a request with the reason recorded and an empty output
+  line.
 
-:func:`one_shot_message` is ``cli message``: one diff in, the batched
-beam on the model's device, one message out. Serving raw diffs (the
-result cache, the memos, the process executor, ``serve_diffs``) comes
-with the serving loop (ROADMAP A.8).
+:func:`serve_diffs` is ``cli serve --input diffs``: the serving loop of
+``serve/server.py`` fed by one ingest task a request on the Feeder's
+workers (:func:`ingest_request_tasks`), with the fast path of
+``ingest/cache.py`` (:func:`build_fast_path`). :func:`one_shot_message`
+is ``cli message``: one diff in, the batched beam on the model's device,
+one message out.
 """
 
 from __future__ import annotations
@@ -42,14 +46,16 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data.schema import CommitRecord
 from fira_tpu_torch.data.vocab import PAD_ID, UNK_TOKEN, Vocab, normalize_token
-from fira_tpu_torch.ingest.cache import EXEC_MODES
+from fira_tpu_torch.ingest.cache import (EXEC_MODES, HunkMemo, IngestCache,
+                                         IngestExecutor, LexMemo,
+                                         text_digest)
 from fira_tpu_torch.ingest.difftext import DiffRequest, parse_request
 from fira_tpu_torch.preprocess.fsm import NB, NL, split_hunks
 from fira_tpu_torch.preprocess.pipeline import split_sub_tokens
@@ -203,13 +209,19 @@ def _clip_sub_tokens(tokens: List[str], atts: List[List[str]],
 
 def ingest_record(req: DiffRequest, cfg: FiraConfig, *,
                   truncate: Optional[str] = None,
-                  commit_index: Optional[int] = None
+                  commit_index: Optional[int] = None,
+                  memo: Optional[HunkMemo] = None
                   ) -> Tuple[CommitRecord, Dict]:
     """Parsed request -> :class:`CommitRecord` + per-request info dict
     (``truncated``: what the deterministic clip dropped, or None;
     ``degraded``: the extraction error the request degraded on, or
     None). Mirrors the offline pipeline exactly for requests that fit
-    the config geometry, the round-trip contract's precondition."""
+    the config geometry, the round-trip contract's precondition.
+
+    ``memo``: a hunk-level AST memo (``ingest.cache.HunkMemo``, or a
+    request's ``MemoTally`` of one): chunk extractions are reused across
+    near-identical requests, bit-exact since they are pure functions of
+    the chunk (the rebase still runs here)."""
     from fira_tpu_torch.preprocess import extract
 
     truncate = truncate or cfg.ingest_truncate
@@ -247,7 +259,7 @@ def ingest_record(req: DiffRequest, cfg: FiraConfig, *,
     try:
         chunks, types = split_hunks(tokens, marks)
         g = extract.extract_commit(chunks, types, tokens,
-                                   commit_index=commit_index)
+                                   commit_index=commit_index, memo=memo)
         ast, change = list(g.ast), list(g.change)
         edge_ast = list(g.edge_ast)
         edge_ast_code = list(g.edge_ast_code)
@@ -312,7 +324,9 @@ def _clip_edges(ex, cfg: FiraConfig) -> Tuple[object, int]:
 def ingest_request(text: str, word_vocab: Vocab, ast_change_vocab: Vocab,
                    cfg: FiraConfig, *, table=None,
                    truncate: Optional[str] = None,
-                   batch_size: int = 1) -> Dict:
+                   batch_size: int = 1,
+                   lex=None,
+                   executor: Optional[IngestExecutor] = None) -> Dict:
     """One raw request -> its wire payload (the ``make_batch`` dict of the
     corpus path, request in row 0 and the other ``batch_size - 1`` rows
     padding), plus host-only metadata:
@@ -324,15 +338,28 @@ def ingest_request(text: str, word_vocab: Vocab, ast_change_vocab: Vocab,
                     ``assemble_s``), token count, the truncation record,
                     the degradation reason, and the OOV fallback counts
                     (``oov_words``: diff/msg tokens encoded to <unkm>;
-                    ``oov_ast``: AST/change labels encoded to <pad>).
+                    ``oov_ast``: AST/change labels encoded to <pad>);
+                    with an ``executor``, also ``memo_hits`` and
+                    ``memo_misses``, the hunk memo's reuse inside this
+                    request.
+
+    ``lex``/``executor``: the fast-path hooks (ingest/cache.py): the
+    lexer memo for the lex stage, and the parse-stage executor (inline
+    with the hunk memo, or the spawned process pool). None runs the plain
+    pipeline; the payload is bit-exact either way.
     """
     from fira_tpu_torch.data.batching import make_batch
     from fira_tpu_torch.data.dataset import ProcessedSplit, process_record
 
     t0 = time.perf_counter()
-    req = parse_request(text)
+    req = parse_request(text, lex=lex)
     t1 = time.perf_counter()
-    record, info = ingest_record(req, cfg, truncate=truncate)
+    memo_hits = memo_misses = 0
+    if executor is not None:
+        record, info, memo_hits, memo_misses = executor.parse(
+            req, cfg, truncate or cfg.ingest_truncate)
+    else:
+        record, info = ingest_record(req, cfg, truncate=truncate)
     t2 = time.perf_counter()
 
     words = _LenientVocab(word_vocab)
@@ -379,7 +406,242 @@ def ingest_request(text: str, word_vocab: Vocab, ast_change_vocab: Vocab,
         "oov_words": words.unk_fallbacks,
         "oov_ast": asts.pad_fallbacks,
     }
+    if executor is not None:
+        # the partial-hit meter: hunk-memo reuse inside a whole-diff miss,
+        # apart from the result cache's `cached` flag
+        host["_ingest"]["memo_hits"] = memo_hits
+        host["_ingest"]["memo_misses"] = memo_misses
     return host
+
+
+def build_fast_path(cfg: FiraConfig, *, faults=None, context=None):
+    """The fast-path objects of one serve run, per the knobs: ``(cache,
+    lex, executor)``. The whole-diff result cache and the lexer memo
+    (None with ``ingest_cache`` off); the executor: the spawned process
+    pool under ``ingest_exec=process``, the inline one carrying the hunk
+    memo when the cache is on, else None (the plain pipeline).
+
+    ``context``: ``(word_vocab, ast_change_vocab, cfg, table)``; given,
+    the process pool ingests whole requests (raw text out, an assembled
+    payload back), so the parent's time a request is pickling only. The
+    caller owns ``executor.close()``."""
+    cache = lex = memo = None
+    if cfg.ingest_cache:
+        cache = IngestCache(cfg.ingest_cache_entries,
+                            max_bytes=cfg.ingest_cache_bytes,
+                            faults=faults)
+        memo = HunkMemo()
+        lex = LexMemo()
+    if cfg.ingest_exec == "process":
+        executor = IngestExecutor(
+            "process", workers=cfg.ingest_workers or cfg.feeder_workers,
+            context=context)
+    elif memo is not None:
+        executor = IngestExecutor("thread", memo=memo)
+    else:
+        executor = None
+    return cache, lex, executor
+
+
+def ingest_request_tasks(requests: Sequence[str], cfg: FiraConfig,
+                         word_vocab: Vocab, ast_change_vocab: Vocab,
+                         table=None, faults=None, cache=None, lex=None,
+                         executor: Optional[IngestExecutor] = None):
+    """One ingest task a request, request order: the Feeder runs them on
+    its workers as ``serve/server._request_tasks`` runs corpus assembly,
+    so payloads are ready ahead of their arrivals, a failing request
+    rides the per-task error channel into the quarantine, and digests are
+    stamped on the worker when the prefix cache is on. The
+    ``ingest.parse`` fault site fires here (raise or hang before the
+    parse, corrupt on the assembled payload; each retry a fresh keyed
+    draw).
+
+    ``cache``/``lex``/``executor``: the fast path (:func:`build_fast_path`).
+    With the cache the raw text is content-addressed before any lexing: a
+    byte-identical repeat skips the pipeline and replays the stored
+    payload (``_ingest`` stamps with ``cached: True``); the
+    ``ingest.cache`` site fires inside the lookup (raise: a miss; corrupt:
+    a checksum drop and a re-ingest). The cache stores the clean
+    computation: the ``ingest.parse`` corrupt scramble and the prefix
+    cache's digest stamp are applied per emission, after the lookup, so
+    a fault's blast radius and the dedup identities are the cache-off
+    path's."""
+    from fira_tpu_torch.data.feeder import task_note
+    from fira_tpu_torch.decode.prefix_cache import (stamp_digests,
+                                                    tier_namespace)
+
+    stamp = cfg.prefix_cache
+    tier_ns = tier_namespace(cfg)
+    for i, text in enumerate(requests):
+        def task(text=text, i=i, attempts={"n": 0}):
+            if faults is not None:
+                # the attempt advances before the check, so a fired raise
+                # still moves the key: every retry is a fresh draw
+                key = (i, attempts["n"])
+                attempts["n"] += 1
+                faults.check("ingest.parse", key=key)
+            host = None
+            digest = None
+            if cache is not None:
+                digest = text_digest(text)
+                host, _outcome = cache.take(digest, fault_key=i)
+            if host is None:
+                # a miss makes this task the digest's in-flight leader:
+                # its duplicates wait inside cache.take until put (success)
+                # or abandon (a failing request must not wedge them)
+                try:
+                    if executor is not None and executor.offloads_requests:
+                        host = executor.ingest(text)
+                    else:
+                        host = ingest_request(text, word_vocab,
+                                              ast_change_vocab, cfg,
+                                              table=table, lex=lex,
+                                              executor=executor)
+                except BaseException:
+                    if cache is not None:
+                        cache.abandon(digest)
+                    raise
+                if cache is not None:
+                    cache.put(digest, host)
+            if faults is not None:
+                host = faults.corrupt("ingest.parse", i, host)
+            return stamp_digests(host, tier_ns) if stamp else host
+        task.note = task_note([i], site="ingest request")
+        yield task
+
+
+def _template_split(word_vocab: Vocab, ast_change_vocab: Vocab,
+                    cfg: FiraConfig):
+    """A one-row ProcessedSplit of an empty commit at the config
+    geometry: the shapes and dtypes of the all-pad template batches when
+    no corpus split backs the request stream."""
+    from fira_tpu_torch.data.dataset import ProcessedSplit, process_record
+
+    rec = CommitRecord([], [], [], [], {}, [], [], [], [], [], [])
+    ex = process_record(rec, _LenientVocab(word_vocab),
+                        _LenientVocab(ast_change_vocab), cfg)
+    return ProcessedSplit.from_examples([ex])
+
+
+# --------------------------------------------------------------------------
+# the diff-serving driver (the raw-diff twin of serve.server.serve_split)
+# --------------------------------------------------------------------------
+
+def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
+                cfg: FiraConfig, *,
+                requests: Sequence[str],
+                arrival_times,
+                out_dir: str = "OUTPUT",
+                ablation: Optional[str] = None,
+                clock: str = "wall",
+                engine=None,
+                metrics_path: Optional[str] = None,
+                fast_path=None) -> Dict:
+    """Serve the raw diffs ``requests`` (request ``i`` arrives at
+    ``arrival_times[i]``) on the model's device through the ServeLoop of
+    ``serve_split``: the same admission, deadlines, shedding, retirement,
+    dedup, position-keyed writer and metrics artifact, the payloads coming
+    from :func:`ingest_request` on the Feeder's workers instead of corpus
+    ``make_batch``. A request that fails to parse, or that the truncation
+    policy rejects, is shed with its error recorded and an empty output
+    line; every ingested request's record carries its ``_ingest`` stamps.
+
+    ``engine``: an engine already built and warmed (its caller owns its
+    config and stats). ``fast_path``: a caller-owned ``(cache, lex,
+    executor)`` from :func:`build_fast_path`, kept across runs (a warm
+    process pool); the caller clears and closes it. Without it the run
+    builds its own and closes its executor."""
+    from fira_tpu_torch.data import buckets as buckets_lib
+    from fira_tpu_torch.data.feeder import Feeder
+    from fira_tpu_torch.decode.runner import output_name
+    from fira_tpu_torch.decode.stream import OrderedStreamWriter
+    from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
+                                            reference_words)
+    from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
+    from fira_tpu_torch.robust import faults as faults_lib
+    from fira_tpu_torch.serve.server import (ServeLoop, build_engines,
+                                             finalize_serve_result,
+                                             make_clock,
+                                             metrics_snapshotter,
+                                             prepare_templates,
+                                             run_loop_guarded, serve_errors)
+
+    faults = faults_lib.injector_from(cfg)
+    times = np.asarray(arrival_times, dtype=np.float64)
+    n_req = len(times)
+    if n_req != len(requests):
+        raise ValueError(f"{len(requests)} requests for {n_req} arrivals")
+    errs = serve_errors(cfg, trace=True) + ingest_errors(cfg)
+    if errs:
+        raise ValueError("; ".join(errs))
+    clk = make_clock(clock)
+
+    table = buckets_lib.decode_table(cfg) if cfg.buckets else None
+    model.eval()
+    owner, engines, built = build_engines(model, cfg, engine=engine,
+                                          faults=faults)
+    templates = prepare_templates(
+        owner, _template_split(word_vocab, ast_change_vocab, cfg), cfg,
+        table, prewarm=built)
+
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, output_name(ablation))
+    bleu_by_pos: Dict[int, float] = {}
+    snapshot = metrics_snapshotter(metrics_path, owner, faults)
+
+    def emit(pos, host, row, tokens, probs):
+        # the sample emitter's tail with the request's own anonymization
+        # map (the packed batch's _var column): the same cooking, so a
+        # reconstructed corpus request serves the graphs path's line
+        best = int(np.argmax(probs))
+        hyp = cook_prediction(tokens[best].tolist()[1:], host["diff"][row],
+                              host["sub_token"][row], word_vocab, cfg,
+                              resolve=False)
+        ref = reference_words(host["msg"][row], word_vocab)
+        bleu_by_pos[pos] = nltk_sentence_bleu([ref], hyp)
+        vm = host.get("_var")
+        var_map = vm[row] if vm is not None else None
+        writer.add(pos, " ".join(deanonymize(hyp, var_map)) + "\n")
+
+    # the pipeline depth scales with the worker count: single-row payloads
+    # are small, and a depth of feeder_depth would idle a wide pool once
+    # four payloads are ready; the workers must run ahead of arrivals
+    workers = cfg.ingest_workers or cfg.feeder_workers
+    depth = max(cfg.feeder_depth, 4 * max(1, workers))
+    if fast_path is not None:
+        cache, lex, executor = fast_path
+        own_executor = None
+    else:
+        cache, lex, executor = build_fast_path(
+            cfg, faults=faults,
+            context=(word_vocab, ast_change_vocab, cfg, table))
+        own_executor = executor
+    try:
+        with OrderedStreamWriter(out_path, expected=n_req) as writer, \
+                Feeder(ingest_request_tasks(requests, cfg, word_vocab,
+                                            ast_change_vocab, table,
+                                            faults=faults, cache=cache,
+                                            lex=lex, executor=executor),
+                       num_workers=workers, depth=depth, put=False,
+                       on_error="record",
+                       retries=max(0, cfg.robust_retries),
+                       faults=faults) as feed:
+            loop = ServeLoop(
+                engines, cfg, arrival_times=times, feed=feed, table=table,
+                assignment=None, templates=templates, clock=clk, emit=emit,
+                shed=lambda rec: writer.add(rec.position, "\n"),
+                faults=faults, snapshot=snapshot)
+            loop.stats.ingest_pipeline = (workers, depth)
+            if cache is not None:
+                # the run's cache meter, in the summary's ingest block
+                loop.stats.ingest_cache = cache.summary
+            stats = run_loop_guarded(loop, snapshot)
+    finally:
+        if own_executor is not None:
+            own_executor.close()
+    return finalize_serve_result(stats, owner, faults, out_path=out_path,
+                                 bleu_by_pos=bleu_by_pos,
+                                 metrics_path=metrics_path)
 
 
 # --------------------------------------------------------------------------

@@ -481,9 +481,15 @@ class CommitGraph:
 
 def extract_commit(chunks: Sequence[Chunk], types: Sequence[int],
                    diff_tokens: Sequence[str], *,
-                   commit_index: Optional[int] = None) -> CommitGraph:
+                   commit_index: Optional[int] = None,
+                   memo=None) -> CommitGraph:
     """Rebase chunk-local indices into commit-global coordinates (:369-393)
-    and verify the reassembled token stream equals the diff (:420)."""
+    and verify the reassembled token stream equals the diff (:420).
+
+    ``memo``: a hunk-level extraction memo (``ingest.cache.HunkMemo``):
+    a chunk's parse/diff is a pure function of its typed tokens, so the
+    ingest path reuses it across near-identical requests while this
+    rebase runs per commit; the cached ChunkGraph is only read here."""
     out = CommitGraph([], [], [], [], [], [])
     all_token: List[str] = []
     for chunk, typ in zip(chunks, types):
@@ -492,8 +498,10 @@ def extract_commit(chunks: Sequence[Chunk], types: Sequence[int],
         change_base = len(out.change)
         if typ == 100:
             old_tokens, new_tokens = chunk
-            g = update_chunk_edges(old_tokens, new_tokens,
-                                   commit_index=commit_index)
+            g = (memo.chunk_graph(chunk, typ, commit_index)
+                 if memo is not None else
+                 update_chunk_edges(old_tokens, new_tokens,
+                                    commit_index=commit_index))
             n_ast_old = len(g.old.ast_tokens)
             n_code_old = len(old_tokens)
             for a, j in g.old.edge_ast_code:
@@ -527,7 +535,9 @@ def extract_commit(chunks: Sequence[Chunk], types: Sequence[int],
             tokens = list(chunk)
             if not tokens:
                 raise ExtractError("empty non-update chunk")
-            g = normal_chunk_edges(tokens, commit_index=commit_index)
+            g = (memo.chunk_graph(chunk, typ, commit_index)
+                 if memo is not None else
+                 normal_chunk_edges(tokens, commit_index=commit_index))
             for a, j in g.old.edge_ast_code:
                 out.edge_ast_code.append((ast_base + a, code_base + j))
             for a1, a2 in g.old.edge_ast:

@@ -51,10 +51,14 @@ Clocks: ``wall`` (arrivals paced in real time, idle waits sleep) or
 jumps idle gaps). Both observe latencies only at dispatch and harvest
 boundaries, which is what the host can see.
 
+Raw-diff requests (``cli serve --input diffs``) run this loop through
+``ingest/service.serve_diffs``: their payloads carry their own decode
+bucket (``_bucket``), anonymization map (``_var``) and ingest stamps
+(``_ingest``, each request's ``RequestRecord.ingest``).
+
 Not ported here: the replicated fleet, respawn and the request journal
-behind ``--resume`` (ROADMAP A.8c), raw-diff requests (A.8b) and the
-disaggregated prefill tier (A.9). ``ServeStats`` keeps their JAX keys, at
-their idle values.
+behind ``--resume`` (ROADMAP A.8c) and the disaggregated prefill tier
+(A.9). ``ServeStats`` keeps their JAX keys, at their idle values.
 """
 
 from __future__ import annotations
@@ -181,8 +185,8 @@ class WallClock:
 class RequestRecord:
     """One request's lifecycle stamps (clock units: wall seconds or
     virtual units), each observed at a dispatch or harvest boundary. The
-    JAX package's fields; the raw-diff and prefill-tier stamps stay None
-    here (ROADMAP A.8b, A.9)."""
+    JAX package's fields; ``ingest`` holds a raw-diff request's ingest
+    stamps, and the prefill-tier stamps stay None (ROADMAP A.9)."""
 
     position: int            # split-local sample position
     arrival_t: float         # scheduled (open-loop) arrival time
@@ -259,7 +263,8 @@ class ServeStats:
     # Feeder's workers, and the loop's real elapsed seconds
     assembly_stall_s: float = 0.0
     wall_s: float = 0.0
-    # meters of raw-diff ingest and the prefill tier (None: not ported)
+    # meters of raw-diff ingest (serve_diffs sets them) and of the
+    # prefill tier (None: not ported, ROADMAP A.9)
     ingest_cache: Optional[object] = None
     ingest_pipeline: Optional[tuple] = None
     tiers: Optional[object] = None
@@ -315,9 +320,8 @@ class ServeStats:
 
     def _ingest_summary(self) -> Dict:
         """The raw-diff ingest aggregates, present only when a request ran
-        ingest (``RequestRecord.ingest``): none does until raw-diff
-        serving comes (ROADMAP A.8b), so the summary's keys are the JAX
-        package's for graph requests."""
+        ingest (``RequestRecord.ingest``, ``serve_diffs``), as in the JAX
+        package."""
         ing = [r.ingest for r in self.records if r.ingest]
         if not ing:
             return {}
@@ -422,10 +426,15 @@ class ServeLoop:
 
     # --- pieces ---------------------------------------------------------
 
-    def _bucket_of(self, i: int) -> int:
-        """A request's decode bucket (0 when unbucketed)."""
+    def _bucket_of(self, i: int, item) -> int:
+        """A request's decode bucket: the split's assignment for corpus
+        requests, the worker-stamped ``_bucket`` of a raw-diff request
+        (assigned by its measured extents, ingest/service.py), 0 when
+        unbucketed."""
         if self._assignment is not None:
             return int(self._assignment[i])
+        if item.host is not None and "_bucket" in item.host:
+            return int(item.host["_bucket"])
         return 0
 
     def _poll_arrivals(self, now: float) -> None:
@@ -441,6 +450,8 @@ class ServeLoop:
             rec = self.stats.records[i]
             rec.arrival_round = self.stats.rounds
             rec.retries += int(item.retries)
+            if item.host is not None:
+                rec.ingest = item.host.get("_ingest")
             self.stats.assembly_stall_s += float(item.stall_s)
             digest = None
             if self._dedup_on and item.host is not None:
@@ -462,7 +473,7 @@ class ServeLoop:
                     self._shed(rec, "shed_queue_full")
                 else:
                     lrec = self._rec_by_pos[leader]
-                    e = _Queued(rec, item.host, self._bucket_of(i),
+                    e = _Queued(rec, item.host, self._bucket_of(i, item),
                                 digest=digest)
                     self._followers.setdefault(leader, []).append(e)
                     rec.coalesced_into = leader
@@ -487,7 +498,7 @@ class ServeLoop:
                     self._leaders[digest] = rec.position
                     self._leader_digest[rec.position] = digest
                 self._queue.append(_Queued(rec, item.host,
-                                           self._bucket_of(i),
+                                           self._bucket_of(i, item),
                                            digest=digest))
             self._arr_idx += 1
         self.stats.peak_queue_depth = max(self.stats.peak_queue_depth,
@@ -653,6 +664,12 @@ class ServeLoop:
         batch["_positions"] = positions
         if self._table is not None:
             batch["_tag"] = buckets_lib.geom_tag(self._table[bucket])
+        if any(e.host is not None and "_var" in e.host for e in take):
+            # raw-diff requests' own anonymization maps, a host-only
+            # column the emitter de-anonymizes each row's output with
+            vm = [(e.host.get("_var") or [None])[0] if e.host else None
+                  for e in take]
+            batch["_var"] = vm + [None] * (self._bs - len(take))
         if self._dedup_on:
             # the worker-stamped digests, so the engine never re-hashes
             batch["_digests"] = ([e.digest for e in take]
@@ -757,6 +774,8 @@ class ServeLoop:
             item = next(self._feed_iter)
             rec = self.stats.records[self._arr_idx]
             rec.retries += int(item.retries)
+            if item.host is not None:
+                rec.ingest = item.host.get("_ingest")
             rec.error = rec.error or (str(item.error) if item.error
                                       else reason)
             self._shed(rec, "shed_error")

@@ -4,13 +4,15 @@ quarantine) against the JAX package's, on the same corpus and weights
 (``convert.params_from_flax``) at the JAX tests' widths
 (tests/test_robust.py):
 
-- the spec grammar and ``robust_errors`` in the JAX package's words, and
-  the sites the port does not wire refused naming their ROADMAP item;
+- the spec grammar and ``robust_errors`` in the JAX package's words, the
+  ingest sites parsed as JAX parses them, and the sites the port does
+  not wire refused naming their ROADMAP item;
 - the injector fires at the same event keys as JAX's for one seed, and a
   corrupt scrambles the same bytes;
 - the watchdog inline, through a thread, with an exception and on
   timeout (its cancel event set);
-- serve runs with a fault armed at each of the seven wired sites give the
+- serve runs with a fault armed at each of the seven serve-path sites
+  (the ingest sites: tests/test_torch_serve_diffs.py) give the
   JAX package's fired counts, completions, sheds and per-request
   statuses on one replayed trace (virtual clock), and every completed
   position the no-fault bytes;
@@ -166,8 +168,23 @@ def test_fault_spec_parses_like_jax():
     assert faults.CORRUPT_SITES == jax_faults.CORRUPT_SITES
 
 
+@pytest.mark.parametrize("site", ["ingest.parse", "ingest.cache"])
+def test_ingest_sites_parse_like_jax(site):
+    """The raw-diff ingest sites are wired: each kind parses and passes
+    ``robust_errors`` exactly as in the JAX package."""
+    for kind in ("raise", "hang", "corrupt"):
+        spec = f"{site}:{kind}:0.1:7, engine.step:raise:0.5:1"
+        got = faults.parse_fault_specs(spec)
+        want = jax_faults.parse_fault_specs(spec)
+        assert ([dataclasses.astuple(s) for s in got]
+                == [dataclasses.astuple(s) for s in want])
+        assert (faults.robust_errors(fira_tiny(inject_faults=spec))
+                == jax_faults.robust_errors(jax_fira_tiny(inject_faults=spec))
+                == [])
+    assert site not in faults.UNWIRED_SITES and site in faults.CORRUPT_SITES
+
+
 @pytest.mark.parametrize("site,item", [
-    ("ingest.parse", "A.8b"), ("ingest.cache", "A.8b"),
     ("fleet.replica", "A.8c"), ("disagg.transport", "A.9"),
     ("disagg.worker", "A.9")])
 def test_unwired_site_refused_naming_its_roadmap_item(site, item):

@@ -14,10 +14,11 @@ package's (tests/test_serve.py), on the same corpus and weights
   field for field;
 - queue-cap, deadline and prefill-budget shedding give JAX's counts and
   records;
-- ``serve_errors`` in JAX's words; ``cli serve`` refuses bad knobs and the
-  paths it does not run (``--input diffs``, ``--resume``, the fault sites
-  of later items) with exit 2, and serves end to end on the CPU with
-  the bytes of ``cli test --engine``."""
+- ``serve_errors`` in JAX's words; ``cli serve`` refuses bad knobs (an
+  ``--input diffs`` without a readable ``--diff-trace`` in JAX's words)
+  and the paths it does not run (``--resume``, the fault sites of later
+  items) with exit 2, and serves end to end on the CPU with the bytes of
+  ``cli test --engine``."""
 
 import dataclasses
 import json
@@ -363,12 +364,15 @@ def test_serve_stats_summary_keys_equal_jax():
     (["--serve-rate", "5", "--serve-queue-cap", "-1"], "serve_queue_cap"),
     (["--serve-rate", "5", "--prefix-cache-entries", "0"],
      "prefix_cache_entries"),
-    (["--serve-rate", "5", "--input", "diffs"], "ROADMAP A.8b"),
+    (["--serve-rate", "5", "--input", "diffs"],
+     "--input diffs needs --diff-trace PATH"),
     (["--serve-rate", "5", "--resume"], "ROADMAP A.8c"),
+    (["--serve-rate", "5", "--input", "diffs", "--diff-trace", __file__,
+      "--resume"], "ROADMAP A.8c"),
     (["--serve-rate", "5", "--inject-faults", "disagg.worker:hang:1:0"],
      "ROADMAP A.9"),
-    (["--serve-rate", "5", "--inject-faults", "ingest.parse:raise:1:0"],
-     "ROADMAP A.8b")])
+    (["--serve-rate", "5", "--input", "diffs", "--diff-trace",
+      "/no/such/path"], "--diff-trace /no/such/path: path does not exist")])
 def test_cli_serve_refusals_exit_2(setup, tmp_path, capsys, flags, named):
     rc = cli.main(["serve", "--config", "fira-tiny", "--device", "cpu",
                    "--data-dir", setup["dir"], "--out-dir",
