@@ -158,7 +158,24 @@ Phases, each printing its own line; any failure exits non-zero:
             scrambled); K1 once a micro-step, counted; the ingest stage
             times, stall, cache and memo meters; wall-clock serving at 1.5x
             the engine's drain rate over the split 5 times, ingest and
-            prefix caches off, threads and pool in turns.
+            prefix caches off, threads and pool in turns;
+22. fleet   the replicated engine fleet and recovery (the f32 checkpoint,
+            ``--engine-slots 20`` over 2 or 4 replicas on the one card,
+            the replayed trace): ``cli test --engine --engine-replicas 2``
+            and ``4`` and ``cli serve --engine-replicas 2`` (cache off and
+            on) byte-identical to ``cli test --engine``, every replica
+            serving; a ``fleet.replica`` raise and a step hang past a 1 s
+            watchdog each retire one replica mid-run and the survivor
+            writes the clean bytes; ``--max-respawns 1`` respawns it,
+            ``--engine-spares 1`` attaches the spare (clean bytes); a
+            storm past the budget exits 0, each line clean or a recorded
+            shed; a wall-clock serve in a child process killed with SIGKILL
+            mid-run and ``cli serve --resume`` (the clean bytes, resumed =
+            the recovered lines, nothing served twice; another rate exits
+            2); K1 4 a step dispatch of every engine plus 4 a prewarm,
+            counted; a replica's fresh build against a spare attach; wall
+            clock at 1.5x the drain in turns, the journal on and off, and
+            one engine against two replicas.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -174,6 +191,7 @@ import re
 import shutil
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -186,6 +204,7 @@ ENGINE_WIDE = 64           # the slot engine's wide arena (--engine-slots)
 WALL_REPEATS = 5           # wall-clock serving: the test split 5x (~305)
 WORD_VOCAB, AST_VOCAB = 24_650, 71   # the paper's vocabulary sizes
 SEED = 0
+BF16_SEEDS = 4     # draws a shape on which bf16 K1 is held against plain
 # per-step losses of the kernel run against the plain run, f32: 1e-4
 # relative. In bf16 a kernel's output may differ from its plain version's
 # by one rounding of a score (2^-8 of its size), one of the roundings bf16
@@ -278,6 +297,86 @@ def with_large(torch, x, frac: float, gen):
     return torch.where(pick, torch.where(sign, mag, -mag), x)
 
 
+def case_gen(torch, label: str, k: int = 0):
+    """A generator on the card for draw ``k`` of the case ``label``, seeded
+    from the label: a case's inputs do not depend on the cases before it."""
+    seed = SEED + zlib.crc32(f"{label} {k}".encode())
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def k1_inputs(torch, gen, shape, dtype):
+    """K1's src, tgt, w and bias at (B, T, S, D), the scores about 1 in
+    size (w 0.1 a weight over D = 256 unit terms) and the bias a unit
+    normal."""
+    b, t, s, d = shape
+    src = torch.randn((b, s, d), device="cuda", generator=gen).to(dtype)
+    tgt = torch.randn((b, t, d), device="cuda", generator=gen).to(dtype)
+    w = torch.randn((d, 1), device="cuda", generator=gen) * 0.1
+    bias = torch.randn((1,), device="cuda", generator=gen)
+    return src, tgt, w, bias
+
+
+def bf16_ulp(torch, x):
+    """One bf16 step at each |x| of the f64 tensor x: bf16 keeps 8
+    significant bits, so 2^(e - 8) for x = m 2^e, 0.5 <= |m| < 1 (no less
+    than 2^-133, the subnormal step)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8).clamp(min=2.0 ** -133)
+
+
+def copy_scores_f64(torch, src, tgt, w, rows: int = 8):
+    """The copy score without its bias, in f64 from the given (rounded)
+    inputs, ``rows`` batch rows at a time: the exact sum that a bf16
+    result's roundings are measured from."""
+    B, T, S = src.shape[0], tgt.shape[1], src.shape[1]
+    w64 = w.reshape(-1).double()
+    out = torch.empty((B, T, S), dtype=torch.float64, device=src.device)
+    for i in range(0, B, rows):
+        s, t = src[i:i + rows].double(), tgt[i:i + rows].double()
+        out[i:i + rows] = torch.tanh(s[:, None] + t[:, :, None]) @ w64
+    return out
+
+
+def hold_bf16(torch, cs, label: str, src, tgt, w, bias, got, want):
+    """bf16 K1 (``got``, with its bias) against its plain version
+    (``want``), with limits from the roundings both make rather than a
+    fixed share of the result. Both sum the D terms in f32, round the sum
+    to bf16 and add the bias in bf16. An f32 sum of D terms, each at most
+    |w_d| in size, errs by at most delta = (D + 8) u sum_d |w_d| (u =
+    2^-24: (D - 1) u for the additions in any order, the rest for the
+    kernel's tanh, a few u each). So (1) the kernel's score without its
+    bias is within ulp(z) + delta of the exact f64 sum z (one of z's two
+    bf16 neighbours, up to the f32 error), and (2) with the bias, kernel
+    and plain differ by at most ulp(z) + 2 delta (their sums may round to
+    either side of z) plus half a step of each result (the bias add):
+    |got - want| <= ulp(z) + ulp(max(|got|, |want|)) + 2 delta. A fixed
+    1e-2 of the result does not hold: where the bias cancels most of a
+    sum of 2-4, the result is far smaller than that sum's step of 2^-6.
+    Returns the largest |kernel - z| and |plain - z| over limit (1), the
+    elements where the kernel's and the plain sums differ, the largest
+    |got - want| over limit (2), and the elements that rtol/atol 1e-2
+    would refuse."""
+    pre_k = torch.empty_like(got)
+    cs.launch(src, tgt, w.reshape(-1).contiguous(), pre_k)
+    pre_p = cs.copy_scores_reference(src, tgt, w, torch.zeros_like(bias))
+    z = copy_scores_f64(torch, src, tgt, w)
+    ulp_z = bf16_ulp(torch, z)
+    delta = (w.numel() + 8) * 2.0 ** -24 * w.double().abs().sum().item()
+    k_over = ((pre_k.double() - z).abs() / (ulp_z + delta)).max().item()
+    p_over = ((pre_p.double() - z).abs() / (ulp_z + delta)).max().item()
+    g, v = got.double(), want.double()
+    limit = ulp_z + bf16_ulp(torch, torch.maximum(g.abs(), v.abs())) \
+        + 2 * delta
+    over = ((g - v).abs() / limit).max().item()
+    fixed = int(((g - v).abs() > 1e-2 + 1e-2 * v.abs()).sum().item())
+    differ = int((pre_k != pre_p).sum().item())
+    check(k_over <= 1.0, f"copy_score {label}: the kernel's bf16 score is "
+          f"{k_over:.3f} of ulp(z) + delta from the f64 sum (limit 1)")
+    check(over <= 1.0, f"copy_score {label}: kernel and plain differ by "
+          f"{over:.3f} of ulp(z) + ulp(result) + 2 delta (limit 1)")
+    return k_over, p_over, differ, over, fixed
+
+
 def phase_kernels(torch, cs, cfg, bucket_t: int):
     """Copy score: kernel vs plain at the decode, dev and training shapes
     (f32, rtol/atol 1e-5: the kernel sums D in another order and, at T > 1,
@@ -285,11 +384,14 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     shape also with large magnitudes and over two launches (bitwise), at
     a batch of 85, at the bucketed training shape (T = the main train
     bucket's ``bucket_t``), at the full-prefix beam's (test batch x beam,
-    tar_len), at the slot engine's step with 64 slots (192, 1), and those
-    shapes but 85 in bf16 (1e-2: one bf16 rounding of the result). Returns
-    the f32 and the bf16 record: the decode shape's numbers, with the dev,
-    training, bucket, full-prefix beam and engine shapes' under ``dev_*``,
-    ``train_*``, ``bucket_*``, ``prefix_*`` and ``engine_*``."""
+    tar_len), at the slot engine's step with 64 slots (192, 1), those
+    shapes but 85 in bf16 (over ``BF16_SEEDS`` draws each, with the limits
+    of ``hold_bf16``), and a 10-slot replica's step (30, 1) in f32. Each
+    case draws its inputs from a generator of its own. Returns the
+    f32 and the bf16 record: the decode shape's numbers, with the dev,
+    training, bucket, full-prefix beam, engine and replica shapes' under
+    ``dev_*``, ``train_*``, ``bucket_*``, ``prefix_*``, ``engine_*`` and
+    ``replica_*``."""
     from fira_tpu_torch.ops.timing import time_ms
 
     B, K = cfg.test_batch_size, cfg.beam_size
@@ -309,30 +411,49 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
              ("prefix", (B * K, cfg.tar_len, S, D), f32, 1e-5),
              # the slot engine's step at --engine-slots 64
              ("engine", (ENGINE_WIDE * K, 1, S, D), f32, 1e-5),
-             ("decode", (B * K, 1, S, D), bf16, 1e-2),
-             ("dev", (B, cfg.tar_len, S, D), bf16, 1e-2),
-             ("train", (cfg.batch_size, cfg.tar_len, S, D), bf16, 1e-2),
-             ("bucket", (cfg.batch_size, bucket_t, S, D), bf16, 1e-2),
-             ("prefix", (B * K, cfg.tar_len, S, D), bf16, 1e-2),
-             ("engine", (ENGINE_WIDE * K, 1, S, D), bf16, 1e-2)]
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+             ("decode", (B * K, 1, S, D), bf16, None),
+             ("dev", (B, cfg.tar_len, S, D), bf16, None),
+             ("train", (cfg.batch_size, cfg.tar_len, S, D), bf16, None),
+             ("bucket", (cfg.batch_size, bucket_t, S, D), bf16, None),
+             ("prefix", (B * K, cfg.tar_len, S, D), bf16, None),
+             ("engine", (ENGINE_WIDE * K, 1, S, D), bf16, None),
+             # a replica's step in a fleet of 2 over the test batch's
+             # slots (--engine-slots 20 --engine-replicas 2)
+             ("replica", (B // 2 * K, 1, S, D), f32, 1e-5)]
     records = {f32: {}, bf16: {}}
     for name, (b, t, s, d), dtype, tol in cases:
-        src = torch.randn((b, s, d), device="cuda", generator=gen).to(dtype)
-        tgt = torch.randn((b, t, d), device="cuda", generator=gen).to(dtype)
-        w = torch.randn((d, 1), device="cuda", generator=gen) * 0.1
-        bias = torch.randn((1,), device="cuda", generator=gen)
+        label = f"{name} {dname(dtype)}"
+        gen = case_gen(torch, f"copy_score {label}")
+        src, tgt, w, bias = k1_inputs(torch, gen, (b, t, s, d), dtype)
         got = cs.copy_scores(src, tgt, w, bias)
         want = cs.copy_scores_reference(src, tgt, w, bias)
         torch.cuda.synchronize()
-        label = f"{name} {dname(dtype)}"
         check(got.shape == (b, t, s) and got.dtype == dtype,
               f"copy_score {label}: shape {tuple(got.shape)} {got.dtype}")
         check(bool(torch.isfinite(got.float()).all()),
               f"copy_score {label}: non-finite output")
         err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
+        if dtype == f32:
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+        else:
+            reads = [hold_bf16(torch, cs, label, src, tgt, w, bias, got,
+                               want)]
+            for k in range(1, BF16_SEEDS):
+                x = k1_inputs(torch, case_gen(torch, f"copy_score {label}",
+                                              k), (b, t, s, d), dtype)
+                reads.append(hold_bf16(
+                    torch, cs, f"{label} draw {k}", *x, cs.copy_scores(*x),
+                    cs.copy_scores_reference(*x)))
+                del x
+            k_st, p_st, differ, over, fixed = (
+                max(r[i] for r in reads) for i in range(5))
+            print(f"[kernels] copy_score {label} over {BF16_SEEDS} draws: "
+                  f"|kernel - f64 sum| at most {k_st:.3f} of ulp + delta, "
+                  f"plain {p_st:.3f}; the sums before the bias "
+                  f"differ on up to {differ} elements a draw; |kernel - "
+                  f"plain| at most {over:.3f} of its limit; rtol/atol 1e-2 "
+                  f"would refuse up to {fixed} elements a draw", flush=True)
         if name in ("train", "bucket"):
             check(torch.equal(got, cs.copy_scores(src, tgt, w, bias)),
                   f"copy_score {label}: two launches on the same inputs "
@@ -368,11 +489,14 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
                   flush=True)
         bound, by = copy_score_bound_ms(b, t, s, d, src.element_size())
         print(f"[kernels] copy_score {name} ({b},{t},{s},{d}) {dtype}: "
-              f"max_abs_err {err:.3e} (rtol/atol {tol}); kernel {ms:.4f} ms "
+              f"max_abs_err {err:.3e} ("
+              f"{f'rtol/atol {tol}' if tol else 'limits of hold_bf16'}); "
+              f"kernel {ms:.4f} ms "
               f"(wrapper with bias add {wrapper_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
-        if name in ("decode", "dev", "train", "bucket", "prefix", "engine"):
+        if name in ("decode", "dev", "train", "bucket", "prefix", "engine",
+                    "replica"):
             pre = "" if name == "decode" else f"{name}_"
             records[dtype].update({
                 f"{pre}shape": [b, t, s, d], f"{pre}max_abs_err": err,
@@ -3229,6 +3353,421 @@ def phase_serve_diffs(torch, ctx, run32: dict) -> int:
     return k1
 
 
+# seeded faults for the [fleet] phase's 61 requests on 2 replicas
+# (robust/faults.py draws; a draw's key is its site's check count):
+# fleet.replica seed 2715 at rate 0.002 fires at the 65th check only (of
+# the first 3,000; one check a live replica a round: mid-run, requests in
+# flight); engine.step seed 1249 at 0.002 fires at the 75th step dispatch
+# only and sleeps fault_hang_s (2 s) past the 1 s watchdog; fleet.replica
+# seed 24 at 0.05 fires at checks 31, 59, 67, 78, 86, 87, ...: more deaths
+# than two lineages of one respawn each survive
+FLEET = ["--engine-slots", "20", "--engine-replicas", "2"]
+FLEET_FAULT = ["--inject-faults", "fleet.replica:raise:0.002:2715"]
+FLEET_FAULTS = [
+    ("replica raise", FLEET_FAULT),
+    ("step hang", ["--inject-faults", "engine.step:hang:0.002:1249",
+                   "--dispatch-watchdog-s", "1"]),
+    ("respawn", FLEET_FAULT + ["--max-respawns", "1"]),
+    ("spare", FLEET_FAULT + ["--max-respawns", "1", "--engine-spares", "1"]),
+    ("storm", ["--inject-faults", "fleet.replica:raise:0.05:24",
+               "--max-respawns", "1"]),
+]
+KILL_RATE = 10.0   # req/s of the killed wall-clock serve: ~6 s of arrivals
+KILL_AT = 20       # requests done when the serve is killed
+
+
+def run_cli(torch, ctx, args: list) -> tuple:
+    """``cli.main(args)`` in this process, K1 counted from zero around it;
+    (exit code, standard output, standard error, K1 launches)."""
+    import contextlib
+    import io
+
+    from fira_tpu_torch import cli
+
+    cs = ctx["cs"]
+    out, err = io.StringIO(), io.StringIO()
+    cs.copy_scores.launches = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), err.getvalue(), cs.copy_scores.launches
+
+
+def journal_generations(path: str) -> list:
+    """The journal's records split at each ``begin`` record."""
+    gens = []
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "begin":
+                gens.append([])
+            gens[-1].append(rec)
+    return gens
+
+
+def phase_fleet(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
+    """The replicated engine fleet and recovery on the card: fira-full, the
+    f32 trained checkpoint, ``--engine-slots 20`` as the fleet total, R =
+    4, the [serve] phase's replayed trace under the virtual clock unless
+    stated. Hard checks: (1) ``cli test --engine --engine-replicas 2`` and
+    ``4`` (10 and 5 slots a replica) write ``cli test --engine``'s bytes
+    (at 4, two replicas stage the split's 4 chunks and two stay idle);
+    (2) ``cli serve --engine-replicas 2`` writes
+    them with the prefix cache off and on, every replica serving; (3) a
+    ``fleet.replica`` raise retires one replica mid-run (requests
+    requeued) and a step hang past a 1 s watchdog retires one (its
+    abandoned dispatch launching nothing when it wakes): the survivor
+    writes the clean bytes; (4) with ``--max-respawns 1`` the retired
+    replica is respawned, with ``--engine-spares 1`` the spare attaches, both writing
+    the clean bytes; a storm that kills both lineages past their budget
+    exits 0, every line the clean line or a recorded shed; (5) a
+    wall-clock ``cli serve`` subprocess is killed with SIGKILL once
+    ``KILL_AT`` requests are done (strictly mid-run), and ``cli serve
+    --resume`` writes the clean bytes with ``resumed`` the recovered
+    lines, no position served twice, no crash pair left; a resume at
+    another rate exits 2 naming the digest mismatch; (6) in every run in
+    this process K1 launches 4 a step dispatch of every engine of the
+    roster plus 4 a prewarm of every engine built. Printed beside the
+    card: a replica's replacement, a fresh build with its prewarm against
+    a spare attach (median of 3); wall-clock serving at 1.5x the drain
+    rate over the split ``WALL_REPEATS`` times, cache off, in turns: one
+    engine of 20 slots with the journal on, off, then two replicas of 10
+    twice, then one engine off, on (the journal on/off/off/on, and one
+    engine against two replicas 1/2/2/1 with the journal off). Returns
+    K1's launches."""
+    import gc
+    import signal
+    import statistics
+    import subprocess
+
+    from fira_tpu_torch.decode import engine as engine_lib
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.parallel.fleet import EngineFleet
+    from fira_tpu_torch.robust.recovery import read_journal, recover_output
+    from fira_tpu_torch.serve import poisson_times, serve_split
+    from fira_tpu_torch.serve.server import prepare_templates
+
+    cs, ds, cfg = ctx["cs"], ctx["ds"], ctx["cfg"]
+    t_phase = time.perf_counter()
+    n = len(ds.splits["test"])
+    want_lines = engine_bytes.decode().split("\n")
+    work = os.path.join(ctx["work"], "fleet")
+    os.makedirs(work)
+    k1 = 0
+
+    # --- (1) the drain fleet
+    for reps in (2, 4):
+        r = engine_cli(torch, ctx, run32, f"fleet{reps}",
+                       ["--engine", "--engine-slots", "20",
+                        "--engine-replicas", str(reps)])
+        k1 += r["k1"]
+        s = r["summary"]
+        check(r["out"] == engine_bytes,
+              f"cli test --engine-replicas {reps}: "
+              f"{len(n_lines_differ(r['out'], engine_bytes))} of {n} lines "
+              f"differ from the one engine's")
+        # the test split is 4 chunks of up to 20 rows and a replica stages
+        # up to 2 (engine_prefill_depth): at 4 replicas 2 of them take all
+        check(s["replicas"] == reps and s["slots"] == 20
+              and sum(s["per_replica_commits"]) == n
+              and all(c > 0 for c in s["per_replica_commits"][:2])
+              and s["warm_step_dispatches"] == reps,
+              f"cli test --engine-replicas {reps}: {s}")
+        print(f"[fleet] cli test --engine --engine-slots 20 "
+              f"--engine-replicas {reps} ({20 // reps} slots a replica): "
+              f"output_fira byte-identical to the one engine's; commits a "
+              f"replica {s['per_replica_commits']}, step dispatches "
+              f"{s['step_dispatches']}, occupancy {s['slot_occupancy']}; "
+              f"K1 launches {r['k1']} = 4 x ({s['step_dispatches']} + "
+              f"{s['warm_step_dispatches']} prewarm); {r['wall']:.2f} s",
+              flush=True)
+
+    # --- (2) the serve fleet
+    for name, flags in (("cache off", ["--prefix-cache", "off"]),
+                        ("cache on", [])):
+        r = serve_cli(torch, ctx, run32, f"fleet {name}", FLEET + flags,
+                      sub="fleet")
+        k1 += r["k1"]
+        sv, e = r["metrics"]["serve"], r["metrics"]["engine"]
+        check(r["out"] == engine_bytes,
+              f"cli serve --engine-replicas 2, {name}: "
+              f"{len(n_lines_differ(r['out'], engine_bytes))} of {n} lines "
+              f"differ from cli test --engine")
+        check(sorted(sv["heartbeats"]) == ["r0", "r1"]
+              and all(h["alive"] and h["rounds"] == sv["rounds"]
+                      for h in sv["heartbeats"].values())
+              and all(c > 0 for c in e["per_replica_commits"]),
+              f"cli serve --engine-replicas 2, {name}: heartbeats "
+              f"{sv['heartbeats']}, commits {e['per_replica_commits']}")
+        print(f"[fleet] cli serve --engine-replicas 2, {name}: output_fira "
+              f"byte-identical to cli test --engine; {r['line']}; commits a "
+              f"replica {e['per_replica_commits']}, occupancy a replica "
+              f"{e['per_replica_occupancy']}, admits {sv['admits']} (most "
+              f"in a round {sv['max_admits_per_round']}); K1 launches "
+              f"{r['k1']}", flush=True)
+
+    # --- (3, 4) retirement and respawn, after one collection of the
+    # objects alive now and a freeze (the step hang runs under a 1 s
+    # watchdog, which a full collection inside a dispatch could outlast)
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_s = time.perf_counter() - t0
+    gc.freeze()
+    print(f"[fleet] before the fault runs: a full collection took "
+          f"{gc_s:.3f} s, then frozen", flush=True)
+    for name, flags in FLEET_FAULTS:
+        r = serve_cli(torch, ctx, run32, f"fleet {name}", FLEET + flags,
+                      sub="fleet")
+        k1 += r["k1"]
+        sv, e = r["metrics"]["serve"], r["metrics"]["engine"]
+        f = r["metrics"].get("faults", {})
+        recs = r["metrics"]["request_records"]
+        lines = r["out"].decode().split("\n")
+        check(len(lines) == n + 1 and len(recs) == n,
+              f"cli serve {name}: {len(lines) - 1} lines, {len(recs)} "
+              f"records")
+        shed = {x["position"] for x in recs if x["status"] != "done"}
+        alive = [a["alive"] for a in sv["replicas_alive_over_time"]]
+        if name == "storm":
+            check(sv["replica_retirements"] == 4 and sv["respawns"] == 2
+                  and sv["shed_error"] > 0
+                  and sv["completed"] + sv["shed_error"] == n
+                  and all(lines[p] == ("" if p in shed else want_lines[p])
+                          for p in range(n)),
+                  f"cli serve {name}: {sv['replica_retirements']} "
+                  f"retirements, {sv['respawns']} respawns, "
+                  f"{sv['completed']} done, {sv['shed_error']} shed")
+        else:
+            check(r["out"] == engine_bytes and sv["completed"] == n,
+                  f"cli serve {name}: {sv['completed']} done, "
+                  f"{len(n_lines_differ(r['out'], engine_bytes))} lines "
+                  f"differ from cli test --engine")
+            check(sv["replica_retirements"] == 1
+                  and sv["requeued_requests"] > 0,
+                  f"cli serve {name}: {sv['replica_retirements']} "
+                  f"retirements, {sv['requeued_requests']} requeued")
+        if name == "replica raise":
+            check(f == {"fleet.replica": 1} and sv["respawns"] == 0
+                  and alive == [2, 1], f"cli serve {name}: {f}, {alive}")
+        elif name == "step hang":
+            # a hang raises nothing: the retirement is the watchdog's, and
+            # K1's count (serve_cli) shows the woken dispatch launched none
+            check(f == {"engine.step": 1} and alive == [2, 1],
+                  f"cli serve {name}: fired {f}, alive {alive}")
+        elif name == "respawn":
+            check(f == {"fleet.replica": 1} and sv["respawns"] == 1
+                  and sv["spare_attaches"] == 0 and alive == [2, 1, 2]
+                  and sv["respawned_replicas"]
+                  == [sv["retired_replicas"][0] + "~1"],
+                  f"cli serve {name}: {sv['respawned_replicas']}, {alive}")
+        elif name == "spare":
+            check(sv["respawns"] == 1 and sv["spare_attaches"] == 1
+                  and sv["respawned_replicas"] == ["sp0"]
+                  and alive == [2, 1, 2],
+                  f"cli serve {name}: {sv['respawned_replicas']}, {alive}")
+        print(f"[fleet] cli serve --engine-replicas 2 {' '.join(flags)}: "
+              f"exit 0; fired {f}; retired {sv['retired_replicas']}, "
+              f"requeued {sv['requeued_requests']}, respawned "
+              f"{sv['respawned_replicas']} (spares {sv['spare_attaches']}), "
+              f"alive over time {alive}, paused rounds "
+              f"{sv['admission_paused_rounds']}; {sv['completed']} done, "
+              f"{sv['shed_error']} shed, every line "
+              + ("the clean line or empty where shed" if shed
+                 else "the clean line")
+              + f"; K1 launches {r['k1']} = 4 x ({e['step_dispatches']} "
+              f"dispatches of {e['replicas']} engines + "
+              f"{e['warm_step_dispatches']} prewarms); abandoned "
+              f"dispatches {r['abandoned']}", flush=True)
+
+    # --- (5) kill and resume: a wall-clock serve in a child process,
+    # killed with SIGKILL once KILL_AT requests are done
+    kdir = os.path.join(work, "kill")
+    out_path = os.path.join(kdir, "output_fira")
+    jp = out_path + ".journal"
+    kargs = ["serve", "--config", "fira-full", "--data-dir",
+             ctx["data_dir"], "--out-dir", kdir, "--ckpt-dir",
+             run32["ckpt_dir"], "--dtype", "float32", *FLEET]
+    rate_args = ["--serve-rate", str(KILL_RATE)]
+    os.makedirs(kdir)
+    t0 = time.perf_counter()
+    done_at_kill, t_kill = -1, None
+    with open(os.path.join(kdir, "child.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fira_tpu_torch.cli", *kargs,
+             *rate_args], cwd=ctx["root"], stdout=log,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=ctx["root"]))
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < 300:
+                done = (len(read_journal(jp)[1]) if os.path.exists(jp)
+                        else 0)
+                if done >= KILL_AT:
+                    proc.send_signal(signal.SIGKILL)
+                    done_at_kill, t_kill = done, time.perf_counter() - t0
+                    break
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None and done_at_kill < 0:
+                proc.kill()
+            proc.wait()
+    with open(os.path.join(kdir, "child.log")) as f:
+        child_tail = f.read()[-2000:]
+    check(proc.returncode == -signal.SIGKILL and 0 < done_at_kill < n,
+          f"kill and resume: the child exited {proc.returncode} with "
+          f"{done_at_kill} of {n} done at the kill (must be killed "
+          f"mid-run): {child_tail}")
+    recovered = recover_output(out_path, n)
+    check(len(recovered) >= done_at_kill
+          and os.path.exists(out_path + ".partial"),
+          f"kill and resume: {len(recovered)} lines recovered, "
+          f"{done_at_kill} done in the journal")
+    rc, printed, err, launched = run_cli(torch, ctx,
+                                         kargs + rate_args + ["--resume"])
+    k1 += launched
+    check(rc == 0, f"cli serve --resume exited {rc}: {err[-2000:]}")
+    with open(os.path.join(kdir, "serve_metrics.json")) as f:
+        metrics = json.load(f)
+    sv, e = metrics["serve"], metrics["engine"]
+    with open(out_path, "rb") as f:
+        resumed_out = f.read()
+    gens = journal_generations(jp)
+    served = {x["pos"] for x in gens[-1] if x["kind"] in ("done", "shed")}
+    check(resumed_out == engine_bytes and sv["resumed"] == len(recovered)
+          and sv["completed"] == sv["offered"] == n - len(recovered)
+          and served == set(range(n)) - set(recovered)
+          and len(gens) == 2
+          and not os.path.exists(out_path + ".partial")
+          and not os.path.exists(out_path + ".partial.tail"),
+          f"cli serve --resume: resumed {sv['resumed']} of "
+          f"{len(recovered)} recovered, completed {sv['completed']}, "
+          f"{len(n_lines_differ(resumed_out, engine_bytes))} lines differ "
+          f"from cli test --engine")
+    check(launched == 4 * (e["step_dispatches"] + e["warm_step_dispatches"]),
+          f"cli serve --resume: K1 launched {launched} times")
+    rc, _, err, mism = run_cli(torch, ctx, kargs + [
+        "--serve-rate", str(KILL_RATE + 1), "--resume"])
+    k1 += mism
+    check(rc == 2 and "different arrival schedule (digest mismatch" in err
+          and mism == 0,
+          f"cli serve --resume at another rate exited {rc}: {err[-500:]}")
+    print(f"[fleet] kill and resume: a wall-clock cli serve "
+          f"--engine-replicas 2 at {KILL_RATE} req/s in a child process, "
+          f"SIGKILL at {done_at_kill} of {n} done ({t_kill:.1f} s after "
+          f"its start); {len(recovered)} lines recovered from the crash "
+          f"pair; cli serve --resume exit 0, {sv['resumed']} resumed, "
+          f"{sv['completed']} served again, output_fira byte-identical to "
+          f"cli test --engine, no position served twice, no crash pair "
+          f"left, K1 launches {launched}; a resume at "
+          f"{KILL_RATE + 1} req/s exit 2 (digest mismatch)", flush=True)
+
+    # --- replacing a replica: a fresh build with its prewarm, against a
+    # spare attach
+    c1 = cfg.replace(decode_engine=True, compute_dtype="float32")
+    c2 = c1.replace(engine_slots=20, engine_replicas=2)
+    model = FiraModel(c1, device="cuda", dtype="float32").eval()
+    model.load_state_dict(run32["state_dict"])
+    cs.copy_scores.launches = 0
+    fleet = EngineFleet(model, c2, replicas=2)
+    prepare_templates(fleet, ds.splits["test"], c2, None)
+    dev = next(model.parameters()).device
+    fresh, attach = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _eng, sp = fleet.replace_slot("r0", dev)
+        torch.cuda.synchronize()
+        fresh.append(time.perf_counter() - t0)
+        fleet.build_spares(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _eng2, sp2 = fleet.replace_slot("r1", dev)
+        torch.cuda.synchronize()
+        attach.append(time.perf_counter() - t0)
+        check(not sp and sp2, "replacement: a build or an attach mixed up")
+    built = fleet.stats.summary()["warm_step_dispatches"]
+    check(built == 8 and cs.copy_scores.launches == 4 * built,
+          f"replacement: K1 launched {cs.copy_scores.launches} times for "
+          f"{built} engines built")
+    k1 += cs.copy_scores.launches
+    print(f"[fleet] replacing a replica (10 slots, fira-full): a fresh "
+          f"build with its prewarm {statistics.median(fresh):.4f} s "
+          f"(median of 3: {', '.join(f'{x:.4f}' for x in fresh)}), a spare "
+          f"attach {statistics.median(attach):.6f} s "
+          f"({', '.join(f'{x:.6f}' for x in attach)}); on {ctx['kind']}, "
+          f"{ctx['smi']}", flush=True)
+    del fleet
+
+    # --- the journal's cost and a second replica's, wall clock at 1.5x
+    # the drain rate, cache off, in turns
+    drain = engine_decode(torch, ctx, model, c1, staged_batches(torch, ctx,
+                                                                  c1))
+    k1 += drain["k1"]
+    wall_mix = np.tile(np.arange(n), WALL_REPEATS)
+    rate = 1.5 * drain["rate"]
+    times = poisson_times(len(wall_mix), rate, seed=5)
+    eng1 = engine_lib.SlotEngine(model, c1)
+    eng2 = EngineFleet(model, c2, replicas=2)
+
+    def wall(name, cc, eng, journal, warm=False):
+        for x in getattr(eng, "engines", [eng]):
+            x.stats = engine_lib.EngineStats(slots=x.slots)
+        d = os.path.join(work, re.sub(r"\W+", "_", name))
+        jpath = os.path.join(d, "output_fira.journal") if journal else None
+        cs.copy_scores.launches = 0
+        m = serve_split(model, ds, cc,
+                        arrival_times=(np.zeros(cc.test_batch_size) if warm
+                                       else times),
+                        out_dir=d, clock="virtual" if warm else "wall",
+                        var_maps=ctx["var_maps"],
+                        request_mix=None if warm else wall_mix, engine=eng,
+                        journal_path=jpath)
+        torch.cuda.synchronize()
+        launched = cs.copy_scores.launches
+        sv, e = m["serve"], m["engine"]
+        check(launched == 4 * e["step_dispatches"],
+              f"wall {name}: K1 launched {launched} times, "
+              f"{e['step_dispatches']} step dispatches")
+        if warm:
+            return launched
+        check(sv["completed"] == sv["offered"] == len(wall_mix)
+              and serve_bytes(m).decode().split("\n")
+              == [want_lines[j] for j in wall_mix] + [""],
+              f"wall {name}: {sv['completed']} of {len(wall_mix)} done, or "
+              f"a line differs from its sample's engine line")
+        jrec = jbytes = 0
+        if journal:
+            jbytes = os.path.getsize(jpath)
+            with open(jpath) as f:
+                jrec = sum(1 for _ in f)
+        print(f"[fleet] wall clock, {name}: offered {rate:.2f} req/s (1.5x "
+              f"the drain's {drain['rate']:.2f} commits/s, {sv['offered']} "
+              f"requests), completed {sv['throughput_rps']} req/s, p50/p99 "
+              f"TTFT {sv['p50_ttft_s']}/{sv['p99_ttft_s']} s, p50/p99 e2e "
+              f"{sv['p50_e2e_s']}/{sv['p99_e2e_s']} s, {sv['rounds']} "
+              f"rounds; journal {jrec} records, {jbytes} bytes; K1 "
+              f"{launched}; on {ctx['kind']}, {ctx['smi']}", flush=True)
+        return launched
+
+    k1 += wall("warm_one", c1, eng1, False, warm=True)
+    k1 += wall("warm_two", c2, eng2, False, warm=True)
+    # one sequence of turns serves both comparisons: the journal on, off,
+    # off, on (one engine), and around the middle one engine, two
+    # replicas, two replicas, one engine (journal off)
+    for i, (two, journal) in enumerate(((False, True), (False, False),
+                                        (True, False), (True, False),
+                                        (False, False), (False, True))):
+        k1 += wall(f"turn {i + 1}, "
+                   f"{'two replicas of 10' if two else 'one engine of 20'} "
+                   f"slots, journal {'on' if journal else 'off'}",
+                   c2 if two else c1, eng2 if two else eng1, journal)
+    print(f"[fleet] the phase: K1 launched {k1} times over its runs in this "
+          f"process (the killed child's are not counted), "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model, eng1, eng2
+    torch.cuda.empty_cache()
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -3391,6 +3930,9 @@ def main() -> int:
     msg_k1 = phase_message(torch, ctx, run32, run16)
     # --- cli serve --input diffs and the ingest fast path ---
     diffs_k1 = phase_serve_diffs(torch, ctx, run32)
+    # --- the replicated fleet and recovery: replicas, retirement, respawn,
+    # spares, kill and resume ---
+    fleet_k1 = phase_fleet(torch, ctx, run32, engine_bytes)
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -3415,7 +3957,8 @@ def main() -> int:
         dict(name="copy_score_fwd", dtype="float32",
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
-             + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1,
+             + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1
+             + fleet_k1,
              **fwd,
              **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",

@@ -17,7 +17,8 @@
   ``diffatt.json``, both vocabularies) over ``--num-procs`` spawned
   workers, ``--shard-size`` commits a shard; it touches no device;
 - ``serve`` serves the test split's samples as an open-loop request
-  stream on one slot engine (serve/server.py): Poisson arrivals at
+  stream on the slot engine (serve/server.py), or on a fleet of
+  ``--engine-replicas`` engines (parallel/fleet.py): Poisson arrivals at
   ``--serve-rate`` requests/s (seeded by the config's seed) or a replayed
   ``--serve-trace`` file, on the wall clock or ``--serve-clock virtual``
   (a deterministic unit a dispatch). It writes OUTPUT/output_fira (a shed
@@ -32,12 +33,16 @@
   (``--ingest-workers``), behind the whole-diff result cache and the hunk
   and lexer memos (``--ingest-cache``), the parse stage inline or on a
   spawned process pool (``--ingest-exec``); a malformed diff is shed with
-  its error recorded. ``--inject-faults`` arms seeded faults at the nine
-  wired sites, ``--dispatch-watchdog-s`` retires an engine whose dispatch
-  outlives it (the rest are then shed with the reason),
-  ``--robust-retries`` is the poisoned request's retry budget. No request
-  journal (``.journal``) is written: ``--resume`` (ROADMAP A.8c) exits 2
-  naming its item.
+  its error recorded. ``--inject-faults`` arms seeded faults at the ten
+  wired sites, ``--dispatch-watchdog-s`` retires a replica whose dispatch
+  outlives it (its requests go to the survivors; with none left the rest
+  are shed with the reason), ``--robust-retries`` is the poisoned
+  request's retry budget. ``--max-respawns`` replaces a retired replica
+  (``--engine-spares`` prewarmed standbys attach first, after a backoff
+  of ``--respawn-backoff-s``). ``serve --input graphs`` keeps a request
+  journal, ``<out-dir>/output_fira.journal``: after a kill, ``--resume``
+  serves only what the killed run did not finish and the file ends as
+  the uninterrupted run's.
 
 ``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
 (``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
@@ -55,7 +60,8 @@ flags (``--beam-factored-topk``, ``--beam-early-exit``,
 package's do. ``test --engine`` decodes through the slot-refill engine
 (``--engine-slots``, ``--engine-prefill-depth``, ``--engine-harvest-every``;
 its paged KV arena: ``--kv-paged``, ``--kv-block-size``,
-``--kv-pool-blocks``), per sample bitwise equal to the batched beam;
+``--kv-pool-blocks``; ``--engine-replicas N``, a fleet of N engines over
+the fleet-total slots), per sample bitwise equal to the batched beam;
 ``--decode-tar-buckets`` lets decode buckets keep their own tar_len as a
 generation budget; ``--perf production`` applies the JAX package's
 production knob sets (``config.PRODUCTION_PERF_KNOBS`` and
@@ -71,11 +77,14 @@ Example:
     python -m fira_tpu_torch.cli test --beam-factored-topk --beam-early-exit
     python -m fira_tpu_torch.cli train --adjacency segment --typed-edges
     python -m fira_tpu_torch.cli test --engine --engine-slots 64
+    python -m fira_tpu_torch.cli test --engine --engine-replicas 2
     python -m fira_tpu_torch.cli test --perf production
     python -m fira_tpu_torch.cli preprocess --data-dir DataSet --num-procs 8
     python -m fira_tpu_torch.cli message change.diff --config fira-full
     python -m fira_tpu_torch.cli serve --config fira-full --serve-rate 20
     python -m fira_tpu_torch.cli serve --input diffs --diff-trace reqs.trace
+    python -m fira_tpu_torch.cli serve --engine-replicas 2 --max-respawns 1
+    python -m fira_tpu_torch.cli serve --serve-rate 20 --resume
 """
 
 from __future__ import annotations
@@ -194,6 +203,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test: positions advanced a step dispatch before "
                         "the host harvests settled slots (default 4; the "
                         "output is the same for any R)")
+    p.add_argument("--engine-replicas", type=_positive, default=None,
+                   metavar="N",
+                   help="test/serve: replicated slot-engine decode fleet "
+                        "(parallel/fleet.py): N engine replicas, one a "
+                        "device round-robin (on one card all share it), "
+                        "pull chunks from one shared admission queue. "
+                        "Output file bytes are invariant to N. A nonzero "
+                        "--engine-slots is the fleet total and must "
+                        "divide by N")
     p.add_argument("--kv-paged", default=None, choices=["on", "off"],
                    help="test: the engine's KV arena: a pool of blocks "
                         "behind per-slot block tables (on, default) or "
@@ -310,25 +328,50 @@ def build_parser() -> argparse.ArgumentParser:
                         "a deterministic unit a dispatch, the replay mode")
     p.add_argument("--resume", action="store_true",
                    help="serve: resume a killed run from its request "
-                        "journal; the port writes none yet (ROADMAP A.8c): "
-                        "exits 2")
+                        "journal (<out>/output_fira*.journal) and the "
+                        "ordered writer's crash pair: only the positions "
+                        "not finished are served again, and the final "
+                        "file is the uninterrupted run's. Needs the "
+                        "journal of an earlier serve with the same "
+                        "trace/seed/rate (checked at parse time, exit 2)")
     p.add_argument("--inject-faults", default=None, metavar="SPEC",
                    help="seeded fault injection: 'site:kind:rate:seed[,...]'"
                         " (sites wired: feeder.assemble, feeder.device_put, "
                         "ingest.parse, ingest.cache, engine.prefill, "
-                        "engine.step, engine.harvest, serve.admit, "
-                        "cache.lookup; kinds: raise | hang | corrupt); "
+                        "engine.step, engine.harvest, fleet.replica, "
+                        "serve.admit, cache.lookup; kinds: raise | hang | "
+                        "corrupt); "
                         "deterministic given the seed; off by default")
     p.add_argument("--dispatch-watchdog-s", type=float, default=None,
                    metavar="S",
                    help="per-dispatch wall-clock watchdog: a serve dispatch "
-                        "outliving S seconds is abandoned and the engine "
+                        "outliving S seconds is abandoned and the replica "
                         "retired; a train dev gate outliving it is skipped "
                         "with a recorded warning. 0 = off (default)")
     p.add_argument("--robust-retries", type=int, default=None, metavar="N",
                    help="retries (with backoff) a request gets when its "
                         "assembly, admission or prefill raises, before it "
                         "is shed with its error (default 1; >= 0)")
+    p.add_argument("--max-respawns", type=int, default=None, metavar="N",
+                   help="self-healing fleet: replacement budget of each "
+                        "replica lineage; a retired replica is respawned "
+                        "(a fresh prewarmed engine on its device, or a "
+                        "warm spare attached) up to N times before the "
+                        "lineage stays retired. 0 = off (default, retire "
+                        "and degrade); >= 0, exit 2 otherwise")
+    p.add_argument("--engine-spares", type=int, default=None, metavar="N",
+                   help="warm-spare pool: N engines built and prewarmed "
+                        "up front, attached by a retirement instead of a "
+                        "build mid-run; an attach counts against "
+                        "--max-respawns (which must be >= 1); >= 0, exit "
+                        "2 otherwise")
+    p.add_argument("--respawn-backoff-s", type=float, default=None,
+                   metavar="S",
+                   help="respawn backoff base in wall seconds: a lineage "
+                        "that keeps crashing waits the shared backoff "
+                        "curve (linear in the attempt, capped at 5x) "
+                        "scaled to S between replacements (default 0.25; "
+                        "> 0, exit 2 otherwise)")
     p.add_argument("--shard-size", type=int, default=100,
                    help="preprocess: commits per worker shard (reference "
                         "each_num=100)")
@@ -432,7 +475,8 @@ def resolve_config(args):
                  "serve_queue_cap", "inject_faults",
                  "dispatch_watchdog_s", "robust_retries", "ingest_workers",
                  "ingest_truncate", "ingest_cache_entries",
-                 "ingest_cache_bytes", "ingest_exec"):
+                 "ingest_cache_bytes", "ingest_exec", "engine_replicas",
+                 "max_respawns", "engine_spares", "respawn_backoff_s"):
         if getattr(args, knob) is not None:
             cfg = cfg.replace(**{knob: getattr(args, knob)})
     if args.ingest_cache is not None:
@@ -464,17 +508,36 @@ def message_errors(cfg, target: Optional[str]) -> List[str]:
     return errs
 
 
+def journal_path(args) -> str:
+    """``cli serve``'s request journal, beside its output file."""
+    from fira_tpu_torch.decode.runner import output_name
+
+    return os.path.join(args.out_dir, output_name(args.ablation) + ".journal")
+
+
 def serve_input_errors(args, cfg) -> List[str]:
-    """``cli serve``'s parse-time refusals: the request source and the
-    ingest knobs (in the JAX package's words), and the paths the port does
-    not run yet, each naming the ROADMAP item that brings it."""
+    """``cli serve``'s parse-time refusals, before the dataset loads, in
+    the JAX package's words: the request source and the ingest knobs; the
+    respawn knobs and ``--resume`` on the raw-diff path (which keeps no
+    journal and has no respawn wiring, in the JAX package too); a
+    ``--resume`` with no journal of an earlier run."""
     from fira_tpu_torch.ingest.service import ingest_errors
+    from fira_tpu_torch.robust.recovery import missing_journal_error
 
     errs = ingest_errors(cfg, input_mode=args.input,
                          diff_trace=args.diff_trace, command="serve")
+    if args.input == "diffs" and (cfg.max_respawns > 0
+                                  or cfg.engine_spares > 0):
+        errs.append(
+            "max_respawns/engine_spares support --input graphs only "
+            "(the raw-diff serve path has no respawn wiring yet)")
     if args.resume:
-        errs.append("--resume: the port writes no request journal yet "
-                    "(the journal and crash-resume are ROADMAP A.8c)")
+        if args.input == "diffs":
+            errs.append(
+                "--resume supports --input graphs only (the raw-diff "
+                "serve path keeps no request journal yet)")
+        elif not os.path.exists(journal_path(args)):
+            errs.append(missing_journal_error(journal_path(args)))
     return errs
 
 
@@ -500,7 +563,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def refused(c) -> bool:
         """Print one line naming the knob a refusal; True if any."""
-        errs = unsupported(c) + paging_errors(c)
+        from fira_tpu_torch.parallel.fleet import fleet_divisibility_errors
+        from fira_tpu_torch.robust.recovery import recovery_errors
+
+        errs = unsupported(c)
+        if c.decode_engine:
+            errs += fleet_divisibility_errors(c)
+        errs += paging_errors(c) + recovery_errors(c)
         if args.command == "serve":
             from fira_tpu_torch.serve.server import serve_errors
 
@@ -656,18 +725,31 @@ def serve(args, model, dataset, cfg) -> int:
                               clock=args.serve_clock,
                               metrics_path=metrics_path)
     else:
-        metrics = serve_split(model, dataset, cfg, arrival_times=times,
-                              out_dir=args.out_dir, ablation=args.ablation,
-                              var_maps=_load_var_maps(args.data_dir),
-                              clock=args.serve_clock,
-                              metrics_path=metrics_path)
+        from fira_tpu_torch.robust.recovery import ResumeError
+
+        # every graphs run keeps a journal, so any run can be resumed
+        try:
+            metrics = serve_split(model, dataset, cfg, arrival_times=times,
+                                  out_dir=args.out_dir,
+                                  ablation=args.ablation,
+                                  var_maps=_load_var_maps(args.data_dir),
+                                  clock=args.serve_clock,
+                                  metrics_path=metrics_path,
+                                  journal_path=journal_path(args),
+                                  resume=args.resume)
+        except ResumeError as e:
+            # the journal pins another request stream: exit 2, named
+            print(f"parse-time validation: {e}", file=sys.stderr)
+            return 2
     sv = metrics["serve"]
+    resumed = (f", {sv['resumed']} resumed from journal"
+               if sv.get("resumed") else "")
     print(f"serve: {sv['completed']}/{sv['offered']} completed "
           f"(shed {sv['shed_queue_full']} queue-full, "
           f"{sv['shed_deadline']} deadline, "
           f"{sv['shed_error']} error; "
           f"{sv['replica_retirements']} replica retirements, "
-          f"{sv['respawns']} respawns)  "
+          f"{sv['respawns']} respawns{resumed})  "
           f"p50/p99 ttft {sv['p50_ttft_s']}/{sv['p99_ttft_s']} s  "
           f"p50/p99 e2e {sv['p50_e2e_s']}/{sv['p99_e2e_s']} s  "
           f"-> {metrics_path}")

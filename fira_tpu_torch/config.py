@@ -290,16 +290,6 @@ _PORTED_PATH = {
                     "serve/disagg.py (ROADMAP A.9)"),
 }
 
-# knob -> (the largest value the port runs, the part that runs more)
-_PORTED_MAX = {
-    "engine_replicas": (1, "the replicated decode fleet, "
-                        "parallel/fleet.py (ROADMAP A.8c)"),
-    "engine_spares": (0, "the fleet's spare replicas, robust/recovery.py "
-                      "(ROADMAP A.8c)"),
-    "max_respawns": (0, "replica respawn, robust/recovery.py (ROADMAP "
-                     "A.8c)"),
-}
-
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 ENCODER_BUFFERS = ("single", "split")
@@ -312,9 +302,6 @@ def unsupported(cfg: FiraConfig) -> List[str]:
     errs = [f"{k}={getattr(cfg, k)!r} (the port runs {v!r} only; other "
             f"values come with {what})"
             for k, (v, what) in _PORTED_PATH.items() if getattr(cfg, k) != v]
-    errs += [f"{k}={getattr(cfg, k)!r} (the port runs at most {v!r}; more "
-             f"comes with {what})"
-             for k, (v, what) in _PORTED_MAX.items() if getattr(cfg, k) > v]
     # the JAX model's own refusals, in its words (fira_tpu/model/model.py)
     if cfg.encoder_buffer not in ENCODER_BUFFERS:
         errs.append(f"unknown encoder_buffer {cfg.encoder_buffer!r}; "

@@ -85,8 +85,11 @@ check and after its device work, so a call the watchdog abandoned (an
 injected hang sleeps before any launch) queues nothing on the card and
 touches no scheduling state once it wakes.
 
-Not ported here, each refused by its knob (``config.unsupported``): the
-replicated fleet, spec decode and the low-precision tiers.
+Replicas (parallel/fleet.py) are engines with a ``tag`` (``r<i>``, a
+spare's ``sp<i>``, a respawn's ``r<i>~<k>``) that names them in the
+retirement, respawn and heartbeat records; each keeps the device of the
+model it is given. Not ported here, each refused by its knob
+(``config.unsupported``): spec decode and the low-precision tiers.
 """
 
 from __future__ import annotations
@@ -262,16 +265,18 @@ class SlotEngine:
     and its device). ``slots``: the arena size (default
     ``cfg.engine_slots`` or, when that is 0, ``cfg.test_batch_size``: the
     batched beam's shapes). ``pool_blocks``: the paged pool (default
-    ``cfg.kv_pool_blocks``; 0 = full residency)."""
+    ``cfg.kv_pool_blocks``; 0 = full residency). ``tag``: the replica's
+    name in a fleet (None: a lone engine, recorded as ``r0``)."""
 
     def __init__(self, model: FiraModel, cfg: FiraConfig, *,
                  slots: Optional[int] = None,
-                 pool_blocks: Optional[int] = None, faults=None):
+                 pool_blocks: Optional[int] = None, faults=None,
+                 tag: Optional[str] = None):
         errs = unsupported(cfg)
         if errs:
             raise ValueError("config selects paths the port does not run: "
                              + "; ".join(errs))
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.tag = model, cfg, tag
         # robust.faults.FaultInjector or None; ``retired`` is set by
         # retire(): every piece returns early on a retired engine
         self._faults = faults

@@ -15,11 +15,17 @@ Two decode paths, in the model's compute dtype, per sample bitwise equal:
 - the batched beam the config selects (``beam.make_beam_search``), one
   call a batch;
 - under ``cfg.decode_engine`` the slot-refill engine (decode/engine.py),
-  which prefills the same batches and yields each sample as it settles.
+  which prefills the same batches and yields each sample as it settles;
+  with ``cfg.engine_replicas`` > 1 the replicated fleet
+  (parallel/fleet.py), whose Feeder leaves the batches on the host
+  (``put=False``) for the claiming replica to copy at admission.
   The fault injector of ``cfg.inject_faults`` (robust/faults.py) goes to
   the engine and to its Feeder, whose retry budget is
-  ``cfg.robust_retries``: transient assembly faults are absorbed, and a
-  fault nothing absorbs fails loudly, naming the sample.
+  ``cfg.robust_retries``: transient assembly faults are absorbed, a fleet
+  replica whose dispatch raises or outlives ``cfg.dispatch_watchdog_s``
+  retires with its requests requeued onto the survivors (and is
+  respawned under ``cfg.max_respawns``), and a fault nothing absorbs
+  fails loudly, naming the sample.
 
 Tokens come back to the host to be cooked into text, and lines stream to
 disk in split order through the ordered writer (decode/stream.py), each
@@ -113,16 +119,32 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     tasks = buckets_lib.bucketed_assembly_tasks(
         data, plan, cfg, batch_size=cfg.test_batch_size)
     eng = None
+    n_rep = max(1, int(cfg.engine_replicas))
     if cfg.decode_engine:
-        eng = engine_lib.SlotEngine(model, cfg, slots=engine_slots,
-                                    faults=faults)
+        if n_rep > 1:
+            from fira_tpu_torch.parallel import fleet as fleet_lib
+
+            eng = fleet_lib.EngineFleet(model, cfg, replicas=n_rep,
+                                        slots=engine_slots, faults=faults)
+        else:
+            eng = engine_lib.SlotEngine(model, cfg, slots=engine_slots,
+                                        faults=faults)
         # one all-pad batch a geometry of the plan: the kernels' build and
         # first launch, outside the decode
         geoms = list(dict.fromkeys(g for _, g in plan))
-        eng.prewarm(make_batch(data, np.arange(0), cfg,
-                               batch_size=cfg.test_batch_size, geom=g)
-                    for g in geoms)
-    robust = (dict(retries=max(0, cfg.robust_retries), faults=faults)
+        eng.prewarm([make_batch(data, np.arange(0), cfg,
+                                batch_size=cfg.test_batch_size, geom=g)
+                     for g in geoms])
+        if cfg.buckets:
+            print(f"decode buckets: {len(geoms)} engine prefill programs "
+                  f"pre-warmed"
+                  f"{f' x {n_rep} replicas' if n_rep > 1 else ''} "
+                  f"({', '.join(buckets_lib.geom_tag(g) for g in geoms)})",
+                  flush=True)
+    # the fleet's Feeder leaves batches on the host: admission copies each
+    # to the device of the replica that claims it
+    robust = (dict(retries=max(0, cfg.robust_retries), faults=faults,
+                   put=n_rep == 1)
               if eng is not None else {})
     with OrderedStreamWriter(out_path, expected=n_total) as writer, \
             Feeder(tasks, num_workers=cfg.feeder_workers,

@@ -539,9 +539,11 @@ def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
                 fast_path=None) -> Dict:
     """Serve the raw diffs ``requests`` (request ``i`` arrives at
     ``arrival_times[i]``) on the model's device through the ServeLoop of
-    ``serve_split``: the same admission, deadlines, shedding, retirement,
-    dedup, position-keyed writer and metrics artifact, the payloads coming
-    from :func:`ingest_request` on the Feeder's workers instead of corpus
+    ``serve_split``, on one engine or a fleet of ``cfg.engine_replicas``
+    (no respawn and no journal here, as in the JAX package): the same
+    admission, deadlines, shedding, retirement, dedup, position-keyed
+    writer and metrics artifact, the payloads coming from
+    :func:`ingest_request` on the Feeder's workers instead of corpus
     ``make_batch``. A request that fails to parse, or that the truncation
     policy rejects, is shed with its error recorded and an empty output
     line; every ingested request's record carries its ``_ingest`` stamps.

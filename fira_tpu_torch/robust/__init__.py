@@ -6,11 +6,11 @@ port's copy of ``fira_tpu/robust``):
   the seed, off by default (every site check is one ``is not None``);
 - :mod:`fira_tpu_torch.robust.watchdog`: a per-dispatch wall-clock
   watchdog (the call runs on a worker thread and is abandoned on expiry),
-  behind the serve loop's engine retirement and the train loop's dev-gate
-  skip.
-
-The self-healing half of the JAX package (``robust/recovery.py``: respawn,
-spares, the request journal and ``cli serve --resume``) is ROADMAP A.8c.
+  behind the serve loop's replica retirement and the train loop's
+  dev-gate skip;
+- :mod:`fira_tpu_torch.robust.recovery`: the self-healing half, replica
+  respawn and warm spares (``RecoveryManager``), the request journal and
+  the crash-pair recovery behind ``cli serve --resume``.
 """
 
 from fira_tpu_torch.robust.faults import (FaultInjector,  # noqa: F401

@@ -24,11 +24,11 @@ Off by default: with no spec armed the injector is ``None`` and every site
 check is one ``is not None`` branch. Faults act on the host only (raise
 before a dispatch, sleep, scramble a numpy batch), never inside a launch.
 
-The port wires nine sites: ``feeder.assemble``, ``feeder.device_put``,
+The port wires ten sites: ``feeder.assemble``, ``feeder.device_put``,
 ``ingest.parse``, ``ingest.cache``, ``engine.prefill``, ``engine.step``,
-``engine.harvest``, ``serve.admit`` and ``cache.lookup``. A spec naming
-one of the others is refused at parse time with the ROADMAP item that
-brings it (``UNWIRED_SITES``).
+``engine.harvest``, ``fleet.replica``, ``serve.admit`` and
+``cache.lookup``. A spec naming one of the others is refused at parse
+time with the ROADMAP item that brings it (``UNWIRED_SITES``).
 """
 
 from __future__ import annotations
@@ -69,7 +69,6 @@ CORRUPT_SITES = ("feeder.assemble", "ingest.parse", "ingest.cache",
 # sites of the JAX package the port does not wire yet, and the ROADMAP
 # item that brings each one's code path
 UNWIRED_SITES = {
-    "fleet.replica": "the replicated decode fleet (ROADMAP A.8c)",
     "disagg.transport": "the disaggregated prefill tier (ROADMAP A.9)",
     "disagg.worker": "the disaggregated prefill tier (ROADMAP A.9)",
 }

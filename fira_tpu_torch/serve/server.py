@@ -37,14 +37,30 @@ shed, the output file's bytes equal the drain decode's (every op of the
 beam is row-wise, and the writer keys by split position), and under the
 virtual clock the request records equal the JAX package's field for field.
 
+Replicas (``cfg.engine_replicas``, parallel/fleet.py): the loop walks
+every live engine a round, the starting replica rotating round to round,
+so admission spreads over the fleet; which replica serves a request never
+changes its bytes. The in-flight dedup above is fleet-wide, each
+replica's prefix cache its own.
+
 Degradation (robust/): an assembly, admission or prefill fault is retried
 ``cfg.robust_retries`` times and then sheds its requests with the error
-recorded; a step or harvest that raises, or any dispatch that outlives
-``cfg.dispatch_watchdog_s``, retires the engine. With one engine that
-sheds everything still owed, with the reason recorded, as the JAX package
-does when every replica is lost. The output file stays position-complete
-(a shed request writes an empty line), and ``serve_metrics.json`` is kept
-through the run as an atomic ``.partial`` snapshot.
+recorded; a step or harvest that raises, a ``fleet.replica`` fault, or
+any dispatch that outlives ``cfg.dispatch_watchdog_s``, retires the
+replica and requeues what it owed onto the survivors. With
+``cfg.max_respawns`` a retired lineage is respawned after its backoff
+(robust/recovery.py: a warm spare attached or a fresh engine built), and
+while every replica is down with budget left admission pauses instead of
+shedding; with no replica and no budget left the rest is shed with the
+reason recorded. The output file stays position-complete (a shed request
+writes an empty line), and ``serve_metrics.json`` is kept through the run
+as an atomic ``.partial`` snapshot.
+
+Crash-resume: with a ``journal_path`` each round's admits, completions
+and sheds are appended to a request journal (one fsync a batch), and
+``serve_split(resume=True)`` after a kill recovers the finished lines
+from the ordered writer's crash pair and serves only the rest, at their
+original positions: the final file is the uninterrupted run's.
 
 Clocks: ``wall`` (arrivals paced in real time, idle waits sleep) or
 ``virtual`` (time advances a fixed cost a prefill or step dispatch and
@@ -56,9 +72,7 @@ Raw-diff requests (``cli serve --input diffs``) run this loop through
 bucket (``_bucket``), anonymization map (``_var``) and ingest stamps
 (``_ingest``, each request's ``RequestRecord.ingest``).
 
-Not ported here: the replicated fleet, respawn and the request journal
-behind ``--resume`` (ROADMAP A.8c) and the disaggregated prefill tier
-(A.9). ``ServeStats`` keeps their JAX keys, at their idle values.
+Not ported here: the disaggregated prefill tier (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -83,6 +97,7 @@ from fira_tpu_torch.decode.runner import output_name, sample_emitter
 from fira_tpu_torch.decode.stream import OrderedStreamWriter
 from fira_tpu_torch.model.model import FiraModel
 from fira_tpu_torch.robust import faults as faults_lib
+from fira_tpu_torch.robust import recovery as recovery_lib
 from fira_tpu_torch.robust.watchdog import WatchdogTimeout, run_with_watchdog
 
 # the partial metrics snapshot refreshes every this many rounds (and once
@@ -94,11 +109,6 @@ SNAPSHOT_EVERY_ROUNDS = 16
 # or the engine would otherwise idle: misses pack into fuller prefill
 # batches. Cache off: never holds
 MISS_HOLD_ROUNDS = 16
-
-# the one engine's name in the retirement and heartbeat records (the JAX
-# fleet's replica tag r<i>)
-ENGINE_TAG = "r0"
-
 
 def serve_errors(cfg: FiraConfig, *, trace: bool = False) -> List[str]:
     """Named-knob serving checks (CLI exit 2), in the JAX package's words.
@@ -231,9 +241,9 @@ def _pct(values: List[float], q: float) -> Optional[float]:
 @dataclasses.dataclass
 class ServeStats:
     """Aggregate serving accounting: the request records and the
-    scheduler's counters, with the JAX package's fields. The recovery
-    fields (respawns, admission pauses, resumed positions) stay at their
-    idle values: respawn and resume are ROADMAP A.8c."""
+    scheduler's counters, with the JAX package's fields. The health
+    record (the alive trace, heartbeats, respawns) is kept whether
+    recovery is armed or not."""
 
     records: List[RequestRecord]
     completions: List[int] = dataclasses.field(default_factory=list)
@@ -246,12 +256,14 @@ class ServeStats:
     shed_error: int = 0
     retirements: List[Dict] = dataclasses.field(default_factory=list)
     requeues: int = 0
-    # one entry a change in the live-engine set, and the engine's last
-    # dispatch round and rounds (recorded unconditionally, as in JAX)
+    # one entry a change in the live set (start, retirement, respawn), and
+    # each replica's last dispatch round and rounds served
     replicas_alive_over_time: List[Dict] = dataclasses.field(
         default_factory=list)
     respawns: List[Dict] = dataclasses.field(default_factory=list)
     heartbeats: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+    # rounds admission paused with every replica down and respawn budget
+    # left, and the positions a resume recovered from the journaled run
     admission_paused_rounds: int = 0
     resumed: int = 0
     # in-flight dedup: requests coalesced onto a leader, groups delivered,
@@ -372,15 +384,18 @@ class _Queued:
 # --------------------------------------------------------------------------
 
 class ServeLoop:
-    """Drives the engine under arrival-timed admission. ``emit`` / ``shed``
-    are callbacks into the output layer (serve_split wires them to the
-    ordered writer). ``engines`` is a list of one: the JAX loop's
-    round-robin over replicas, kept so a retirement empties it."""
+    """Drives N engine replicas under arrival-timed admission. ``emit`` /
+    ``shed`` are callbacks into the output layer (serve_split wires them
+    to the ordered writer). ``positions``: each request's output position
+    (identity when None; a resume serves a sparse suffix). ``journal``: a
+    ``recovery.Journal`` (None = off); ``recovery``: a
+    ``recovery.RecoveryManager`` (None = retire and degrade)."""
 
     def __init__(self, engines: Sequence[SlotEngine], cfg: FiraConfig, *,
                  arrival_times: np.ndarray, feed, table, assignment,
                  templates: Dict[int, Dict], clock, emit, shed,
-                 faults=None, snapshot=None):
+                 faults=None, snapshot=None, positions=None, journal=None,
+                 recovery=None):
         self.engines = list(engines)
         self.cfg = cfg
         self.clock = clock
@@ -403,6 +418,7 @@ class ServeLoop:
         self._times = np.asarray(arrival_times, dtype=np.float64)
         self._feed_iter = iter(feed)
         self._arr_idx = 0
+        self._rr = 0   # the replica admission starts from this round
         self._queue: "collections.deque[_Queued]" = collections.deque()
         # in-flight dedup (cfg.prefix_cache): digest -> leader position of
         # every non-final queued request, its reverse, leader -> coalesced
@@ -417,11 +433,20 @@ class ServeLoop:
         self._payloads: Dict[int, _Queued] = {}
         self._awaiting_first_step: List[RequestRecord] = []
         self._final = 0
+        # each request's output position: a resume serves the unfinished
+        # suffix of a run at its original positions, so every
+        # position-keyed lookup goes through _rec_by_pos
+        pos_arr = (np.asarray(positions, dtype=np.int64)
+                   if positions is not None
+                   else np.arange(len(self._times), dtype=np.int64))
         self.stats = ServeStats(records=[
-            RequestRecord(position=i, arrival_t=float(t))
-            for i, t in enumerate(self._times)])
+            RequestRecord(position=int(p), arrival_t=float(t))
+            for p, t in zip(pos_arr, self._times)])
         self._rec_by_pos: Dict[int, RequestRecord] = {
             r.position: r for r in self.stats.records}
+        self._journal = journal
+        self._recovery = recovery
+        self._shed_log: List[Dict] = []   # a round's shed records
         self._alive_changed()
 
     # --- pieces ---------------------------------------------------------
@@ -566,6 +591,11 @@ class ServeLoop:
                     self._followers[head.record.position] = rest
                 self._promoted.append(head)
         self.shed_cb(rec)
+        # the journal's record after the writer took the empty line, kept
+        # for the round's one fsync (a mass shed costs one, not one each)
+        if self._journal is not None:
+            self._shed_log.append({"kind": "shed", "pos": rec.position,
+                                   "status": status, "error": rec.error})
 
     def _drain_promotions(self) -> None:
         """Queue followers promoted by a leader's shed. A promotee whose
@@ -688,7 +718,7 @@ class ServeLoop:
             try:
                 run_with_watchdog(lambda: eng.admit(batch, 0),
                                   self._watchdog,
-                                  label=f"serve_prefill[{ENGINE_TAG}]")
+                                  label=f"serve_prefill[{eng.tag or 'r0'}]")
                 return True
             except WatchdogTimeout as e:
                 self._retire_replica(eng, e, requeue=take)
@@ -708,23 +738,27 @@ class ServeLoop:
 
     def _retire_replica(self, eng: SlotEngine, err: BaseException, *,
                         requeue: Optional[List[_Queued]] = None) -> None:
-        """Retire the engine (a dispatch raised or outlived the watchdog):
+        """Retire one replica (a dispatch raised or outlived the watchdog):
         drop it from the rotation and put every request it owed (seated,
         staged, and the caller's unstaged ``requeue`` chunk) back at the
         queue's front in position order, stamps reset to queued (the
-        deadline clock does not reset). With no engine left, the next
-        round sheds them with the reason recorded."""
+        deadline clock does not reset). Its heartbeat goes cold and, with
+        recovery armed, its lineage's backoff starts."""
         if eng not in self.engines:
             return
         owed = set(eng.pending_positions())
         eng.retire()
         self.engines.remove(eng)
         self.stats.retirements.append(
-            {"replica": ENGINE_TAG,
+            {"replica": eng.tag or "r0",
              "error": f"{type(err).__name__}: {err}"})
-        hb = self.stats.heartbeats.get(ENGINE_TAG)
+        hb = self.stats.heartbeats.get(eng.tag or "r0")
         if hb is not None:
             hb["alive"] = False
+        if self._recovery is not None:
+            self._recovery.note_retirement(
+                eng, self.stats.rounds,
+                error=f"{type(err).__name__}: {err}")
         self._alive_changed()
         entries: List[_Queued] = []
         seen: set = set()
@@ -753,6 +787,7 @@ class ServeLoop:
             self._queue.appendleft(e)
         self._awaiting_first_step = [
             r for r in self._awaiting_first_step if r.status == "seated"]
+        self._rr = self._rr % len(self.engines) if self.engines else 0
 
     def _shed_all_remaining(self, reason: str) -> None:
         """No live engine: every request not yet final is shed with the
@@ -782,11 +817,18 @@ class ServeLoop:
             self._arr_idx += 1
 
     def _admit(self) -> None:
-        """Budgeted admission: at most ``serve_prefill_budget`` prefill
-        dispatches between step dispatches; a cache-served or fully
-        coalesced admission runs no prefill and is not charged."""
+        """Budgeted admission over the replicas: at most
+        ``serve_prefill_budget`` prefill dispatches a replica between step
+        dispatches; a cache-served or fully coalesced admission runs no
+        prefill and is not charged. The starting replica rotates each
+        round, so a lightly loaded fleet spreads its admissions."""
         admitted = 0
-        for eng in list(self.engines):
+        admitted_pos: List[int] = []
+        order = (self.engines[self._rr:] + self.engines[:self._rr])
+        self._rr = (self._rr + 1) % len(self.engines) if self.engines else 0
+        for eng in order:
+            if eng not in self.engines:
+                continue  # retired earlier this round
             n = 0
             retired = False
             while n < self._budget and self._queue and eng.wants_input():
@@ -815,9 +857,11 @@ class ServeLoop:
                     for e in group:
                         e.record.admit_t = t
                         e.record.status = "staged"
+                        admitted_pos.append(e.record.position)
                         for f in self._followers.get(e.record.position, []):
                             f.record.admit_t = t
                             f.record.status = "staged"
+                            admitted_pos.append(f.record.position)
                 if retired:
                     break
             admitted += n
@@ -826,9 +870,12 @@ class ServeLoop:
             try:
                 run_with_watchdog(eng.refill,
                                   self._watchdog,
-                                  label=f"serve_refill[{ENGINE_TAG}]")
+                                  label=f"serve_refill[{eng.tag or 'r0'}]")
             except Exception as e:
                 self._retire_replica(eng, e)
+        if self._journal is not None and admitted_pos:
+            # one admit record a request, one fsync a round
+            self._journal.admit(admitted_pos)
         self.stats.admits += admitted
         self.stats.max_admits_per_round = max(
             self.stats.max_admits_per_round, admitted)
@@ -860,8 +907,8 @@ class ServeLoop:
         return round(tight / len(self._queue), 4)
 
     def _alive_changed(self) -> None:
-        """One entry of the alive trace: at the start and at a
-        retirement."""
+        """One entry of the alive trace: at the start, at a retirement and
+        at a respawn (the capacity-over-time curve)."""
         self.stats.replicas_alive_over_time.append({
             "round": self.stats.rounds,
             "alive": len(self.engines),
@@ -870,14 +917,43 @@ class ServeLoop:
         })
 
     def _stamp_heartbeats(self) -> None:
-        """The engine's last dispatch round and rounds served."""
-        for _eng in self.engines:
+        """Each live replica's last dispatch round and rounds served (a
+        retired replica's goes cold)."""
+        for eng in self.engines:
             hb = self.stats.heartbeats.setdefault(
-                ENGINE_TAG,
+                eng.tag or "r0",
                 {"last_dispatch_round": -1, "rounds": 0, "alive": True})
             hb["last_dispatch_round"] = self.stats.rounds
             hb["rounds"] += 1
             hb["alive"] = True
+
+    def _flush_shed_log(self) -> None:
+        """The round's shed records, in one journal write and fsync."""
+        if self._journal is not None and self._shed_log:
+            self._journal.append_many(self._shed_log)
+            self._shed_log = []
+
+    def _heal(self) -> None:
+        """Respawn every dead lineage whose backoff elapsed and whose
+        budget is not spent: the replacement (a warm spare or a fresh
+        build, ``EngineFleet.replace_slot``) joins the rotation and
+        admits from next round; recorded in ``stats.respawns`` and the
+        alive trace."""
+        if self._recovery is None:
+            return
+        for slot in self._recovery.due(self.stats.rounds):
+            attempt = slot.respawns + 1
+            eng, from_spare = self._recovery.respawn(slot,
+                                                     self.stats.rounds)
+            if eng is None:
+                continue   # the build failed: budget spent, backoff anew
+            eng.begin_stream()
+            self.engines.append(eng)
+            self.stats.respawns.append({
+                "replica": eng.tag or "r0", "origin": slot.origin,
+                "round": self.stats.rounds, "attempt": attempt,
+                "spare": from_spare})
+            self._alive_changed()
 
     # --- the loop -------------------------------------------------------
 
@@ -891,12 +967,33 @@ class ServeLoop:
         if self._snapshot is not None:
             self._snapshot(self)   # a valid partial artifact from the start
         while self._final < n:
+            self._heal()
             if not self.engines:
-                # the engine retired: shed the rest with the reason
+                if (self._recovery is not None
+                        and self._recovery.can_recover()):
+                    # every replica lost, respawn budget left: admission
+                    # pauses (nothing dispatches) while arrivals queue and
+                    # deadlines tick; the budget is finite, so a
+                    # replacement attaches or can_recover turns False
+                    self._poll_arrivals(self.clock.now())
+                    self._shed_deadlines()
+                    self._flush_shed_log()
+                    self.stats.admission_paused_rounds += 1
+                    if isinstance(self.clock, WallClock):
+                        # the respawn gate is wall time there, and rounds
+                        # are step dispatches: wait a beat, no spin
+                        time.sleep(0.01)
+                    else:
+                        # virtual: the round clock is the backoff gate
+                        self.clock.on_step()
+                        self.stats.rounds += 1
+                    continue
+                # no replica and no budget: shed the rest with the reason
                 last = (self.stats.retirements[-1]["error"]
                         if self.stats.retirements else "unknown")
                 self._shed_all_remaining(
                     f"no live replicas (all retired; last error: {last})")
+                self._flush_shed_log()
                 break
             self._poll_arrivals(self.clock.now())
             self._shed_deadlines()
@@ -923,8 +1020,10 @@ class ServeLoop:
                     eng.shared_positions = leaders
             for eng in live:
                 try:
+                    if self._faults is not None:
+                        self._faults.check("fleet.replica")
                     run_with_watchdog(eng.step_dispatch, self._watchdog,
-                                      label=f"serve_step[{ENGINE_TAG}]")
+                                      label=f"serve_step[{eng.tag or 'r0'}]")
                 except Exception as e:
                     self._retire_replica(eng, e)
             self.clock.on_step()
@@ -937,7 +1036,7 @@ class ServeLoop:
                 try:
                     items.extend(run_with_watchdog(
                         eng.harvest, self._watchdog,
-                        label=f"serve_harvest[{ENGINE_TAG}]"))
+                        label=f"serve_harvest[{eng.tag or 'r0'}]"))
                 except Exception as e:
                     self._retire_replica(eng, e)
             t = self.clock.now()   # after the harvest: what the host sees
@@ -945,6 +1044,7 @@ class ServeLoop:
                 if rec.status == "seated":   # not requeued this round
                     rec.first_step_t = t
             self._awaiting_first_step = []
+            done_now: List[int] = []
             for it in items:
                 rec = self._rec_by_pos[it.position]
                 rec.done_t = t
@@ -956,6 +1056,7 @@ class ServeLoop:
                 self._final += 1
                 self._payloads.pop(it.position, None)
                 self.stats.completions.append(it.position)
+                done_now.append(it.position)
                 self.emit(it.position, it.host, it.row, it.tokens, it.probs)
                 # fan-out: the leader's beams are what each follower's own
                 # decode would give (same digest, same payload), emitted at
@@ -982,10 +1083,17 @@ class ServeLoop:
                         fr.deadline_missed = True
                     self._final += 1
                     self.stats.completions.append(fr.position)
+                    done_now.append(fr.position)
                     self.emit(fr.position, f.host, 0, it.tokens, it.probs)
+            if self._journal is not None and done_now:
+                # after the writer took the lines (line-buffered, so on
+                # disk): one done record a request, one fsync a round
+                self._journal.done(done_now)
+            self._flush_shed_log()
             if (self._snapshot is not None
                     and self.stats.rounds % SNAPSHOT_EVERY_ROUNDS == 0):
                 self._snapshot(self)
+        self._flush_shed_log()   # sheds after the last harvest
         self.stats.wall_s = time.perf_counter() - t0
         return self.stats
 
@@ -1005,22 +1113,33 @@ def make_clock(clock: str):
 
 def build_engines(model: FiraModel, cfg: FiraConfig, *, engine=None,
                   faults=None):
-    """(owner, engines, built): the caller's (presumably warm) ``engine``,
-    built False so its prewarm does not rerun, or one new ``SlotEngine``.
-    More than one replica is the fleet (ROADMAP A.8c), refused by
-    ``config.unsupported``."""
+    """(owner, engines, built): the caller's (presumably warm) ``engine``
+    (a ``SlotEngine``, or an ``EngineFleet`` served through its
+    ``engines``), built False so its prewarm does not rerun; else an
+    ``EngineFleet`` when ``cfg.engine_replicas`` > 1 or respawn is armed
+    (``cfg.max_respawns`` > 0: respawn needs the fleet's ``replace_slot``
+    and spare pool; a fleet of one writes the lone engine's bytes), or one
+    new ``SlotEngine``."""
     if engine is not None:
-        return engine, [engine], False
+        return engine, (getattr(engine, "engines", None) or [engine]), False
+    n_rep = max(1, int(cfg.engine_replicas))
+    if n_rep > 1 or cfg.max_respawns > 0:
+        from fira_tpu_torch.parallel import fleet as fleet_lib
+
+        owner = fleet_lib.EngineFleet(model, cfg, replicas=n_rep,
+                                      faults=faults)
+        return owner, owner.engines, True
     owner = SlotEngine(model, cfg, faults=faults)
     return owner, [owner], True
 
 
-def prepare_templates(owner: SlotEngine, split, cfg: FiraConfig, table, *,
+def prepare_templates(owner, split, cfg: FiraConfig, table, *,
                       prewarm: bool = True) -> Dict[int, Dict]:
     """An all-pad batch a decode bucket (the rows a packed batch is padded
-    from), and the engine's prewarm on them when serve_split built the
-    engine itself (so no kernel builds or first launch inside a timed
-    dispatch, and the watchdog never reads one as a hang)."""
+    from), and the engine's (each replica's) prewarm on them when
+    serve_split built the engines itself (so no kernel builds or first
+    launch inside a timed dispatch, and the watchdog never reads one as a
+    hang)."""
     from fira_tpu_torch.data.batching import make_batch
 
     bs = int(cfg.test_batch_size)
@@ -1184,7 +1303,9 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
                 clock: str = "wall",
                 engine=None,
                 metrics_path: Optional[str] = None,
-                request_mix=None) -> Dict:
+                request_mix=None,
+                journal_path: Optional[str] = None,
+                resume: bool = False) -> Dict:
     """Serve the first ``len(arrival_times)`` samples of ``split`` as an
     open-loop request stream (request ``i`` is split position ``i``,
     arriving at ``arrival_times[i]``) on the model's device. Writes the
@@ -1199,7 +1320,16 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
     armed are ``cfg.inject_faults``'s. ``metrics_path``: the metrics
     artifact, kept through the run as an atomic ``<path>.partial``
     snapshot and written atomically at the end. ``request_mix``: request
-    -> split position (identity when None), for repeated traffic."""
+    -> split position (identity when None), for repeated traffic.
+
+    ``journal_path``: the request journal (robust/recovery.py) kept beside
+    the output, which makes the run resumable after a kill. ``resume``:
+    recover a killed run: its finished lines are read back from the
+    ordered writer's crash pair, the journal's stream identity is checked
+    (a mismatch raises ``recovery.ResumeError``), and only the rest is
+    served; the final file is the uninterrupted run's. With
+    ``cfg.max_respawns`` the engines are a fleet that respawns retired
+    replicas (``cfg.engine_spares`` warm spares built up front)."""
     cfg = cfg or dataset.cfg
     faults = faults_lib.injector_from(cfg)
     data = dataset.splits[split]
@@ -1240,32 +1370,104 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
 
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, output_name(ablation))
+
+    # crash-resume: the killed run's finished lines, read from the
+    # writer's crash pair before the writer opens (which truncates the
+    # .partial prefix); the rest is served again at its positions
+    recovered: Dict[int, str] = {}
+    remaining: Optional[np.ndarray] = None
+    if resume:
+        if not journal_path:
+            raise recovery_lib.ResumeError(
+                "resume=True requires journal_path (the write-ahead "
+                "request journal of the interrupted run)")
+        res_errs = recovery_lib.resume_errors(journal_path, n_req, times,
+                                              mix=mix)
+        if res_errs:
+            raise recovery_lib.ResumeError("; ".join(res_errs))
+        recovered = recovery_lib.recover_output(out_path, n_req)
+        remaining = np.asarray(
+            [i for i in range(n_req) if i not in recovered],
+            dtype=np.int64)
+        if not len(remaining):
+            # everything finished: rebuild the final file from the
+            # recovered lines, with no engine and no serving
+            with OrderedStreamWriter(out_path, expected=n_req) as w:
+                for p in sorted(recovered):
+                    w.add(p, recovered[p])
+            stats = ServeStats(records=[])
+            stats.resumed = n_req
+            result = {"sentence_bleu": 0.0, "n": 0.0,
+                      "output_path": out_path, "serve": stats.summary(),
+                      "engine": {}, "request_records": []}
+            if metrics_path:
+                write_metrics_atomic(metrics_path, {
+                    "serve": result["serve"], "engine": {},
+                    "request_records": []})
+                if os.path.exists(metrics_path + ".partial"):
+                    os.remove(metrics_path + ".partial")
+                result["metrics_path"] = metrics_path
+            return result
+
+    # the loop's view of the stream: all of it on a fresh run, the
+    # unfinished suffix (original positions kept) on a resume
+    times_loop, positions, task_mix, loop_assignment = \
+        times, None, mix, assignment
+    if remaining is not None:
+        times_loop = times[remaining]
+        positions = remaining
+        task_mix = mix[remaining] if mix is not None else remaining
+        loop_assignment = (np.asarray(assignment)[remaining]
+                           if assignment is not None else None)
+
     model.eval()
+    # with a respawn budget the engines are always a fleet (it owns
+    # replace_slot and the spare pool)
+    respawn_armed = cfg.max_respawns > 0
     owner, engines, built = build_engines(model, cfg, engine=engine,
                                           faults=faults)
     templates = prepare_templates(owner, data, cfg, table, prewarm=built)
+    recovery = None
+    if respawn_armed and hasattr(owner, "replace_slot"):
+        if cfg.engine_spares:
+            owner.build_spares(cfg.engine_spares)
+        recovery = recovery_lib.RecoveryManager(
+            owner, cfg, wall_clock=(clock == "wall"))
     bleu_by_pos: Dict[int, float] = {}
     snapshot = metrics_snapshotter(metrics_path, owner, faults)
-    with OrderedStreamWriter(out_path, expected=n_req) as writer, \
-            Feeder(_request_tasks(data, cfg, n_req, table, assignment, mix),
-                   num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
-                   put=False,
-                   # the per-task error channel: a poisoned payload is
-                   # retried on the worker, then delivered with its error
-                   # for the loop to shed
-                   on_error="record", retries=max(0, cfg.robust_retries),
-                   faults=faults) as feed:
-        emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
-                              bleu_by_pos=bleu_by_pos, n_total=n_req,
-                              var_maps=var_maps, indices=indices)
-        loop = ServeLoop(
-            engines, cfg, arrival_times=times, feed=feed, table=table,
-            assignment=assignment, templates=templates, clock=clk,
-            emit=emit,
-            # a shed request keeps its output position: an empty line
-            shed=lambda rec: writer.add(rec.position, "\n"),
-            faults=faults, snapshot=snapshot)
-        stats = run_loop_guarded(loop, snapshot)
+    journal = (recovery_lib.Journal(journal_path, n=n_req, times=times,
+                                    mix=mix, resume=resume)
+               if journal_path else None)
+    try:
+        with OrderedStreamWriter(out_path, expected=n_req) as writer, \
+                Feeder(_request_tasks(data, cfg, len(times_loop), table,
+                                      loop_assignment, task_mix),
+                       num_workers=cfg.feeder_workers,
+                       depth=cfg.feeder_depth, put=False,
+                       # the per-task error channel: a poisoned payload is
+                       # retried on the worker, then delivered with its
+                       # error for the loop to shed
+                       on_error="record", retries=max(0, cfg.robust_retries),
+                       faults=faults) as feed:
+            # a resume's recovered lines enter the writer first, once each
+            for p in sorted(recovered):
+                writer.add(p, recovered[p])
+            emit = sample_emitter(writer, vocab=vocab, cfg=cfg,
+                                  bleu_by_pos=bleu_by_pos, n_total=n_req,
+                                  var_maps=var_maps, indices=indices)
+            loop = ServeLoop(
+                engines, cfg, arrival_times=times_loop, feed=feed,
+                table=table, assignment=loop_assignment,
+                templates=templates, clock=clk, emit=emit,
+                # a shed request keeps its output position: an empty line
+                shed=lambda rec: writer.add(rec.position, "\n"),
+                faults=faults, snapshot=snapshot, positions=positions,
+                journal=journal, recovery=recovery)
+            loop.stats.resumed = len(recovered)
+            stats = run_loop_guarded(loop, snapshot)
+    finally:
+        if journal is not None:
+            journal.close()
     return finalize_serve_result(stats, owner, faults, out_path=out_path,
                                  bleu_by_pos=bleu_by_pos,
                                  metrics_path=metrics_path)

@@ -282,7 +282,7 @@ def test_invalid_combination_refused_in_jax_words(setup, knobs):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("engine_replicas", 2), ("prefix_cache", True),
+    ("serve_tiers", "prefill-pool"), ("prefix_cache", True),
     ("kv_dtype", "bf16"), ("serve_precision", "int8w"),
     ("spec_decode", "draft")])
 def test_engine_knobs_still_refused(setup, knob, value):

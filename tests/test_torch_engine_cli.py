@@ -3,9 +3,10 @@
 ``output_fira`` (its engine, tar-bucketed, on the same checkpoint) byte
 for byte and prints its decode table; ``--perf production`` sets exactly
 the union of the two production knob sets and writes the bytes of the
-engine in that mode; a bad engine flag exits 2 naming it; and every knob
+engine in that mode; a bad engine flag exits 2 naming it; every knob
 the engine does not honour is refused by name, saying which part of the
-JAX package runs it."""
+JAX package runs it; and the fleet and recovery knobs are accepted, a
+bad value exiting 2 in the JAX package's words."""
 
 import dataclasses
 import os
@@ -22,11 +23,16 @@ from fira_tpu.data import synthetic as jax_synthetic
 from fira_tpu.data.dataset import FiraDataset as JaxDataset
 from fira_tpu.decode.runner import run_test as jax_run_test
 from fira_tpu.model.model import FiraModel as JaxModel
+from fira_tpu.parallel import fleet as jax_fleet
+from fira_tpu.robust import faults as jax_faults
+from fira_tpu.robust import recovery as jax_recovery
 from fira_tpu_torch import cli, convert
 from fira_tpu_torch.config import (DECODE_PERF_KNOBS, PRODUCTION_PERF_KNOBS,
                                    FiraConfig, fira_tiny, unsupported)
 from fira_tpu_torch.decode import engine
 from fira_tpu_torch.model.model import FiraModel
+from fira_tpu_torch.parallel import fleet
+from fira_tpu_torch.robust import recovery
 
 N_COMMITS, SEED, TEST_BS = 120, 3, 4
 
@@ -136,7 +142,7 @@ def test_perf_production_writes_the_engine_bytes(setup, tmp_path, capsys):
     (["--kv-paged", "maybe"], "--kv-paged"),
     # the JAX package's flags of paths the port does not run yet, and a
     # bad value of one it does
-    (["--engine-replicas", "2"], "--engine-replicas"),
+    (["--engine-replicas", "0"], "--engine-replicas"),
     (["--prefix-cache", "maybe"], "--prefix-cache"),
     (["--spec-decode", "copy"], "--spec-decode"),
     (["--kv-dtype", "bf16"], "--kv-dtype"),
@@ -163,13 +169,8 @@ def test_bad_paging_knob_exits_2_naming_it(setup, tmp_path, capsys, flags,
 
 
 REFUSED = [
-    ("engine_replicas", 2, "parallel/fleet.py (ROADMAP A.8c)"),
-    ("engine_spares", 1, "robust/recovery.py (ROADMAP A.8c)"),
     ("serve_tiers", "prefill-pool", "serve/disagg.py (ROADMAP A.9)"),
-    ("inject_faults", "fleet.replica:raise:1:0",
-     "the replicated decode fleet (ROADMAP A.8c)"),
     ("dispatch_watchdog_s", -1.0, "must be 0 (watchdog off) or > 0"),
-    ("max_respawns", 1, "robust/recovery.py (ROADMAP A.8c)"),
     ("spec_decode", "draft", "decode/spec.py (ROADMAP A.9)"),
     ("kv_dtype", "bf16", "decode/quant.py (ROADMAP A.9)"),
     ("serve_precision", "int8w", "decode/quant.py (ROADMAP A.9)"),
@@ -186,6 +187,48 @@ def test_knob_the_engine_does_not_run_is_refused(knob, value, brings):
     model = FiraModel(cfg.replace(**{knob: getattr(fira_tiny(), knob)}))
     with pytest.raises(ValueError, match=knob):
         engine.SlotEngine(model, cfg)
+
+
+# knob -> (a value the port now runs, flags of a bad value, the JAX
+# package's check that names it)
+ACCEPTED = [
+    ("engine_replicas", dict(engine_replicas=2),
+     ["--engine-slots", "5", "--engine-replicas", "2"],
+     lambda c: jax_fleet.fleet_divisibility_errors(
+         c.replace(engine_slots=5, engine_replicas=2))),
+    ("engine_spares", dict(engine_spares=1, max_respawns=1),
+     ["--engine-spares", "1"],
+     lambda c: jax_recovery.recovery_errors(c.replace(engine_spares=1))),
+    ("inject_faults", dict(inject_faults="fleet.replica:raise:0.5:3"),
+     ["--inject-faults", "fleet.replica:corrupt:0.5:3"],
+     lambda c: jax_faults.robust_errors(
+         c.replace(inject_faults="fleet.replica:corrupt:0.5:3"))),
+    ("max_respawns", dict(max_respawns=1), ["--max-respawns", "-1"],
+     lambda c: jax_recovery.recovery_errors(c.replace(max_respawns=-1))),
+]
+
+
+@pytest.mark.parametrize("knob,good,bad,jax_check", ACCEPTED,
+                         ids=[a[0] for a in ACCEPTED])
+def test_fleet_and_recovery_knob_accepted_with_jax_validation(
+        setup, tmp_path, capsys, knob, good, bad, jax_check):
+    """The fleet and recovery knobs the port runs now: a good value passes
+    every check of both packages and builds an engine; ``cli test
+    --engine`` with a bad one exits 2 printing the JAX package's
+    message."""
+    cfg = fira_tiny(decode_engine=True, vocab_size=40,
+                    ast_change_vocab_size=10, **good)
+    jcfg = jax_fira_tiny(decode_engine=True, **good)
+    assert unsupported(cfg) == [] and recovery.recovery_errors(cfg) == []
+    assert fleet.fleet_divisibility_errors(cfg) == []
+    assert (jax_recovery.recovery_errors(jcfg)
+            == jax_fleet.fleet_divisibility_errors(jcfg) == [])
+    engine.SlotEngine(FiraModel(cfg), cfg)
+    want = jax_check(jax_fira_tiny(decode_engine=True,
+                                   test_batch_size=TEST_BS))
+    assert len(want) == 1 and knob.split("_")[0] in want[0]
+    assert port_test(setup, str(tmp_path), "--engine", *bad) == 2
+    assert want[0] in capsys.readouterr().err
 
 
 def test_prefix_cache_is_refused_in_the_jax_words():

@@ -158,6 +158,6 @@ def test_fused_probs_step_matches_jax(setup):
 
 
 def test_unsupported_knob_raises():
-    with pytest.raises(ValueError, match="engine_replicas"):
+    with pytest.raises(ValueError, match="spec_decode"):
         FiraModel(FiraConfig(**GEOM, vocab_size=40, ast_change_vocab_size=10,
-                             engine_replicas=2))
+                             spec_decode="draft"))

@@ -184,9 +184,25 @@ def test_ingest_sites_parse_like_jax(site):
     assert site not in faults.UNWIRED_SITES and site in faults.CORRUPT_SITES
 
 
+def test_fleet_replica_parses_as_jax():
+    """``fleet.replica`` is wired: every kind parses as the JAX package
+    parses it (corrupt refused in its words: a dispatch boundary owns no
+    payload)."""
+    for kind in ("raise", "hang"):
+        spec = f"fleet.replica:{kind}:0.25:7"
+        assert ([dataclasses.astuple(s)
+                 for s in faults.parse_fault_specs(spec)]
+                == [dataclasses.astuple(s)
+                    for s in jax_faults.parse_fault_specs(spec)])
+        assert faults.robust_errors(fira_tiny(inject_faults=spec)) == []
+    spec = "fleet.replica:corrupt:0.25:7"
+    assert (faults.robust_errors(fira_tiny(inject_faults=spec))
+            == jax_faults.robust_errors(jax_fira_tiny(inject_faults=spec)))
+    assert "fleet.replica" not in faults.UNWIRED_SITES
+
+
 @pytest.mark.parametrize("site,item", [
-    ("fleet.replica", "A.8c"), ("disagg.transport", "A.9"),
-    ("disagg.worker", "A.9")])
+    ("disagg.transport", "A.9"), ("disagg.worker", "A.9")])
 def test_unwired_site_refused_naming_its_roadmap_item(site, item):
     spec = f"{site}:raise:0.1:7"
     jax_faults.parse_fault_specs(spec)      # the JAX package runs it
@@ -472,9 +488,9 @@ def test_cli_robust_knob_validation_exit2(setup, tmp_path, capsys):
             "--data-dir", setup["dir"], "--out-dir", str(tmp_path / "OUT")]
     assert cli.main(base + ["--inject-faults", "nowhere:raise:0.1:7"]) == 2
     assert "not a registered fault site" in capsys.readouterr().err
-    assert cli.main(base + ["--inject-faults", "fleet.replica:raise:1:0"]) \
+    assert cli.main(base + ["--inject-faults", "disagg.transport:raise:1:0"]) \
         == 2
-    assert "ROADMAP A.8c" in capsys.readouterr().err
+    assert "ROADMAP A.9" in capsys.readouterr().err
     assert cli.main(base + ["--dispatch-watchdog-s", "-2"]) == 2
     assert "dispatch_watchdog_s" in capsys.readouterr().err
     assert cli.main(base + ["--robust-retries", "-1"]) == 2

@@ -16,9 +16,10 @@ package's (tests/test_serve.py), on the same corpus and weights
   records;
 - ``serve_errors`` in JAX's words; ``cli serve`` refuses bad knobs (an
   ``--input diffs`` without a readable ``--diff-trace`` in JAX's words)
-  and the paths it does not run (``--resume``, the fault sites of later
-  items) with exit 2, and serves end to end on the CPU with the bytes of
-  ``cli test --engine``."""
+  and the paths it does not run (the fault sites of later items), and a
+  ``--resume`` with no journal or on the raw-diff path, with exit 2, and
+  serves end to end on the CPU with the bytes of ``cli test --engine``
+  and a request journal."""
 
 import dataclasses
 import json
@@ -366,9 +367,12 @@ def test_serve_stats_summary_keys_equal_jax():
      "prefix_cache_entries"),
     (["--serve-rate", "5", "--input", "diffs"],
      "--input diffs needs --diff-trace PATH"),
-    (["--serve-rate", "5", "--resume"], "ROADMAP A.8c"),
+    # --resume with no journal of an earlier run, and on the raw-diff path
+    # (which keeps none), in the JAX package's words
+    (["--serve-rate", "5", "--resume"],
+     "--resume requires an existing serve journal at "),
     (["--serve-rate", "5", "--input", "diffs", "--diff-trace", __file__,
-      "--resume"], "ROADMAP A.8c"),
+      "--resume"], "--resume supports --input graphs only"),
     (["--serve-rate", "5", "--inject-faults", "disagg.worker:hang:1:0"],
      "ROADMAP A.9"),
     (["--serve-rate", "5", "--input", "diffs", "--diff-trace",
@@ -384,8 +388,8 @@ def test_cli_serve_refusals_exit_2(setup, tmp_path, capsys, flags, named):
 def test_cli_serve_end_to_end_on_the_cpu(setup, tmp_path, capsys):
     """``cli serve --device cpu`` on a replayed trace writes the bytes of
     ``cli test --engine`` on the same checkpoint (cache on, the default,
-    and off) and an atomic serve_metrics.json; an over-long trace exits
-    2."""
+    and off), an atomic serve_metrics.json and a request journal with one
+    done record a request; an over-long trace exits 2."""
     ckpt = tmp_path / "ckpt"
     ckpt.mkdir()
     torch.save(setup["model"].state_dict(), str(ckpt / "best.pt"))
@@ -411,7 +415,11 @@ def test_cli_serve_end_to_end_on_the_cpu(setup, tmp_path, capsys):
         assert len(rec["request_records"]) == n
         assert (rec["engine"]["cache_misses"] > 0) == (cache == "on")
         assert not os.path.exists(out / "serve_metrics.json.partial")
-        assert not [f for f in os.listdir(out) if f.endswith(".journal")]
+        assert [f for f in os.listdir(out)
+                if f.endswith(".journal")] == ["output_fira.journal"]
+        with open(out / "output_fira.journal") as f:
+            kinds = [json.loads(line)["kind"] for line in f]
+        assert kinds[0] == "begin" and kinds.count("done") == n
     arrivals.write_trace(trace, arrivals.poisson_times(n + 5, 0.5, seed=1))
     assert cli.main(["serve", "--out-dir", str(tmp_path / "long"),
                      "--serve-trace", trace, *base]) == 2
