@@ -21,7 +21,8 @@ Phases, each printing its own line; any failure exits non-zero:
             equal over two launches), at a batch of 85 (the tile kernel's
             third tiling), at the bucketed training shape (T = the main
             train bucket's tar_len), at the full-prefix beam's shape
-            (test batch x beam, tar_len), and those shapes but 85 in
+            (test batch x beam, tar_len), at the spec drafter's beam-0
+            rows (20, 1), and those shapes but 85 and the drafter's in
             bf16; K2
             (its backward) at the training shape in f32 (also at
             magnitudes 15-60) and in bf16, and at the bucketed shape in
@@ -83,10 +84,11 @@ Phases, each printing its own line; any failure exits non-zero:
             memory of each;
 15. beam modes  for f32 and then bf16, the test split through every beam
             mode (cached and full-prefix, fused and factored, prob and log
-            space, early exit off and on) on the trained checkpoint and on
-            its copy biased toward <eos>, K1 once a step run; f32: early
-            exit bitwise equal to the full scan (and stopping early on the
-            biased weights), factored output bytes equal to fused and
+            space, early exit off and on) on the trained checkpoint and
+            (f32) on its copy biased toward <eos>, K1 once a step run;
+            f32: early exit bitwise equal to the full scan (and stopping
+            early on the biased weights), factored output bytes equal to
+            fused and
             full-prefix within one near-tie line of cached, but for samples
             whose every prob-space score underflowed to zero (ties decide
             them); the beam loop's commits/s of each mode;
@@ -136,7 +138,7 @@ Phases, each printing its own line; any failure exits non-zero:
             graph streams and diffatt equal to ``process_commits`` in this
             process (hard check); commits/s, shards, degraded commits,
             CPU count;
-20. message ``cli message`` as a subprocess on 2 diffs reconstructed from
+20. message ``cli message`` as a subprocess on 1 diff reconstructed from
             the test split (f32 checkpoint: exit 0, one line, the
             in-process message); ``one_shot_message`` on 8 in f32 and
             bf16 with K1 (once a beam step, 29 a message, counted) and
@@ -157,7 +159,7 @@ Phases, each printing its own line; any failure exits non-zero:
             faults (a line moves only where it is shed or its payload was
             scrambled); K1 once a micro-step, counted; the ingest stage
             times, stall, cache and memo meters; wall-clock serving at 1.5x
-            the engine's drain rate over the split 5 times, ingest and
+            the engine's drain rate over the split 2 times, ingest and
             prefix caches off, threads and pool in turns;
 22. fleet   the replicated engine fleet and recovery (the f32 checkpoint,
             ``--engine-slots 20`` over 2 or 4 replicas on the one card,
@@ -175,7 +177,24 @@ Phases, each printing its own line; any failure exits non-zero:
             2); K1 4 a step dispatch of every engine plus 4 a prewarm,
             counted; a replica's fresh build against a spare attach; wall
             clock at 1.5x the drain in turns, the journal on and off, and
-            one engine against two replicas.
+            one engine against two replicas;
+23. tiers   the serving tiers (the f32 checkpoint, 20 slots): ``cli test
+            --engine --spec-decode copy|draft --spec-k 4`` and ``copy
+            --spec-k 2`` byte-identical to ``cli test --engine``; on a
+            copy-biased target-blind checkpoint both tiers at k = 8 its
+            plain bytes, the copy tier accepting and needing fewer verify
+            dispatches than the plain run's step dispatches; ``--kv-dtype
+            bf16``, ``--serve-precision bf16`` and ``int8w`` each the same
+            bytes twice (the bf16 arena half the bytes a slot), spec under
+            bf16 KV and int8 weights that tier's plain bytes; each tier
+            against f32 (lines, B-Norm BLEU, beam-score divergence); spec
+            against plain in turns; ``cli serve --serve-tiers
+            prefill-pool --prefill-workers 2`` byte-identical with no
+            decode-side prefill, its workers mapping libcuda, under a
+            seeded worker death and a transport corrupt too, no
+            shared-memory segment left; disaggregated against in-process
+            at 1.5x the drain in turns, and the card's memory in use with
+            the workers; K1 as ``k1_formula`` of each run's counters.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -201,7 +220,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 N_COMMITS = 720            # -> a test split of ~60 commits
 ENGINE_WIDE = 64           # the slot engine's wide arena (--engine-slots)
-WALL_REPEATS = 5           # wall-clock serving: the test split 5x (~305)
+WALL_REPEATS = 2           # wall-clock serving: the test split 2x (~122)
 WORD_VOCAB, AST_VOCAB = 24_650, 71   # the paper's vocabulary sizes
 SEED = 0
 BF16_SEEDS = 4     # draws a shape on which bf16 K1 is held against plain
@@ -386,12 +405,13 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     bucket's ``bucket_t``), at the full-prefix beam's (test batch x beam,
     tar_len), at the slot engine's step with 64 slots (192, 1), those
     shapes but 85 in bf16 (over ``BF16_SEEDS`` draws each, with the limits
-    of ``hold_bf16``), and a 10-slot replica's step (30, 1) in f32. Each
-    case draws its inputs from a generator of its own. Returns the
-    f32 and the bf16 record: the decode shape's numbers, with the dev,
-    training, bucket, full-prefix beam, engine and replica shapes' under
-    ``dev_*``, ``train_*``, ``bucket_*``, ``prefix_*``, ``engine_*`` and
-    ``replica_*``."""
+    of ``hold_bf16``), a 10-slot replica's step (30, 1) and the spec
+    drafter's beam-0 rows at 20 slots (20, 1) in f32. Each case draws its
+    inputs from a generator of its own. Returns the f32 and the bf16
+    record: the decode shape's numbers, with the dev, training, bucket,
+    full-prefix beam, engine, replica and drafter shapes' under
+    ``dev_*``, ``train_*``, ``bucket_*``, ``prefix_*``, ``engine_*``,
+    ``replica_*`` and ``draft_*``."""
     from fira_tpu_torch.ops.timing import time_ms
 
     B, K = cfg.test_batch_size, cfg.beam_size
@@ -419,7 +439,10 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
              ("engine", (ENGINE_WIDE * K, 1, S, D), bf16, None),
              # a replica's step in a fleet of 2 over the test batch's
              # slots (--engine-slots 20 --engine-replicas 2)
-             ("replica", (B // 2 * K, 1, S, D), f32, 1e-5)]
+             ("replica", (B // 2 * K, 1, S, D), f32, 1e-5),
+             # the spec drafter's call: each slot's beam-0 row at
+             # --engine-slots 20 (the copy tier's and the draft tier's)
+             ("draft", (B, 1, S, D), f32, 1e-5)]
     records = {f32: {}, bf16: {}}
     for name, (b, t, s, d), dtype, tol in cases:
         label = f"{name} {dname(dtype)}"
@@ -496,7 +519,7 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
         if name in ("decode", "dev", "train", "bucket", "prefix", "engine",
-                    "replica"):
+                    "replica", "draft"):
             pre = "" if name == "decode" else f"{name}_"
             records[dtype].update({
                 f"{pre}shape": [b, t, s, d], f"{pre}max_abs_err": err,
@@ -1604,9 +1627,9 @@ def zero_score_lines(diff: list, a: dict, b: dict) -> list:
 
 
 def beam_modes(torch, ctx, run: dict, main: dict) -> dict:
-    """Every beam mode on one dtype's trained checkpoint and on its copy
-    biased toward <eos> (``beam.eos_biased``, every beam finishes within a
-    few positions): cached and full-prefix, fused and factored, prob and
+    """Every beam mode on one dtype's trained checkpoint and (f32) on its
+    copy biased toward <eos> (``beam.eos_biased``, every beam finishes
+    within a few positions): cached and full-prefix, fused and factored, prob and
     log space, each with early exit off and on, over the test split. K1
     must launch once a step run. Checks (f32; bf16 reported): early exit
     against the full scan, tokens and probabilities bitwise equal, fewer
@@ -1637,8 +1660,12 @@ def beam_modes(torch, ctx, run: dict, main: dict) -> dict:
                                                      torch.device("cuda"))))
     model = FiraModel(c0, device="cuda", dtype=dtype).eval()
     got, k1, prefix_k1 = {}, 0, 0
-    for weights, sd in (("trained", run["state_dict"]),
-                        ("eos-biased", eos_biased(run["state_dict"]))):
+    # bf16, whose checks are reported, runs the trained weights only (the
+    # smoke's time limit; f32 holds the early exit on the biased ones)
+    sets = [("trained", run["state_dict"])]
+    if f32:
+        sets.append(("eos-biased", eos_biased(run["state_dict"])))
+    for weights, sd in sets:
         model.load_state_dict(sd)
         for kv, fac, prob in BEAM_MODES:
             for early in (False, True):
@@ -2000,20 +2027,25 @@ def with_positions(r: dict, batches: list) -> dict:
     return r
 
 
-def engine_decode(torch, ctx, model, c, batches, slots=None) -> dict:
+def engine_decode(torch, ctx, model, c, batches, slots=None,
+                  eng=None) -> dict:
     """The test split through a ``SlotEngine`` over batches already on the
     card (the engine's loop alone timed, host wall to a synchronise,
-    after one prewarm), K1's launches counted around it, the peak device
-    memory above what was allocated before it, the allocator's health
-    after it; each settled sample cooked as ``run_test`` cooks it."""
+    after one prewarm, or on ``eng``, a warm engine), K1's launches
+    counted around it (``k1_formula``), the peak device memory above what
+    was allocated before it, the allocator's health after it; each
+    settled sample cooked as ``run_test`` cooks it."""
     from types import SimpleNamespace
 
     from fira_tpu_torch.decode import engine
     from fira_tpu_torch.decode.runner import sample_emitter
 
     cs, ds = ctx["cs"], ctx["ds"]
-    eng = engine.SlotEngine(model, c, slots=slots)
-    eng.prewarm([batches[0][1]])
+    if eng is None:
+        eng = engine.SlotEngine(model, c, slots=slots)
+        eng.prewarm([batches[0][1]])
+    else:   # a warm engine reused: this run's counts only
+        eng.stats = engine.EngineStats(slots=eng.slots)
     feed = [SimpleNamespace(index=i, host=h, device=d)
             for i, (_, h, d) in enumerate(batches)]
     torch.cuda.synchronize()
@@ -2035,20 +2067,40 @@ def engine_decode(torch, ctx, model, c, batches, slots=None) -> dict:
         emit(it.position, it.host, it.row, it.tokens, it.probs)
     st = eng.stats.summary()
     R = max(1, c.engine_harvest_every)
-    check(k1 == R * st["step_dispatches"],
-          f"engine: copy_score launched {k1} times for "
-          f"{st['step_dispatches']} step dispatches of {R} micro-steps")
+    want, formula = k1_formula(dict(st, warm_step_dispatches=0), R,
+                               c.engine_spec_k if c.spec_decode != "off"
+                               else 0)
+    check(k1 == want, f"engine: copy_score launched {k1} times, {want} = "
+          f"{formula}")
     errs = eng.allocator_invariants()
     check(not errs, f"engine allocator after the run: {errs}")
     return dict(out="".join(lines[i] for i in sorted(lines)).encode(),
                 rate=len(items) / wall, stats=st, k1=k1, peak=peak, eng=eng,
-                best={it.position: float(it.probs.max()) for it in items})
+                best={it.position: float(it.probs.max()) for it in items},
+                probs={it.position: it.probs for it in items})
 
 
-def engine_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
+def k1_formula(s: dict, R: int, k: int = 0) -> tuple:
+    """K1's launches an engine run owes from its own counters: R a plain
+    step dispatch and a prewarm, one a verify frame, k a draft (one a
+    verify dispatch and one a prewarm when spec is on, ``k`` > 0);
+    (count, the formula in words)."""
+    plain = s["step_dispatches"] - s["verify_dispatches"]
+    warm = s.get("warm_step_dispatches", 0)
+    drafts = s["verify_dispatches"] + (warm if k else 0)
+    want = R * (plain + warm) + s["spec_frames"] + k * drafts
+    text = (f"{R} x ({plain} plain dispatches + {warm} prewarms) + "
+            f"{s['spec_frames']} verify frames + {k} x {drafts} drafts")
+    return want, text
+
+
+def engine_cli(torch, ctx, run: dict, name: str, flags: list,
+               spec_k: int = 0) -> dict:
     """``cli test --dtype float32`` with ``flags`` on the f32 checkpoint,
     counts from zero around it; its printed lines kept and echoed; K1
-    must launch once a micro-step (prewarm's dispatch included)."""
+    must launch once a micro-step (prewarm's dispatch included), and
+    under spec decode (``spec_k`` its draft length) as ``k1_formula``
+    says."""
     import contextlib
     import io
 
@@ -2074,15 +2126,17 @@ def engine_cli(torch, ctx, run: dict, name: str, flags: list) -> dict:
             summary = json.loads(line[len("engine: "):])
         elif line.startswith(("decode table", "buckets")):
             print(f"[engine] cli test {' '.join(flags)}: {line}", flush=True)
+    formula = None
     if summary is not None:
-        want = ctx["cfg"].engine_harvest_every * (
-            summary["step_dispatches"] + summary["warm_step_dispatches"])
+        want, formula = k1_formula(summary, ctx["cfg"].engine_harvest_every,
+                                   spec_k)
         check(k1 == want, f"cli test {' '.join(flags)}: copy_score launched "
-              f"{k1} times, {want} micro-steps")
+              f"{k1} times, {want} = {formula}")
     path = os.path.join(out_dir, "output_fira")
     with open(path, "rb") as f:
         out = f.read()
-    return dict(out=out, k1=k1, wall=wall, summary=summary, path=path)
+    return dict(out=out, k1=k1, wall=wall, summary=summary, path=path,
+                formula=formula)
 
 
 def engine_run_test(torch, ctx, run: dict, name: str, knobs: dict) -> dict:
@@ -2858,8 +2912,8 @@ def phase_preprocess(ctx) -> None:
 def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     """``cli message``, one diff in, one message out. 8 diffs reconstructed
     from the test split; ``python -m fira_tpu_torch.cli message`` as a
-    subprocess on 2 of them against the f32 trained checkpoint (exit 0,
-    one non-empty line each); then in this process, for f32 and then
+    subprocess on 1 of them against the f32 trained checkpoint (exit 0,
+    one non-empty line); then in this process, for f32 and then
     bf16, ``one_shot_message`` on all 8 with K1, counts from zero around
     that pass only (K1 once a beam step), then with the plain copy score
     and K1 in turns; f32 also once each in log space. Hard checks: the
@@ -2892,7 +2946,7 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
         with open(paths[-1], "w") as f:
             f.write(text)
     cli_lines = []
-    for path in paths[:2]:
+    for path in paths[:1]:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "fira_tpu_torch.cli", "message", path,
@@ -2976,7 +3030,7 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
         n_diff = sum(a != b for a, b in zip(msgs, plain))
         rel, close = probs_gap(stats, plain_stats, f"{dtype} prob space")
         if dtype == "float32":
-            check(msgs[:2] == cli_lines, "cli message printed other messages "
+            check(msgs[:1] == cli_lines, "cli message printed other messages "
                   "than one_shot_message in this process")
             check(n_diff == 0, f"f32: {n_diff} of {len(texts)} messages "
                   f"differ between K1 and the plain copy score")
@@ -3768,6 +3822,398 @@ def phase_fleet(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     return k1
 
 
+SPEC_RUNS = [("copy k4", ["--spec-decode", "copy", "--spec-k", "4"], 4),
+             ("draft k4", ["--spec-decode", "draft", "--spec-k", "4"], 4),
+             ("copy k2", ["--spec-decode", "copy", "--spec-k", "2"], 2)]
+TIER_FLAGS = [("bf16kv", ["--kv-dtype", "bf16"]),
+              ("bf16w", ["--serve-precision", "bf16"]),
+              ("int8w", ["--serve-precision", "int8w"])]
+TIERS_DISAGG = ["--serve-tiers", "prefill-pool", "--prefill-workers", "2"]
+# a seeded death of prefill worker 0 (its draws fire at work items 0, 1
+# and 2; worker 1's at none of the first 120) and a seeded transport
+# corrupt (rows 1 and 2 of the third group), tests/test_torch_disagg.py's,
+# armed together in one run
+TIERS_FAULTS = ("disagg.worker:raise:0.05:73176,"
+                "disagg.transport:corrupt:0.3:38")
+
+
+def shm_segments() -> set:
+    import glob
+
+    return set(glob.glob("/dev/shm/psm_*"))
+
+
+def device_used_sampler(torch):
+    """(start, stop): a thread sampling the card's memory in use by every
+    process (``cudaMemGetInfo``'s total - free) every 20 ms; ``stop()``
+    returns the most seen, in bytes."""
+    import threading
+
+    peak, done = [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            free, total = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+            done.wait(0.02)
+    t = threading.Thread(target=sample, daemon=True)
+
+    def stop() -> int:
+        done.set()
+        t.join(5.0)
+        return peak[0]
+    t.start()
+    return stop
+
+
+def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
+    """The serving tiers on the card: fira-full, the f32 trained
+    checkpoint, 20 slots, R = 4, the [serve] phase's replayed trace under
+    the virtual clock unless stated. Hard checks: (1) ``cli test --engine
+    --spec-decode copy|draft --spec-k 4`` and ``copy --spec-k 2`` write
+    ``cli test --engine``'s bytes; (2) on the checkpoint made
+    ``copy_biased_params(delta=9, target_blind=True)`` the copy tier (k =
+    8: a verify may pass a plain dispatch's 4 positions) writes that
+    checkpoint's plain-engine bytes with accepted > 0, steps_saved > 0
+    and fewer verify dispatches than the plain run's step dispatches;
+    (3) ``--kv-dtype bf16``, ``--serve-precision bf16`` and ``int8w``
+    each write the same bytes twice, the bf16 arena half the f32 bytes a
+    slot, and spec under ``--kv-dtype bf16 --serve-precision int8w``
+    writes that tier's plain bytes; (4) ``cli serve --serve-tiers
+    prefill-pool --prefill-workers 2`` writes ``cli test --engine``'s
+    bytes with no decode-side prefill, each worker mapping libcuda, and
+    so does one run under a seeded worker death and a seeded transport
+    corrupt (the tier's counters showing the death, the resubmits and
+    the checksum catches); no shared-memory segment of a run is left
+    after it; (5) K1's launches in
+    each run equal ``k1_formula`` of its engines' counters. Printed beside
+    the card: each spec tier's acceptance, verify frames and dispatches a
+    commit against the plain engine on the trained and the biased
+    checkpoints; spec against plain commits/s in 3 alternating turns;
+    each tier against f32 (lines that differ, the B-Norm BLEU delta, the
+    mean and p99 divergence of the beam scores); disaggregated against
+    in-process req/s and p99 TTFT at 1.5x the drain, in 2 turns; the
+    card's peak memory in use with the workers' contexts. Returns K1's
+    launches in this process."""
+    from fira_tpu_torch.decode import engine as engine_lib
+    from fira_tpu_torch.decode import spec as spec_lib
+    from fira_tpu_torch.eval import bnorm_bleu_files
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.serve import poisson_times, serve_split
+    from fira_tpu_torch.serve.disagg import PrefillTier
+    from fira_tpu_torch.serve.server import prepare_templates
+
+    cs, ds, cfg = ctx["cs"], ctx["ds"], ctx["cfg"]
+    t_phase = time.perf_counter()
+    n = len(ds.splits["test"])
+    R = cfg.engine_harvest_every
+    want_lines = engine_bytes.decode().split("\n")
+    work = os.path.join(ctx["work"], "tiers")
+    os.makedirs(work)
+    card = f"on {ctx['kind']}, {ctx['smi']}"
+    k1 = 0
+    free0, total = torch.cuda.mem_get_info()
+    base_used = total - free0
+    stop = device_used_sampler(torch)
+    # the wall turns' prefill pool, started now so that its workers come
+    # up while the runs below go on (a pool's start, torch's import in
+    # each worker included, takes 15-30 s on the card's host)
+    cc = cfg.replace(decode_engine=True, compute_dtype="float32",
+                     prefix_cache=True)
+    ct = cc.replace(serve_tiers="prefill-pool", prefill_workers=2)
+    pool = PrefillTier(
+        {k: v.detach().cpu().numpy() for k, v in run32["state_dict"].items()},
+        ct, templates=prepare_templates(None, ds.splits["test"], ct, None,
+                                        prewarm=False),
+        device=f"cuda:{torch.cuda.current_device()}", dtype="float32")
+
+    def per_commit(s):
+        return s["step_dispatches"] / max(1, s["commits"])
+
+    # --- (1) spec is exact on the trained checkpoint
+    plain = engine_cli(torch, ctx, run32, "tiers_plain", ["--engine"])
+    k1 += plain["k1"]
+    check(plain["out"] == engine_bytes,
+          "cli test --engine: not the engine phase's bytes")
+    ps = plain["summary"]
+    for name, flags, k in SPEC_RUNS:
+        r = engine_cli(torch, ctx, run32, f"tiers_{name.replace(' ', '_')}",
+                       ["--engine", *flags], spec_k=k)
+        k1 += r["k1"]
+        s = r["summary"]
+        check(r["out"] == engine_bytes and s["verify_dispatches"] > 0,
+              f"cli test --engine {' '.join(flags)}: "
+              f"{len(n_lines_differ(r['out'], engine_bytes))} of {n} lines "
+              f"differ from the plain engine's; {s}")
+        print(f"[tiers] cli test --engine {' '.join(flags)} (trained "
+              f"checkpoint): output_fira byte-identical to the plain "
+              f"engine's; acceptance {s['acceptance_rate']} ({s['accepted']} "
+              f"of {s['drafted']} drafted), verify dispatches "
+              f"{s['verify_dispatches']} + {s['step_dispatches'] - s['verify_dispatches']} "
+              f"plain, verify frames {s['spec_frames']}, steps saved "
+              f"{s['steps_saved']}; dispatches a commit "
+              f"{per_commit(s):.3f} against the plain engine's "
+              f"{per_commit(ps):.3f}; host syncs {s['host_syncs']} vs "
+              f"{ps['host_syncs']}; K1 {r['k1']} = {r['formula']}; "
+              f"{r['wall']:.2f} s vs plain {plain['wall']:.2f} s", flush=True)
+
+    laps = [("spec, trained", time.perf_counter() - t_phase)]
+    # --- (2) spec advances on target-blind copy-biased weights
+    bdir = os.path.join(work, "ckpt_biased")
+    os.makedirs(bdir)
+    biased = spec_lib.copy_biased_params(run32["state_dict"], delta=9.0,
+                                         target_blind=True)
+    torch.save(biased, os.path.join(bdir, "best.pt"))
+    brun = dict(run32, ckpt_dir=bdir)
+    bplain = engine_cli(torch, ctx, brun, "tiers_biased_plain", ["--engine"])
+    k1 += bplain["k1"]
+    bps = bplain["summary"]
+    for tier in ("copy", "draft"):
+        r = engine_cli(torch, ctx, brun, f"tiers_biased_{tier}",
+                       ["--engine", "--spec-decode", tier, "--spec-k", "8"],
+                       spec_k=8)
+        k1 += r["k1"]
+        s = r["summary"]
+        check(r["out"] == bplain["out"],
+              f"biased {tier} k8: {len(n_lines_differ(r['out'], bplain['out']))} "
+              f"lines differ from the plain engine on the same weights")
+        if tier == "copy":
+            check(s["accepted"] > 0 and s["steps_saved"] > 0
+                  and s["verify_dispatches"] < bps["step_dispatches"],
+                  f"biased copy k8: accepted {s['accepted']}, steps saved "
+                  f"{s['steps_saved']}, verify dispatches "
+                  f"{s['verify_dispatches']} vs plain step dispatches "
+                  f"{bps['step_dispatches']}")
+        print(f"[tiers] cli test --engine --spec-decode {tier} --spec-k 8 "
+              f"(copy-biased target-blind checkpoint): output_fira "
+              f"byte-identical to its plain engine's; acceptance "
+              f"{s['acceptance_rate']} ({s['accepted']} of {s['drafted']}), "
+              f"verify dispatches {s['verify_dispatches']} (+ "
+              f"{s['step_dispatches'] - s['verify_dispatches']} plain) vs "
+              f"the plain run's {bps['step_dispatches']} step dispatches, "
+              f"verify frames {s['spec_frames']}, steps saved "
+              f"{s['steps_saved']}; dispatches a commit {per_commit(s):.3f} "
+              f"vs {per_commit(bps):.3f}; K1 {r['k1']} = {r['formula']}; "
+              f"{r['wall']:.2f} s vs plain {bplain['wall']:.2f} s",
+              flush=True)
+
+    laps.append(("spec, biased", time.perf_counter() - t_phase))
+    # --- (3) each weight/KV tier is stable; spec exact within a tier
+    outs = {}
+    for name, flags in TIER_FLAGS:
+        a = engine_cli(torch, ctx, run32, f"tiers_{name}_a",
+                       ["--engine", *flags])
+        b = engine_cli(torch, ctx, run32, f"tiers_{name}_b",
+                       ["--engine", *flags])
+        k1 += a["k1"] + b["k1"]
+        s = a["summary"]
+        check(a["out"] == b["out"],
+              f"{name}: two runs differ in "
+              f"{len(n_lines_differ(a['out'], b['out']))} lines")
+        check(s["kv_dtype"] == ("bf16" if name == "bf16kv" else "f32")
+              and s["serve_precision"] == {"bf16kv": "f32", "bf16w": "bf16",
+                                           "int8w": "int8w"}[name],
+              f"{name}: stamped {s['kv_dtype']}/{s['serve_precision']}")
+        if name == "bf16kv":
+            check(2 * s["kv_bytes_per_slot"] == ps["kv_bytes_per_slot"],
+                  f"bf16kv: {s['kv_bytes_per_slot']} bytes a slot against "
+                  f"f32's {ps['kv_bytes_per_slot']}")
+        outs[name] = a
+    combo = ["--kv-dtype", "bf16", "--serve-precision", "int8w"]
+    cplain = engine_cli(torch, ctx, run32, "tiers_combo", ["--engine",
+                                                           *combo])
+    cspec = engine_cli(torch, ctx, run32, "tiers_combo_spec",
+                       ["--engine", *combo, "--spec-decode", "copy",
+                        "--spec-k", "4"], spec_k=4)
+    k1 += cplain["k1"] + cspec["k1"]
+    check(cspec["out"] == cplain["out"],
+          f"spec under bf16kv.int8w: "
+          f"{len(n_lines_differ(cspec['out'], cplain['out']))} lines differ "
+          f"from that tier's plain engine")
+    outs["bf16kv+int8w"] = cplain
+    print(f"[tiers] each tier twice through cli test --engine: the same "
+          f"bytes both times; kv_bytes_per_slot bf16 "
+          f"{outs['bf16kv']['summary']['kv_bytes_per_slot']} vs f32 "
+          f"{ps['kv_bytes_per_slot']}; spec copy k4 under --kv-dtype bf16 "
+          f"--serve-precision int8w writes that tier's plain bytes "
+          f"(acceptance {cspec['summary']['acceptance_rate']})", flush=True)
+
+    laps.append(("tiers twice", time.perf_counter() - t_phase))
+    # quality against f32, and the beam scores' divergence (in process)
+    c1 = cfg.replace(decode_engine=True, compute_dtype="float32")
+    model = FiraModel(c1, device="cuda", dtype="float32").eval()
+    model.load_state_dict(run32["state_dict"])
+    batches = staged_batches(torch, ctx, c1)
+    ref = engine_decode(torch, ctx, model, c1, batches)
+    k1 += ref["k1"]
+    check(ref["out"] == engine_bytes, "in-process f32 engine: not the "
+          "engine phase's bytes")
+    f32_bleu = bnorm_bleu_files(plain["path"], ctx["gt_file"])
+    for name, knobs in (("bf16kv", dict(kv_dtype="bf16")),
+                        ("bf16w", dict(serve_precision="bf16")),
+                        ("int8w", dict(serve_precision="int8w")),
+                        ("bf16kv+int8w", dict(kv_dtype="bf16",
+                                              serve_precision="int8w"))):
+        r = engine_decode(torch, ctx, model, c1.replace(**knobs), batches)
+        k1 += r["k1"]
+        check(r["out"] == outs[name]["out"],
+              f"{name}: in process, not the CLI's bytes")
+        div = np.concatenate([np.abs(r["probs"][p].ravel()
+                                     - ref["probs"][p].ravel())
+                              for p in sorted(ref["probs"])])
+        bleu = bnorm_bleu_files(outs[name]["path"], ctx["gt_file"])
+        print(f"[tiers] {name} against f32: "
+              f"{len(n_lines_differ(outs[name]['out'], engine_bytes))} of "
+              f"{n} lines differ, B-Norm BLEU {bleu!r} vs {f32_bleu!r} "
+              f"(delta {bleu - f32_bleu:+.4f}), beam-score divergence mean "
+              f"{float(div.mean()):.3e} p99 "
+              f"{float(np.percentile(div, 99)):.3e}; peak memory above "
+              f"held {r['peak'] / 2**20:.1f} vs {ref['peak'] / 2**20:.1f} "
+              f"MiB; {r['rate']:.2f} vs {ref['rate']:.2f} commits/s; "
+              f"{card}", flush=True)
+
+    laps.append(("quality", time.perf_counter() - t_phase))
+    # spec against plain commits/s, in 3 alternating turns (warm engines)
+    cspec1 = c1.replace(spec_decode="copy", engine_spec_k=4)
+    e_plain = ref["eng"]
+    e_spec = engine_lib.SlotEngine(model, cspec1)
+    e_spec.prewarm([batches[0][1]])
+    rates = {"plain": [], "spec": []}
+    for i, which in enumerate(("spec", "plain", "plain", "spec", "spec",
+                               "plain")):
+        c = cspec1 if which == "spec" else c1
+        r = engine_decode(torch, ctx, model, c, batches,
+                          eng=e_spec if which == "spec" else e_plain)
+        k1 += r["k1"]
+        check(r["out"] == engine_bytes, f"turn {i + 1} ({which}): bytes")
+        rates[which].append(r["rate"])
+    print(f"[tiers] commits/s in turns s p p s s p, copy k4 vs plain "
+          f"(trained checkpoint, 20 slots): spec "
+          f"{', '.join(f'{x:.2f}' for x in rates['spec'])}, plain "
+          f"{', '.join(f'{x:.2f}' for x in rates['plain'])}; {card}",
+          flush=True)
+    del e_spec
+
+    laps.append(("spec turns", time.perf_counter() - t_phase))
+    # --- (4) the disaggregated prefill tier
+    before = shm_segments()
+    t0 = time.perf_counter()
+    r, kids = watch_children(lambda: serve_cli(
+        torch, ctx, run32, "tiers disagg", TIERS_DISAGG, sub="tiers"))
+    call_s = time.perf_counter() - t0
+    k1 += r["k1"]
+    sv, e, tiers = (r["metrics"]["serve"], r["metrics"]["engine"],
+                    r["metrics"]["serve"]["tiers"])
+    check(r["out"] == engine_bytes and sv["completed"] == n,
+          f"cli serve {' '.join(TIERS_DISAGG)}: "
+          f"{len(n_lines_differ(r['out'], engine_bytes))} lines differ")
+    check(e["prefills"] == 0 and e["cache_hits"] == tiers["rows_delivered"]
+          and tiers["workers"] == 2 and tiers["workers_lost"] == 0
+          and not tiers["fallback"],
+          f"cli serve tiers: engine {e['prefills']} prefills, "
+          f"{e['cache_hits']} hits; tiers {tiers}")
+    check(len(kids) >= 2 and all(f[0] and f[1] for f in kids.values()),
+          f"prefill workers: {kids} (pid -> libtorch, libcuda mapped)")
+    check(shm_segments() <= before, "a shared-memory segment was left")
+    print(f"[tiers] cli serve {' '.join(TIERS_DISAGG)}: output_fira "
+          f"byte-identical to cli test --engine, decode-side prefills "
+          f"{e['prefills']}, cache hits {e['cache_hits']}; {r['line']}; "
+          f"tiers: groups {tiers['groups_submitted']}, rows "
+          f"{tiers['rows_delivered']} by worker {tiers['rows_by_worker']}, "
+          f"shm segments {tiers['shm_segments']}, artifact bytes "
+          f"{tiers['artifact_bytes']}, peak in flight "
+          f"{tiers['peak_inflight_bytes']}, prefill busy "
+          f"{tiers['prefill_busy_s']:.3f} s; workers {sorted(kids)} each "
+          f"mapping libtorch and libcuda; /dev/shm free "
+          f"{shutil.disk_usage('/dev/shm').free / 2**20:.0f} MiB; K1 "
+          f"{r['k1']}; the call {call_s:.2f} s", flush=True)
+    before = shm_segments()
+    t0 = time.perf_counter()
+    r = serve_cli(torch, ctx, run32, "tiers faults",
+                  TIERS_DISAGG + ["--inject-faults", TIERS_FAULTS],
+                  sub="tiers")
+    call_s = time.perf_counter() - t0
+    k1 += r["k1"]
+    sv, tiers = r["metrics"]["serve"], r["metrics"]["serve"]["tiers"]
+    check(r["out"] == engine_bytes and sv["completed"] == n,
+          f"cli serve tiers, faults: "
+          f"{len(n_lines_differ(r['out'], engine_bytes))} lines differ")
+    check(tiers["workers_lost"] == 1 and not tiers["fallback"]
+          and tiers["transport_integrity_drops"] > 0
+          and tiers["rows_resubmitted"] > tiers["transport_integrity_drops"],
+          f"cli serve tiers, faults: {tiers}")
+    check(shm_segments() <= before, "a shared-memory segment was left")
+    print(f"[tiers] cli serve tiers, {TIERS_FAULTS}: output_fira "
+          f"byte-identical; fired in this process {r['metrics'].get('faults')} "
+          f"(a worker's own draws fire in it); workers lost "
+          f"{tiers['workers_lost']}, rows resubmitted "
+          f"{tiers['rows_resubmitted']}, checksum catches "
+          f"{tiers['transport_integrity_drops']}, given up "
+          f"{tiers['rows_given_up']}, fallback {tiers['fallback']}, "
+          f"decode-side prefills {r['metrics']['engine']['prefills']}; K1 "
+          f"{r['k1']}; the call {call_s:.2f} s", flush=True)
+    laps.append(("disagg checks", time.perf_counter() - t_phase))
+    # disaggregated against in-process, wall clock at 1.5x the drain, in
+    # 2 turns (d i i d) on one warm engine and the pool started at the
+    # phase's start, the prefix cache on (the tiers need it) and emptied
+    # before each run
+    check(pool.wait_ready(300.0), "the wall turns' prefill pool never "
+          "came up")
+    eng = engine_lib.SlotEngine(model, cc)
+    eng.prewarm([batches[0][1]])
+    rate = 1.5 * ref["rate"]
+    times = poisson_times(n, rate, seed=5)
+    walls = {"disagg": [], "in-process": []}
+    for i, which in enumerate(("disagg", "in-process", "in-process",
+                               "disagg")):
+        c = ct if which == "disagg" else cc
+        eng.stats = engine_lib.EngineStats(slots=eng.slots)
+        eng.cache_clear()
+        cs.copy_scores.launches = 0
+        t0 = time.perf_counter()
+        m = serve_split(model, ds, c, arrival_times=times,
+                        out_dir=os.path.join(work, f"wall_{i}"),
+                        clock="wall", var_maps=ctx["var_maps"], engine=eng,
+                        tier=pool if which == "disagg" else None)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launched = cs.copy_scores.launches
+        k1 += launched
+        sv, e = m["serve"], m["engine"]
+        check(launched == R * e["step_dispatches"],
+              f"wall {which}: K1 launched {launched} times")
+        check(sv["completed"] == n and serve_bytes(m) == engine_bytes,
+              f"wall {which}: {sv['completed']} of {n} done, or bytes")
+        if which == "disagg":
+            check(e["prefills"] == 0, f"wall disagg: {e['prefills']} "
+                  f"decode-side prefills")
+        walls[which].append((sv["throughput_rps"], sv["p99_ttft_s"]))
+        print(f"[tiers] wall clock, turn {i + 1}, {which}: offered "
+              f"{rate:.2f} req/s (1.5x the drain's {ref['rate']:.2f}), "
+              f"completed {sv['throughput_rps']} req/s, p50/p99 TTFT "
+              f"{sv['p50_ttft_s']}/{sv['p99_ttft_s']} s, p50/p99 e2e "
+              f"{sv['p50_e2e_s']}/{sv['p99_e2e_s']} s, decode-side "
+              f"prefills {e['prefills']}; K1 {launched}; the call "
+              f"{call_s:.2f} s; {card}", flush=True)
+    before = shm_segments()
+    pool.close()
+    check(shm_segments() <= before, "a shared-memory segment was left")
+    peak_used = stop()
+    laps.append(("wall turns", time.perf_counter() - t_phase))
+    print(f"[tiers] the card's memory in use, every process: before the "
+          f"phase {base_used / 2**30:.2f} GiB, most during it "
+          f"{peak_used / 2**30:.2f} GiB (the prefill workers' CUDA contexts "
+          f"and models included: the wall turns' 2 beside a serve's own 2); "
+          f"{card}", flush=True)
+    print(f"[tiers] the phase: K1 launched {k1} times in this process "
+          f"(each run as k1_formula of its counters; the workers launch "
+          f"none), {time.perf_counter() - t_phase:.1f} s (ends of its parts: "
+          + ", ".join(f"{a} {b:.1f} s" for a, b in laps) + ")", flush=True)
+    del model, eng, ref
+    torch.cuda.empty_cache()
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -3789,6 +4235,14 @@ def main() -> int:
     from fira_tpu_torch.train.step import train_step
 
     cli.resolve_device("cuda")   # TF32 off, as the CLI runs
+    t_smoke = time.perf_counter()
+
+    def lap(what: str) -> None:
+        """The smoke's clock at the end of a part (its time limit is
+        fixed while it grows)."""
+        print(f"[time] {what}: done {time.perf_counter() - t_smoke:.1f} s "
+              f"into the smoke", flush=True)
+
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = smi_name_power()
     print(f"[device] {kind} x{count}; nvidia-smi: {smi}; torch "
@@ -3828,6 +4282,7 @@ def main() -> int:
     for rec, dt in ((bwd32, torch.float32), (bwd16, torch.bfloat16)):
         rec.update({f"bucket_{k}": v for k, v in phase_kernels_bwd(
             torch, cs, cfg, dt, T=bucket_t).items()})
+    lap("build, buckets, kernels")
 
     # --- the training paths: f32 (its CLI epoch on the loop's own thread,
     # feeder_workers=0), then bf16 (this slice's path, 2 workers) ---
@@ -3847,6 +4302,7 @@ def main() -> int:
         feed_designs(torch, ctx, dtype)
     for run in (run32, run16):
         dev_gate_check(torch, ctx, run)
+    lap("train, train plain, feed, dev gate")
 
     # --- bucketed geometry and grouped steps ---
     tb32 = train_buckets(torch, ctx, "float32", tables)
@@ -3854,6 +4310,7 @@ def main() -> int:
     bucket_checks(torch, ctx, tables)
     for dtype in ("float32", "bfloat16"):
         bucket_turns(torch, ctx, dtype, tables)
+    lap("train buckets, bucket checks, turns")
 
 
     # --- profile one warm training step: f32 plain copy score, f32
@@ -3903,6 +4360,7 @@ def main() -> int:
         del state, batch
 
     # --- the test paths: each dtype's CLI decodes its trained checkpoint ---
+    lap("profiles")
     main32 = test_path(torch, ctx, run32)
     decode_plain(torch, ctx, run32, main32)
     mb32 = test_buckets(torch, ctx, run32, main32)
@@ -3912,27 +4370,40 @@ def main() -> int:
     # --- the encoder variants: split buffer, segment adjacency (sorted
     # edges or not), flat scatter, typed edges; every beam mode; then the
     # new flags through the entry points ---
+    lap("main, plain, test buckets")
     ev32 = encoder_variants(torch, ctx, "float32")
     ev16 = encoder_variants(torch, ctx, "bfloat16")
     encoder_checks(torch, ctx)
+    lap("encoder variants")
     modes32 = beam_modes(torch, ctx, run32, main32)
     modes16 = beam_modes(torch, ctx, run16, main16)
+    lap("beam modes")
     flags32 = cli_new_flags(torch, ctx, run32, modes32)
+    lap("cli flags")
     # --- the slot-refill engine: cli test --engine in every mode against
     # the batched bytes, --perf production, tar buckets, mixed depths,
     # engine vs batched in turns ---
     eng_k1, engine_bytes = engine_phase(torch, ctx, run32, run16, modes32)
+    lap("engine")
     # --- cli serve on one engine: replayed traces against cli test
     # --engine, the prefix cache and dedup, wall-clock rates, faults ---
     serve_k1 = serve_phase(torch, ctx, run32, engine_bytes)
+    lap("serve")
     # --- preprocessing and the one-shot raw-diff path, cli message ---
     phase_preprocess(ctx)
     msg_k1 = phase_message(torch, ctx, run32, run16)
+    lap("preprocess, message")
     # --- cli serve --input diffs and the ingest fast path ---
     diffs_k1 = phase_serve_diffs(torch, ctx, run32)
+    lap("serve-diffs")
     # --- the replicated fleet and recovery: replicas, retirement, respawn,
     # spares, kill and resume ---
     fleet_k1 = phase_fleet(torch, ctx, run32, engine_bytes)
+    lap("fleet")
+    # --- the serving tiers: spec decode, the low-precision tiers, the
+    # disaggregated prefill tier ---
+    tiers_k1 = phase_tiers(torch, ctx, run32, engine_bytes)
+    lap("tiers")
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -3947,6 +4418,7 @@ def main() -> int:
         del model, batch
     phase_small_reference(torch, FiraModel, batch_to_device, make_batch, ds,
                           run32["state_dict"])
+    lap("decode profiles, small reference")
 
     common = dict(route="cuda", library_ms=None)
     fwd = dict(source="fira_tpu_torch/ops/csrc/copy_score.cu",
@@ -3958,7 +4430,7 @@ def main() -> int:
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
              + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1
-             + fleet_k1,
+             + fleet_k1 + tiers_k1,
              **fwd,
              **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",

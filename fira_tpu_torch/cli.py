@@ -42,7 +42,11 @@
   of ``--respawn-backoff-s``). ``serve --input graphs`` keeps a request
   journal, ``<out-dir>/output_fira.journal``: after a kill, ``--resume``
   serves only what the killed run did not finish and the file ends as
-  the uninterrupted run's.
+  the uninterrupted run's. ``--serve-tiers prefill-pool`` runs the
+  prefills in ``--prefill-workers`` spawned processes on the same device
+  (serve/disagg.py), which ship each request's artifacts into the
+  engines' prefix caches (``--serve-artifact-budget-mb`` bounds the bytes
+  in flight), with the same bytes.
 
 ``best.pt`` is a ``torch.save``d state_dict of ``FiraModel``
 (``fira_tpu_torch.convert`` also makes one from a flax tree). The run is on
@@ -63,7 +67,12 @@ its paged KV arena: ``--kv-paged``, ``--kv-block-size``,
 ``--kv-pool-blocks``; ``--engine-replicas N``, a fleet of N engines over
 the fleet-total slots), per sample bitwise equal to the batched beam;
 ``--decode-tar-buckets`` lets decode buckets keep their own tar_len as a
-generation budget; ``--perf production`` applies the JAX package's
+generation budget; the serving tiers of ``test --engine`` and ``serve``:
+``--spec-decode copy|draft`` with ``--spec-k K`` (speculative
+draft-and-verify, decode/spec.py: the same bytes in fewer positions a
+dispatch's worth of steps), ``--kv-dtype bf16`` (the KV arena in bf16)
+and ``--serve-precision bf16|int8w`` (the decode weights quantized,
+decode/quant.py), each refused without ``--engine`` and on ``train``; ``--perf production`` applies the JAX package's
 production knob sets (``config.PRODUCTION_PERF_KNOBS`` and
 ``DECODE_PERF_KNOBS``: the engine with the cached, factored, early-exit
 beam). A config the port does not run, or a bad knob, exits 2 with the
@@ -85,6 +94,9 @@ Example:
     python -m fira_tpu_torch.cli serve --input diffs --diff-trace reqs.trace
     python -m fira_tpu_torch.cli serve --engine-replicas 2 --max-respawns 1
     python -m fira_tpu_torch.cli serve --serve-rate 20 --resume
+    python -m fira_tpu_torch.cli test --engine --spec-decode copy --spec-k 4
+    python -m fira_tpu_torch.cli test --engine --kv-dtype bf16
+    python -m fira_tpu_torch.cli serve --serve-rate 20 --serve-tiers prefill-pool
 """
 
 from __future__ import annotations
@@ -212,6 +224,44 @@ def build_parser() -> argparse.ArgumentParser:
                         "Output file bytes are invariant to N. A nonzero "
                         "--engine-slots is the fleet total and must "
                         "divide by N")
+    p.add_argument("--spec-decode", default=None,
+                   choices=["off", "copy", "draft"],
+                   help="test/serve: speculative draft-and-verify decode "
+                        "on the slot engine (decode/spec.py): a cheap "
+                        "drafter proposes --spec-k tokens per live slot and "
+                        "one verify dispatch scores them with the engine's "
+                        "own step, accepting the longest matching prefix. "
+                        "'copy' drafts from the copy-head distribution "
+                        "alone (no decoder stack); 'draft' greedy-rolls the "
+                        "full step. Output stays bit-exact vs plain engine "
+                        "decode; default off. Requires --engine")
+    p.add_argument("--spec-k", type=_positive, default=None, metavar="K",
+                   help="test/serve: speculative draft length, tokens "
+                        "proposed per slot per verify dispatch (default "
+                        "4). Must leave room in the smallest declared "
+                        "decode tar budget (validated at parse time, "
+                        "exit 2). Output bytes do not depend on K")
+    p.add_argument("--kv-dtype", default=None, choices=["f32", "bf16"],
+                   help="test/serve: engine KV arena storage dtype "
+                        "(decode/quant.py): 'bf16' stores the slot arena "
+                        "(paged pool blocks and the unpaged arena alike) "
+                        "in bfloat16, half the kv_bytes_per_slot, while "
+                        "every read upcasts so attention math stays f32. "
+                        "Output bytes within a tier stay a pure function "
+                        "of the stream; quality vs f32 is measured, never "
+                        "assumed. Default 'f32' is byte-identical to the "
+                        "engine without tiers. Requires --engine")
+    p.add_argument("--serve-precision", default=None,
+                   choices=["f32", "bf16", "int8w"],
+                   help="test/serve: decode weight tier (decode/quant.py): "
+                        "the decode-only dispatches (step/draft/verify) run "
+                        "on a quantized copy of the decoder, vocabulary "
+                        "projection and copy-head weights: 'int8w' "
+                        "per-channel symmetric int8 with f32 accumulate, "
+                        "dequantized once a dispatch, 'bf16' a bfloat16 "
+                        "cast; quantized once at engine build (and per "
+                        "respawn/spare). Prefill and the f32 default stay "
+                        "full precision. Requires --engine")
     p.add_argument("--kv-paged", default=None, choices=["on", "off"],
                    help="test: the engine's KV arena: a pool of blocks "
                         "behind per-slot block tables (on, default) or "
@@ -321,6 +371,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve: admission-queue bound; an arrival past Q "
                         "queued requests is shed on the spot (recorded); "
                         "0 = unbounded (default)")
+    p.add_argument("--serve-tiers", default=None,
+                   choices=["off", "prefill-pool"],
+                   help="serve: tier topology (serve/disagg.py): 'off' "
+                        "(default) is in-process serve; 'prefill-pool' "
+                        "runs a pool of prefill worker processes on the "
+                        "same device shipping seat-ready artifacts, so "
+                        "decode replicas never dispatch a prefill. "
+                        "Requires --prefix-cache on and the decode engine; "
+                        "validated at parse time, exit 2")
+    p.add_argument("--prefill-workers", type=int, default=None,
+                   metavar="W",
+                   help="serve: prefill-pool width, worker processes in "
+                        "the prefill tier (each with its own model and "
+                        "device context; output bytes do not depend on "
+                        "W). Must be >= 1 (validated at parse time, "
+                        "exit 2)")
+    p.add_argument("--serve-artifact-budget-mb", type=int, default=None,
+                   metavar="MB",
+                   help="serve: prefill-tier backpressure: total artifact "
+                        "bytes in flight stays under this budget, so a "
+                        "fast prefill tier cannot exhaust host memory. "
+                        "0 = unbounded; must be >= 0 (validated at parse "
+                        "time, exit 2)")
     p.add_argument("--serve-clock", default="wall",
                    choices=["wall", "virtual"],
                    help="serve: 'wall' (default) paces arrivals in real "
@@ -339,7 +412,8 @@ def build_parser() -> argparse.ArgumentParser:
                         " (sites wired: feeder.assemble, feeder.device_put, "
                         "ingest.parse, ingest.cache, engine.prefill, "
                         "engine.step, engine.harvest, fleet.replica, "
-                        "serve.admit, cache.lookup; kinds: raise | hang | "
+                        "serve.admit, cache.lookup, disagg.transport, "
+                        "disagg.worker; kinds: raise | hang | "
                         "corrupt); "
                         "deterministic given the seed; off by default")
     p.add_argument("--dispatch-watchdog-s", type=float, default=None,
@@ -476,9 +550,14 @@ def resolve_config(args):
                  "dispatch_watchdog_s", "robust_retries", "ingest_workers",
                  "ingest_truncate", "ingest_cache_entries",
                  "ingest_cache_bytes", "ingest_exec", "engine_replicas",
-                 "max_respawns", "engine_spares", "respawn_backoff_s"):
+                 "max_respawns", "engine_spares", "respawn_backoff_s",
+                 "spec_decode", "kv_dtype", "serve_precision",
+                 "serve_tiers", "prefill_workers",
+                 "serve_artifact_budget_mb"):
         if getattr(args, knob) is not None:
             cfg = cfg.replace(**{knob: getattr(args, knob)})
+    if args.spec_k is not None:
+        cfg = cfg.replace(engine_spec_k=args.spec_k)
     if args.ingest_cache is not None:
         cfg = cfg.replace(ingest_cache=args.ingest_cache == "on")
     # serve runs on the slot engine, with the prefix cache and in-flight
@@ -563,17 +642,24 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def refused(c) -> bool:
         """Print one line naming the knob a refusal; True if any."""
+        from fira_tpu_torch.decode.quant import quant_errors
         from fira_tpu_torch.parallel.fleet import fleet_divisibility_errors
         from fira_tpu_torch.robust.recovery import recovery_errors
 
         errs = unsupported(c)
+        if args.command == "train":
+            # the training path refuses any serving tier outright
+            errs += quant_errors(c, train=True)
         if c.decode_engine:
             errs += fleet_divisibility_errors(c)
         errs += paging_errors(c) + recovery_errors(c)
         if args.command == "serve":
+            from fira_tpu_torch.serve.disagg import disagg_errors
             from fira_tpu_torch.serve.server import serve_errors
 
             errs += serve_errors(c, trace=args.serve_trace is not None)
+            errs += disagg_errors(c)
+        errs = list(dict.fromkeys(errs))   # a check run twice prints once
         for e in errs:
             print(f"fira_tpu_torch: config error: {e}", file=sys.stderr)
         return bool(errs)

@@ -277,20 +277,6 @@ DECODE_PERF_KNOBS = {
 }
 
 
-# knob -> (the value of the one path the port runs, the part of the JAX
-# package that runs the others)
-_PORTED_PATH = {
-    "kv_dtype": ("f32", "the low-precision serving tiers, decode/quant.py "
-                 "(ROADMAP A.9)"),
-    "serve_precision": ("f32", "the low-precision serving tiers, "
-                        "decode/quant.py (ROADMAP A.9)"),
-    "spec_decode": ("off", "speculative decode, decode/spec.py "
-                    "(ROADMAP A.9)"),
-    "serve_tiers": ("off", "the disaggregated prefill tier, "
-                    "serve/disagg.py (ROADMAP A.9)"),
-}
-
-
 COMPUTE_DTYPES = ("float32", "bfloat16")
 ENCODER_BUFFERS = ("single", "split")
 ADJACENCY_IMPLS = ("dense", "segment")
@@ -298,10 +284,19 @@ ADJACENCY_IMPLS = ("dense", "segment")
 
 def unsupported(cfg: FiraConfig) -> List[str]:
     """Knobs set to a path the port does not run, or to a value no path
-    takes, one message each."""
-    errs = [f"{k}={getattr(cfg, k)!r} (the port runs {v!r} only; other "
-            f"values come with {what})"
-            for k, (v, what) in _PORTED_PATH.items() if getattr(cfg, k) != v]
+    takes, one message each. The serving tiers are checked as the JAX
+    CLI checks them (``quant_errors``, ``spec_errors``; ``disagg_errors``
+    once ``serve_tiers`` leaves "off"), so a tier without the slot engine
+    is refused in the JAX package's words wherever a model or an engine
+    is built."""
+    from fira_tpu_torch.decode.quant import quant_errors
+    from fira_tpu_torch.decode.spec import spec_errors
+
+    errs = quant_errors(cfg) + spec_errors(cfg)
+    if cfg.serve_tiers != "off":
+        from fira_tpu_torch.serve.disagg import disagg_errors
+
+        errs += disagg_errors(cfg)
     # the JAX model's own refusals, in its words (fira_tpu/model/model.py)
     if cfg.encoder_buffer not in ENCODER_BUFFERS:
         errs.append(f"unknown encoder_buffer {cfg.encoder_buffer!r}; "

@@ -75,6 +75,24 @@ def step_valid_mask(flat, s, T: int):
     return base & (torch.arange(T, device=flat.device)[None, :] <= lim)
 
 
+def top_beam_token(tokens, pos):
+    """The top beam's token at each row's position ``pos`` (B,): the
+    token emitted by the step that advanced row b to ``pos[b]`` (the
+    selection's top-k is in descending order, so beam 0 is the running
+    best). The spec verify (decode/spec.py) accepts a drafted token
+    exactly when it equals this. tokens: (B, K, T)."""
+    return tokens[:, 0, :].gather(1, pos[:, None])[:, 0]
+
+
+def scatter_token(flat, pos, tok):
+    """Write ``tok[b]`` at row b's own column ``pos[b]`` of ``flat`` (B,
+    T), in place, and return it: the spec drafters' single-beam roll
+    (decode/spec.py)."""
+    flat[torch.arange(flat.shape[0], device=flat.device), pos] = \
+        tok.to(flat.dtype)
+    return flat
+
+
 def stable_top_k(x, k: int):
     """Top-k along the last axis, ties to the lower index (as
     ``jax.lax.top_k``)."""

@@ -88,8 +88,22 @@ touches no scheduling state once it wakes.
 Replicas (parallel/fleet.py) are engines with a ``tag`` (``r<i>``, a
 spare's ``sp<i>``, a respawn's ``r<i>~<k>``) that names them in the
 retirement, respawn and heartbeat records; each keeps the device of the
-model it is given. Not ported here, each refused by its knob
-(``config.unsupported``): spec decode and the low-precision tiers.
+model it is given, and each builds its own serving tiers.
+
+Serving tiers (decode/quant.py): ``cfg.kv_dtype="bf16"`` allocates the
+arena (pool blocks or stripes) in bf16 through the prefill's
+``cache_seed``; writes cast, reads upcast. ``cfg.serve_precision`` runs
+every step, draft and verify on a decode-side module of bf16 or int8
+weights (int8 dequantized once a dispatch); prefill keeps the original
+weights. Both are identities on the f32 path.
+
+Speculative decode (decode/spec.py, ``cfg.spec_decode``): a step dispatch
+becomes a draft (k tokens a slot from the ``copy`` or ``draft`` tier)
+and a verify (up to k gated exact steps, ``_one_step(gate=...)``, one
+host read of the loop's predicate a frame), with ``STALL_COOLDOWN`` plain
+dispatches after a verify whose drafts all missed. The output does not
+depend on it. The verify's device counters ride back with the harvest's
+done-mask read.
 """
 
 from __future__ import annotations
@@ -105,16 +119,29 @@ from fira_tpu_torch.config import FiraConfig, unsupported
 from fira_tpu_torch.data.feeder import batch_to_device
 from fira_tpu_torch.decode import paging
 from fira_tpu_torch.decode import prefix_cache as prefix_cache_lib
+from fira_tpu_torch.decode import quant
+from fira_tpu_torch.decode import spec as spec_lib
 from fira_tpu_torch.decode.beam import (_init_beam, _select, _select_factored,
                                         step_valid_mask)
 from fira_tpu_torch.model.model import FiraModel
 
+PREFILL_KIND = "engine_prefill"
+STEP_LABEL = "engine_step"
+INSERT_LABEL = "engine_insert"
+HARVEST_LABEL = "engine_harvest"
+
+
+def program_label(kind: str, mods: Optional[str] = None) -> str:
+    """``kind[mods]`` (the JAX package's program-label format), ``kind``
+    alone without mods."""
+    return f"{kind}[{mods}]" if mods else kind
+
 
 @dataclasses.dataclass
 class EngineStats:
-    """Dispatch and occupancy accounting of one engine. The spec-decode
-    fields keep the JAX package's keys and stay 0: that path is not
-    ported."""
+    """Dispatch and occupancy accounting of one engine (the JAX
+    package's fields). Under spec decode ``steps`` counts a verify
+    dispatch as one step; the frames it ran are ``spec_frames``."""
 
     slots: int
     prefills: int = 0            # prefill dispatches (chunks)
@@ -147,13 +174,17 @@ class EngineStats:
     #                              seat (delivered at its harvest)
     shared_block_peak: int = 0   # most paged blocks at once whose seat
     #                              serves a coalesced group
-    drafted: int = 0
-    accepted: int = 0
-    verify_dispatches: int = 0
-    steps_saved: int = 0
-    spec_frames: int = 0
-    kv_dtype: str = "f32"
-    serve_precision: str = "f32"
+    # speculative decode (cfg.spec_decode; all 0 with it off)
+    drafted: int = 0             # tokens drafted (k x live slots at a
+    #                              verify's entry)
+    accepted: int = 0            # drafted tokens the verify matched
+    verify_dispatches: int = 0   # draft + verify dispatches
+    steps_saved: int = 0         # row-frames a verify advanced beyond its
+    #                              frame-0 obligation
+    spec_frames: int = 0         # verify frames run
+    # the serving tiers, stamped by every step dispatch
+    kv_dtype: str = "f32"        # K/V arena storage type (f32|bf16)
+    serve_precision: str = "f32"  # decode weight tier (f32|bf16|int8w)
     # the port's own: blocking device-to-host reads (harvest's), and the
     # step dispatches prewarm ran outside these counts
     host_syncs: int = 0
@@ -266,7 +297,9 @@ class SlotEngine:
     ``cfg.engine_slots`` or, when that is 0, ``cfg.test_batch_size``: the
     batched beam's shapes). ``pool_blocks``: the paged pool (default
     ``cfg.kv_pool_blocks``; 0 = full residency). ``tag``: the replica's
-    name in a fleet (None: a lone engine, recorded as ``r0``)."""
+    name in a fleet (None: a lone engine, recorded as ``r0``). The serving
+    tiers and spec decode are built here, from ``model``'s weights, so a
+    respawned replica or a spare re-quantizes by construction."""
 
     def __init__(self, model: FiraModel, cfg: FiraConfig, *,
                  slots: Optional[int] = None,
@@ -319,7 +352,59 @@ class SlotEngine:
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self._pending_occ = torch.zeros((), dtype=torch.long,
                                         device=self.device)
+        # the serving tiers (decode/quant.py): the label fragment, the
+        # digest namespace and the decode-side module (``model`` itself
+        # on the f32 path) with its int8 scales (None but for int8w)
+        self._tier_tag = quant.tier_tag(cfg)
+        self._tier_ns = quant.tier_namespace(cfg)
+        self._dmodel, self._wq_scales = quant.quantize_decode_params(
+            model, cfg)
+        # speculative decode (decode/spec.py): the drafter over the
+        # decode-side module; _spec_cd counts the plain dispatches left
+        # in a stall cooldown; _pending_spec holds the last verify's
+        # device counters [tested, matched] and its frames, drained at
+        # harvest
+        self._spec_tier = (cfg.spec_decode
+                           if cfg.spec_decode not in (None, "off") else None)
+        self._spec_k = int(cfg.engine_spec_k)
+        self._spec_cd = 0
+        self._pending_spec = None
+        self._drafter = None
+        if self._spec_tier is not None:
+            self._drafter = spec_lib.make_drafter(self._dmodel, cfg,
+                                                  self.slots, self._paged)
         self.begin_stream()
+
+    # --- the declared program family ---------------------------------------
+
+    def label(self, kind: str, geom_tag: Optional[str] = None) -> str:
+        """The name of one of this engine's dispatches: the geometry tag
+        (prefill), the serving tier's tag and the replica tag compose as
+        in the JAX package, ``engine_prefill[a16.e256.t12.r1]``,
+        ``engine_step[bf16kv.int8w.r1]``; with no tags the lone f32
+        engine's names are the bare kinds."""
+        mods = ".".join(t for t in (geom_tag, self._tier_tag, self.tag) if t)
+        return program_label(kind, mods or None)
+
+    def labels(self, table=None) -> List[str]:
+        """This engine's declared dispatch family: a prefill a decode
+        bucket geometry (or the untagged one), step, insert, harvest, and
+        the (S, k) draft and verify when spec is on."""
+        from fira_tpu_torch.data.buckets import geom_tag
+
+        prefills = ([self.label(PREFILL_KIND, geom_tag(g)) for g in table]
+                    if table is not None else [self.label(PREFILL_KIND)])
+        return prefills + [self.label(STEP_LABEL), self.label(INSERT_LABEL),
+                           self.label(HARVEST_LABEL)] + self._spec_labels()
+
+    def _spec_labels(self) -> List[str]:
+        """The draft and verify names when spec is on (``k<k>`` composes
+        with the other tags: ``engine_verify[k4.r1]``), else none."""
+        if self._spec_tier is None:
+            return []
+        km = f"k{self._spec_k}"
+        return [self.label(spec_lib.DRAFT_LABEL, km),
+                self.label(spec_lib.VERIFY_LABEL, km)]
 
     # --- device pieces ---------------------------------------------------
 
@@ -347,8 +432,9 @@ class SlotEngine:
             out["src_proj"] = src_proj.repeat_interleave(K, dim=0)
             # the self-attention caches hold the ENCODER STATES' type, as
             # the batched beam's (f32 under bf16 compute with
-            # stable_residual)
-            out["cache_seed"] = torch.zeros((), dtype=states.dtype)
+            # stable_residual), unless the bf16 KV tier pins them to bf16
+            out["cache_seed"] = torch.zeros(
+                (), dtype=quant.kv_seed_dtype(self.cfg, states.dtype))
         else:
             out["states"] = states.repeat_interleave(K, dim=0)
         if not self._artifact_dtypes:
@@ -453,15 +539,26 @@ class SlotEngine:
             st["states"].index_copy_(0, s_bk,
                                      chunk["states"].index_select(0, r_bk))
 
-    def _one_step(self) -> torch.Tensor:
-        """One beam position of every live, not yet done slot, in place;
-        returns the number of active slots (a device scalar). Reads
-        nothing back to the host."""
-        cfg, model, st = self.cfg, self.model, self._state
+    def _one_step(self, gate=None) -> torch.Tensor:
+        """One beam position of every live, not yet done slot, in place,
+        on the decode-side module; returns the number of active slots (a
+        device scalar). Reads nothing back to the host.
+
+        ``gate`` (None on the plain path, which then launches what it
+        always did): an (S,) bool the spec verify ANDs into the active
+        mask, freezing rows whose drafts diverged. A frozen row is an
+        inactive row (blended state; paged: its table rows address the
+        scratch block, so it neither appends nor permutes), with one more
+        care in the unpaged arena: its cache rows take the identity
+        permutation, since it resumes later and must find its history
+        unshuffled."""
+        cfg, model, st = self.cfg, self._dmodel, self._state
         S, K, T = self.slots, cfg.beam_size, cfg.tar_len
         tokens, probs, finished, pos = (st["tokens"], st["probs"],
                                         st["finished"], st["pos"])
         active = st["live"] & ~st["done"]
+        if gate is not None:
+            active = active & gate
         # idle and settled rows clamp to a legal position; what they
         # compute is blended away below
         pos_c = pos.clamp(max=T - 2)
@@ -521,7 +618,12 @@ class SlotEngine:
                 pool[:, tab] = blocks.gather(3, idx.expand(blocks.shape))
         elif cfg.beam_kv_cache:
             # the batched beam's gather; idle and settled rows permute
-            # their own stale rows, which no later step reads unwritten
+            # their own stale rows, which no later step reads unwritten;
+            # a row the verify froze keeps its rows in place
+            if gate is not None:
+                src_beam = torch.where(
+                    active[:, None], src_beam,
+                    torch.arange(K, device=flat.device)[None, :])
             rows = (src_beam + torch.arange(S, device=flat.device)[:, None]
                     * K).reshape(-1)
             for f in ("k_cache", "v_cache"):
@@ -550,6 +652,28 @@ class SlotEngine:
             occ = occ + self._one_step()
         return occ
 
+    def _read_flag(self, flag: torch.Tensor) -> bool:
+        """One device flag to the host: the verify loop's predicate (a
+        host sync, counted). False on a retired engine, so a verify the
+        watchdog abandoned launches no further frame."""
+        if self.retired:
+            return False
+        self.stats.host_syncs += 1
+        return bool(flag)
+
+    def _spec_round(self):
+        """One draft and its verify over the arena: (occupancy at entry,
+        the device counters [tested, matched], the frames run)."""
+        drafts = self._drafter(self._state)
+        return spec_lib.run_verify(self._one_step, self._state, drafts,
+                                   self._spec_k, self.cfg.tar_len,
+                                   self._read_flag)
+
+    def _decode_call(self, fn):
+        """``fn`` under the weight tier: int8 weights dequantized once for
+        the whole dispatch (decode/quant.decode_call)."""
+        return quant.decode_call(self._dmodel, self._wq_scales, fn)
+
     def _read_rows(self, slots: List[int]) -> Tuple[np.ndarray, np.ndarray]:
         """The token and score rows of ``slots``, in one device-to-host
         copy (ids below 2**53 and f32 scores are exact in f64)."""
@@ -570,8 +694,9 @@ class SlotEngine:
         the kernels' build and first launch fall outside it: a prefill of
         each host batch (one a decode bucket), an insert into slot 0 that
         is undone, one step over the all-dead arena (nothing active:
-        nothing changes), one row read. Leaves no trace in the stats but
-        ``warm_step_dispatches``."""
+        nothing changes), one row read, and with spec decode one draft and
+        one verify over it (no live row: no frame runs). Leaves no trace in
+        the stats but ``warm_step_dispatches``."""
         chunk = None
         for host in hosts:
             chunk = self._prefill(batch_to_device(host, self.device))
@@ -583,7 +708,9 @@ class SlotEngine:
                     if self._paged else None)
         self._insert(chunk, [0], [0], self.cfg.tar_len, unmapped)
         self._state["live"][0] = False
-        self._step()
+        self._decode_call(self._step)
+        if self._spec_tier is not None:
+            self._decode_call(self._spec_round)
         self._read_rows([0])
         self.stats.host_syncs = syncs
         self.stats.warm_step_dispatches += 1
@@ -869,7 +996,7 @@ class SlotEngine:
             digests = host.get("_digests")   # stamped on a feeder worker
             if digests is None:
                 digests = prefix_cache_lib.payload_digests(
-                    host, prefix_cache_lib.tier_namespace(self.cfg))
+                    host, self._tier_ns)
         # pass 1, in-flight dedup (reads only; the maps commit below)
         followers: List[Tuple[int, int, int]] = []   # (leader, pos, row)
         seat_rows: List[Tuple[int, int]] = []
@@ -1002,18 +1129,33 @@ class SlotEngine:
 
     @torch.inference_mode()
     def step_dispatch(self) -> None:
-        """Queue one step dispatch (R micro-steps); nothing is read
-        back."""
+        """Queue one step dispatch (R micro-steps) and read nothing back;
+        or, with spec decode on and no cooldown running, one draft and
+        its verify (which reads the loop's predicate a frame). Either
+        advances every live slot at least one position."""
         if self._faults is not None:
             self._faults.check("engine.step")
         if self.retired:
             return
-        occ = self._step()
+        spec_now = self._spec_tier is not None and self._spec_cd == 0
+        if spec_now:
+            occ, counters, iters = self._decode_call(self._spec_round)
+        else:
+            occ = self._decode_call(self._step)
         if self.retired:
             return   # abandoned by the watchdog: the loop owns the stats
         self._pending_occ = occ
+        self._pending_spec = (counters, iters) if spec_now else None
+        if self._spec_cd > 0:
+            self._spec_cd -= 1
         st = self.stats
-        st.steps += max(1, int(self.cfg.engine_harvest_every))
+        if spec_now:
+            # one step: the forwards-a-token accounting; the frames land
+            # in spec_frames at harvest
+            st.steps += 1
+            st.verify_dispatches += 1
+        else:
+            st.steps += max(1, int(self.cfg.engine_harvest_every))
         st.step_dispatches += 1
         st.pool_blocks = self._pool_blocks
         st.kv_block_size = self._block_size
@@ -1046,17 +1188,33 @@ class SlotEngine:
         if self.retired:
             return []
         st, stats = self._state, self.stats
-        flags = torch.cat([st["done"].long(),
-                           self._pending_occ.reshape(1).long()]).cpu()
+        spec = self._pending_spec
+        parts = [st["done"].long(), self._pending_occ.reshape(1).long()]
+        if spec is not None:
+            parts.append(spec[0].long())   # the verify's [tested, matched]
+        flags = torch.cat(parts).cpu()
         if self.retired:
             return []
         stats.host_syncs += 1
-        stats.occupied_slot_steps += int(flags[-1])
+        S = self.slots
+        occ_now = int(flags[S])
+        stats.occupied_slot_steps += occ_now
+        if spec is not None:
+            tested, matched = int(flags[S + 1]), int(flags[S + 2])
+            self._pending_spec = None
+            stats.drafted += self._spec_k * occ_now
+            stats.accepted += matched
+            stats.steps_saved += tested - occ_now
+            stats.spec_frames += spec[1]
+            if occ_now and matched == 0:
+                # acceptance stalled: a few plain dispatches before the
+                # next draft
+                self._spec_cd = spec_lib.STALL_COOLDOWN
         if self._pending_fills:
             # stored before any dedup entry is popped below: a digest
             # leaves _inflight only once its cache entry exists
             self._drain_pending_fills()
-        done = flags[:-1].numpy()
+        done = flags[:S].numpy()
         newly = [s for s in self._busy if done[s]]
         items: List[EngineItem] = []
         if not newly:

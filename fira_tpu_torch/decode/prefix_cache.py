@@ -40,6 +40,9 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+# the serving tier's digest namespace (the one copy is the quant module's)
+from fira_tpu_torch.decode.quant import tier_namespace  # noqa: F401
+
 # the keyed-digest discipline of robust/faults.py: never Python hash()
 # (salted per process), always a keyed blake2b over explicit bytes
 _DIGEST_KEY = b"fira-prefix-cache-v1"
@@ -68,22 +71,6 @@ def _digest_arrays(items: Iterable[Tuple[str, np.ndarray]],
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
     return h.hexdigest()
-
-
-def tier_namespace(cfg) -> bytes:
-    """Digest namespace of the serving tier (the JAX package's
-    ``decode/quant.tier_namespace``): artifacts carry their tier, so a
-    cached f32 artifact can never seat a low-precision slot. Empty on the
-    f32/f32 path, the only one the port runs (``kv_dtype`` and
-    ``serve_precision`` are refused otherwise, ROADMAP A.9), so digests
-    equal the JAX package's there."""
-    parts = []
-    if cfg.kv_dtype != "f32":
-        parts.append(f"{cfg.kv_dtype}kv")
-    if cfg.serve_precision != "f32":
-        sp = cfg.serve_precision
-        parts.append(sp if sp.endswith("w") else sp + "w")
-    return ".".join(parts).encode("ascii")
 
 
 def payload_digests(host: Dict, namespace: bytes = b""

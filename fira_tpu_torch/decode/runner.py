@@ -45,6 +45,8 @@ from fira_tpu_torch.data.batching import make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import Feeder
 from fira_tpu_torch.decode import engine as engine_lib
+from fira_tpu_torch.decode import prefix_cache as prefix_cache_lib
+from fira_tpu_torch.decode import quant
 from fira_tpu_torch.decode.beam import make_beam_search
 from fira_tpu_torch.decode.stream import OrderedStreamWriter
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
@@ -86,6 +88,16 @@ def sample_emitter(writer, *, vocab, cfg: FiraConfig, bleu_by_pos: Dict,
     return emit
 
 
+def _stamped(task, namespace: bytes):
+    """``task`` with its batch's ``_digests`` stamped (on the worker that
+    runs it), its ``note`` kept."""
+    def build():
+        return prefix_cache_lib.stamp_digests(task(), namespace)
+    if hasattr(task, "note"):
+        build.note = task.note
+    return build
+
+
 def run_test(model: FiraModel, dataset: FiraDataset,
              cfg: Optional[FiraConfig] = None, *,
              out_dir: str = "OUTPUT",
@@ -118,6 +130,11 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     plan = buckets_lib.output_plan(data, cfg)
     tasks = buckets_lib.bucketed_assembly_tasks(
         data, plan, cfg, batch_size=cfg.test_batch_size)
+    if cfg.decode_engine and cfg.prefix_cache:
+        # content digests stamped on the feeder workers, in the serving
+        # tier's namespace, so a cached f32 artifact never seats a bf16
+        # slot (decode/quant.py)
+        tasks = (_stamped(t, quant.tier_namespace(cfg)) for t in tasks)
     eng = None
     n_rep = max(1, int(cfg.engine_replicas))
     if cfg.decode_engine:

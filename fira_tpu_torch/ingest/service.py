@@ -467,8 +467,8 @@ def ingest_request_tasks(requests: Sequence[str], cfg: FiraConfig,
     a fault's blast radius and the dedup identities are the cache-off
     path's."""
     from fira_tpu_torch.data.feeder import task_note
-    from fira_tpu_torch.decode.prefix_cache import (stamp_digests,
-                                                    tier_namespace)
+    from fira_tpu_torch.decode.prefix_cache import stamp_digests
+    from fira_tpu_torch.decode.quant import tier_namespace
 
     stamp = cfg.prefix_cache
     tier_ns = tier_namespace(cfg)

@@ -375,6 +375,21 @@ def gather_block_kv(pool_l, block_tab):
         stable_dtype(pool_l.dtype))
 
 
+def gather_block_kv_beam(pool_l, block_tab, beam: int):
+    """One beam lane's dense cache view out of the paged pool: the (S, H,
+    W*BS, d_head) lane ``beam`` of :func:`gather_block_kv`, gathered
+    without the other K - 1 lanes. The speculative ``draft`` tier
+    (decode/spec.py) copies each slot's top-beam lane into a scratch cache
+    once a draft dispatch and rolls on that; the pool is never written by
+    a drafter. Read in the stable dtype, as :func:`gather_block_kv`."""
+    _P1, _K, H, BS, d_head = pool_l.shape
+    S, W = block_tab.shape
+    blocks = pool_l[:, beam][block_tab]             # (S, W, H, BS, dh)
+    blocks = blocks.permute(0, 2, 1, 3, 4)          # (S, H, W, BS, dh)
+    return blocks.reshape(S, H, W * BS, d_head).to(
+        stable_dtype(pool_l.dtype))
+
+
 def append_block_kv(pool, layer: int, blk, krow, off, new) -> None:
     """Write one decode position into the paged pool, in place: row r's K
     (or V) lands at ``pool[layer, blk[r], krow[r], :, off[r], :]``.

@@ -515,6 +515,19 @@ class FiraModel(nn.Module):
         cross_k, cross_v = self.decoder.cross_kv(states)
         return cross_k, cross_v, self.copy_net.project_src(states)
 
+    def copy_draft_scores(self, mask, src_proj, tok, pos_idx):
+        """The speculative ``copy`` drafter's head (decode/spec.py): the
+        pointer scores alone against the raw target-embedding proxy
+        ``Decoder.embed_at(tok, pos_idx)``; no decoder layer runs and no
+        cache is touched, so a k-token draft costs k embedding rows and k
+        copy scores (K1 at (B, 1, S, D)). The scores get the step's
+        source-validity mask (-1e9). Draft quality moves only the
+        acceptance rate, never the output (the verify is the exact step).
+        tok: (B, 1); pos_idx: (B,). Returns (B, 1, S)."""
+        x = self.decoder.embed_at(tok, pos_idx)
+        scores, _gate = self.copy_net.score_gate(src_proj, x)
+        return scores.masked_fill(~mask[:, None, :], NEG_INF)
+
     def dist_parts_step(self, mask, tok, pos_idx: int, k_cache, v_cache,
                         cross_k, cross_v, src_proj, self_mask):
         """One-position distribution factors with KV caching: the (gen,

@@ -160,7 +160,8 @@ class FleetStats:
             "cache_hbm_bytes_saved": tot("cache_hbm_bytes_saved"),
             "dedup_fanout": tot("dedup_fanout"),
             "shared_block_peak": tot("shared_block_peak"),
-            # spec decode is not ported: these stay 0
+            # speculative decode: counts total across the fleet and
+            # the acceptance rate is the fleet-wide accepted share
             "drafted": tot("drafted"),
             "accepted": tot("accepted"),
             "acceptance_rate": round(tot("accepted") / tot("drafted"), 4)

@@ -24,11 +24,10 @@ Off by default: with no spec armed the injector is ``None`` and every site
 check is one ``is not None`` branch. Faults act on the host only (raise
 before a dispatch, sleep, scramble a numpy batch), never inside a launch.
 
-The port wires ten sites: ``feeder.assemble``, ``feeder.device_put``,
-``ingest.parse``, ``ingest.cache``, ``engine.prefill``, ``engine.step``,
-``engine.harvest``, ``fleet.replica``, ``serve.admit`` and
-``cache.lookup``. A spec naming one of the others is refused at parse
-time with the ROADMAP item that brings it (``UNWIRED_SITES``).
+The port wires all twelve sites of the JAX package, the prefill tier's
+``disagg.transport`` (a delivery lost, or a row scrambled and caught by
+its checksum) and ``disagg.worker`` (a worker process dies) included, so
+``UNWIRED_SITES`` is empty.
 """
 
 from __future__ import annotations
@@ -67,11 +66,8 @@ CORRUPT_SITES = ("feeder.assemble", "ingest.parse", "ingest.cache",
                  "cache.lookup", "disagg.transport")
 
 # sites of the JAX package the port does not wire yet, and the ROADMAP
-# item that brings each one's code path
-UNWIRED_SITES = {
-    "disagg.transport": "the disaggregated prefill tier (ROADMAP A.9)",
-    "disagg.worker": "the disaggregated prefill tier (ROADMAP A.9)",
-}
+# item that brings each one's code path: none, every site is wired
+UNWIRED_SITES: Dict[str, str] = {}
 
 
 class InjectedFault(RuntimeError):

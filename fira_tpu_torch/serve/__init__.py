@@ -5,7 +5,8 @@ the serving loop (``server``) forms prefill batches from live arrivals,
 caps the prefills between step dispatches, sheds on backpressure (a
 bounded queue, per-request deadlines: recorded, never a hang) and meters
 each request's TTFT and end-to-end latency. The disaggregated prefill
-tier (``serve/disagg.py``) is ROADMAP A.9.
+tier (``disagg``) runs the prefills in worker processes that seed the
+engines' prefix caches.
 """
 
 from fira_tpu_torch.serve.arrivals import (poisson_times,  # noqa: F401

@@ -72,7 +72,16 @@ Raw-diff requests (``cli serve --input diffs``) run this loop through
 bucket (``_bucket``), anonymization map (``_var``) and ingest stamps
 (``_ingest``, each request's ``RequestRecord.ingest``).
 
-Not ported here: the disaggregated prefill tier (ROADMAP A.9).
+Disaggregated tiers (``cfg.serve_tiers="prefill-pool"``, serve/disagg.py):
+a pool of prefill worker processes computes each request's prefill
+artifacts and seeds every replica's prefix cache; the loop ticks the tier
+(``service``) each round before admission and holds a request the tier
+owns in the queue until its artifacts land and it admits as a cache hit,
+so the decode replica dispatches no prefill. With nothing dispatchable
+and only the tier holding work, the loop waits on the workers' pipes
+(``idle_wait``) instead of spinning. Every request's record carries the
+tier's stamps (``prefill_queue_s``, ``transport_s``, ``artifact_bytes``)
+and the summary the tier's meters (``tiers``).
 """
 
 from __future__ import annotations
@@ -99,10 +108,15 @@ from fira_tpu_torch.model.model import FiraModel
 from fira_tpu_torch.robust import faults as faults_lib
 from fira_tpu_torch.robust import recovery as recovery_lib
 from fira_tpu_torch.robust.watchdog import WatchdogTimeout, run_with_watchdog
+from fira_tpu_torch.serve import disagg as disagg_lib
 
 # the partial metrics snapshot refreshes every this many rounds (and once
 # at the start and once on an abort), so a kill leaves a recent, valid one
 SNAPSHOT_EVERY_ROUNDS = 16
+
+# the longest a serve waits for its prefill tier's workers to start
+# before it takes arrivals
+TIER_START_S = 300.0
 
 # with the cache serving hits, a partial miss group waits (back at the
 # queue head) until it fills, its head has waited this many step rounds,
@@ -196,7 +210,11 @@ class RequestRecord:
     """One request's lifecycle stamps (clock units: wall seconds or
     virtual units), each observed at a dispatch or harvest boundary. The
     JAX package's fields; ``ingest`` holds a raw-diff request's ingest
-    stamps, and the prefill-tier stamps stay None (ROADMAP A.9)."""
+    stamps. The prefill tier's (serve/disagg.py; None without it): wall
+    seconds from the tier's first sight of the request to its submission
+    to a worker (``prefill_queue_s``), from submission to the
+    checksum-verified delivery (``transport_s``, the worker's prefill
+    included), and the delivered artifact's host bytes."""
 
     position: int            # split-local sample position
     arrival_t: float         # scheduled (open-loop) arrival time
@@ -276,7 +294,8 @@ class ServeStats:
     assembly_stall_s: float = 0.0
     wall_s: float = 0.0
     # meters of raw-diff ingest (serve_diffs sets them) and of the
-    # prefill tier (None: not ported, ROADMAP A.9)
+    # prefill tier (a zero-argument callable that serve_split binds to
+    # the tier's end-of-run summary; None without the tier)
     ingest_cache: Optional[object] = None
     ingest_pipeline: Optional[tuple] = None
     tiers: Optional[object] = None
@@ -389,13 +408,14 @@ class ServeLoop:
     to the ordered writer). ``positions``: each request's output position
     (identity when None; a resume serves a sparse suffix). ``journal``: a
     ``recovery.Journal`` (None = off); ``recovery``: a
-    ``recovery.RecoveryManager`` (None = retire and degrade)."""
+    ``recovery.RecoveryManager`` (None = retire and degrade); ``tier``: a
+    ``disagg.PrefillTier`` (None = prefill in process)."""
 
     def __init__(self, engines: Sequence[SlotEngine], cfg: FiraConfig, *,
                  arrival_times: np.ndarray, feed, table, assignment,
                  templates: Dict[int, Dict], clock, emit, shed,
                  faults=None, snapshot=None, positions=None, journal=None,
-                 recovery=None):
+                 recovery=None, tier=None):
         self.engines = list(engines)
         self.cfg = cfg
         self.clock = clock
@@ -446,6 +466,9 @@ class ServeLoop:
             r.position: r for r in self.stats.records}
         self._journal = journal
         self._recovery = recovery
+        # the disaggregated prefill tier: the queue walk holds the misses
+        # it owns until their artifacts land (never a decode-side prefill)
+        self._tier = tier
         self._shed_log: List[Dict] = []   # a round's shed records
         self._alive_changed()
 
@@ -657,6 +680,11 @@ class ServeLoop:
                 continue
             if probe and eng.cache_contains(e.digest):
                 hits.append(e)
+            elif self._tier is not None and self._tier.holds(e.digest):
+                # the prefill tier owns this miss: it stays queued until
+                # its artifacts land and it walks again as a hit; a dead
+                # tier or a digest it gave up flips holds() to False
+                rest.append(e)
             else:
                 misses.append(e)
         held: List[_Queued] = []
@@ -996,12 +1024,23 @@ class ServeLoop:
                 self._flush_shed_log()
                 break
             self._poll_arrivals(self.clock.now())
+            if self._tier is not None:
+                # the prefill tier's tick: sweep dead workers, seed the
+                # delivered artifacts into every replica's cache, submit
+                # fresh misses; host work only, before admission, so this
+                # round can seat what just landed
+                self._tier.service(self._queue, self.engines)
             self._shed_deadlines()
             self._admit()
             live = [e for e in self.engines if e.in_flight()]
             if not live:
                 if self._queue or self._promoted \
                         or any(e.staged_rows for e in self.engines):
+                    if self._tier is not None and not any(
+                            e.staged_rows for e in self.engines):
+                        # nothing dispatchable, the queue waits on the
+                        # tier: block briefly on the workers' pipes
+                        self._tier.idle_wait(0.05)
                     continue    # seats free up / budget admits next round
                 if self._arr_idx < n:
                     # idle: jump (virtual) or sleep (wall) to the next
@@ -1234,8 +1273,8 @@ def _request_tasks(data, cfg: FiraConfig, n: int, table, assignment,
     worker (prefix_cache.stamp_digests), so the scheduler never hashes."""
     from fira_tpu_torch.data.batching import make_batch
     from fira_tpu_torch.data.feeder import task_note
-    from fira_tpu_torch.decode.prefix_cache import (stamp_digests,
-                                                    tier_namespace)
+    from fira_tpu_torch.decode.prefix_cache import stamp_digests
+    from fira_tpu_torch.decode.quant import tier_namespace
 
     stamp = cfg.prefix_cache
     tier_ns = tier_namespace(cfg)
@@ -1305,7 +1344,8 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
                 metrics_path: Optional[str] = None,
                 request_mix=None,
                 journal_path: Optional[str] = None,
-                resume: bool = False) -> Dict:
+                resume: bool = False,
+                tier=None) -> Dict:
     """Serve the first ``len(arrival_times)`` samples of ``split`` as an
     open-loop request stream (request ``i`` is split position ``i``,
     arriving at ``arrival_times[i]``) on the model's device. Writes the
@@ -1329,7 +1369,13 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
     (a mismatch raises ``recovery.ResumeError``), and only the rest is
     served; the final file is the uninterrupted run's. With
     ``cfg.max_respawns`` the engines are a fleet that respawns retired
-    replicas (``cfg.engine_spares`` warm spares built up front)."""
+    replicas (``cfg.engine_spares`` warm spares built up front).
+
+    ``tier``: a started ``disagg.PrefillTier`` to serve with when
+    ``cfg.serve_tiers`` is on (a bench reuses one across runs, as it does
+    an engine, so the rows measure serving, not the pool's start); the
+    caller owns it and closes it. Without one a tier is spawned here and
+    closed on every exit path."""
     cfg = cfg or dataset.cfg
     faults = faults_lib.injector_from(cfg)
     data = dataset.splits[split]
@@ -1353,7 +1399,7 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
         raise ValueError(
             f"arrival trace has {n_req} requests but split {split!r} holds "
             f"only {len(data)} samples")
-    errs = serve_errors(cfg, trace=True)
+    errs = serve_errors(cfg, trace=True) + disagg_lib.disagg_errors(cfg)
     if errs:
         raise ValueError("; ".join(errs))
     clk = make_clock(clock)
@@ -1438,7 +1484,32 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
     journal = (recovery_lib.Journal(journal_path, n=n_req, times=times,
                                     mix=mix, resume=resume)
                if journal_path else None)
+    # the disaggregated prefill tier, spawned once the templates exist
+    # (its workers warm the same per-bucket prefills), with the model's
+    # original f32 weights as host numpy (prefill runs them whatever the
+    # decode tier's precision), on the model's device
+    own_tier = tier is None and cfg.serve_tiers != "off"
+    if cfg.serve_tiers == "off":
+        tier = None
     try:
+        if own_tier:
+            params_host = {k: v.detach().cpu().numpy()
+                           for k, v in model.state_dict().items()}
+            tier = disagg_lib.PrefillTier(
+                params_host, cfg, templates=templates,
+                device=str(next(model.parameters()).device),
+                dtype=str(model.dtype).replace("torch.", ""), faults=faults)
+        elif tier is not None:
+            tier.begin_stream()
+        if tier is not None:
+            # the server takes arrivals once its pool is up (a worker
+            # lost meanwhile is the loop's to handle), so the first
+            # groups go round the whole pool in worker order, and a
+            # wall clock starts there: the workers' start is start-up
+            # time, not the first requests' latency
+            tier.wait_ready(TIER_START_S)
+            if clock == "wall":
+                clk = make_clock(clock)
         with OrderedStreamWriter(out_path, expected=n_req) as writer, \
                 Feeder(_request_tasks(data, cfg, len(times_loop), table,
                                       loop_assignment, task_mix),
@@ -1462,10 +1533,15 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
                 # a shed request keeps its output position: an empty line
                 shed=lambda rec: writer.add(rec.position, "\n"),
                 faults=faults, snapshot=snapshot, positions=positions,
-                journal=journal, recovery=recovery)
+                journal=journal, recovery=recovery, tier=tier)
             loop.stats.resumed = len(recovered)
+            if tier is not None:
+                # the summary reads the tier's end-of-run meters
+                loop.stats.tiers = tier.stats.summary
             stats = run_loop_guarded(loop, snapshot)
     finally:
+        if own_tier and tier is not None:
+            tier.close()
         if journal is not None:
             journal.close()
     return finalize_serve_result(stats, owner, faults, out_path=out_path,

@@ -3,10 +3,10 @@
 ``output_fira`` (its engine, tar-bucketed, on the same checkpoint) byte
 for byte and prints its decode table; ``--perf production`` sets exactly
 the union of the two production knob sets and writes the bytes of the
-engine in that mode; a bad engine flag exits 2 naming it; every knob
-the engine does not honour is refused by name, saying which part of the
-JAX package runs it; and the fleet and recovery knobs are accepted, a
-bad value exiting 2 in the JAX package's words."""
+engine in that mode; a bad engine flag exits 2 naming it; a knob value
+no path runs is refused by name; and the fleet, recovery and
+serving-tier knobs are accepted, a bad value exiting 2 in the JAX
+package's words."""
 
 import dataclasses
 import os
@@ -21,11 +21,14 @@ from fira_tpu.config import fira_tiny as jax_fira_tiny
 from fira_tpu.data import buckets as JB
 from fira_tpu.data import synthetic as jax_synthetic
 from fira_tpu.data.dataset import FiraDataset as JaxDataset
+from fira_tpu.decode import quant as jax_quant
+from fira_tpu.decode import spec as jax_spec
 from fira_tpu.decode.runner import run_test as jax_run_test
 from fira_tpu.model.model import FiraModel as JaxModel
 from fira_tpu.parallel import fleet as jax_fleet
 from fira_tpu.robust import faults as jax_faults
 from fira_tpu.robust import recovery as jax_recovery
+from fira_tpu.serve import disagg as jax_disagg
 from fira_tpu_torch import cli, convert
 from fira_tpu_torch.config import (DECODE_PERF_KNOBS, PRODUCTION_PERF_KNOBS,
                                    FiraConfig, fira_tiny, unsupported)
@@ -140,12 +143,11 @@ def test_perf_production_writes_the_engine_bytes(setup, tmp_path, capsys):
     (["--engine-harvest-every", "0"], "--engine-harvest-every"),
     (["--engine-prefill-depth", "-1"], "--engine-prefill-depth"),
     (["--kv-paged", "maybe"], "--kv-paged"),
-    # the JAX package's flags of paths the port does not run yet, and a
-    # bad value of one it does
+    # a value no path of either package runs
     (["--engine-replicas", "0"], "--engine-replicas"),
     (["--prefix-cache", "maybe"], "--prefix-cache"),
-    (["--spec-decode", "copy"], "--spec-decode"),
-    (["--kv-dtype", "bf16"], "--kv-dtype"),
+    (["--spec-decode", "turbo"], "--spec-decode"),
+    (["--kv-dtype", "fp8"], "--kv-dtype"),
 ])
 def test_bad_engine_flag_exits_2_naming_it(setup, tmp_path, capsys, flags,
                                            named):
@@ -169,11 +171,7 @@ def test_bad_paging_knob_exits_2_naming_it(setup, tmp_path, capsys, flags,
 
 
 REFUSED = [
-    ("serve_tiers", "prefill-pool", "serve/disagg.py (ROADMAP A.9)"),
     ("dispatch_watchdog_s", -1.0, "must be 0 (watchdog off) or > 0"),
-    ("spec_decode", "draft", "decode/spec.py (ROADMAP A.9)"),
-    ("kv_dtype", "bf16", "decode/quant.py (ROADMAP A.9)"),
-    ("serve_precision", "int8w", "decode/quant.py (ROADMAP A.9)"),
 ]
 
 
@@ -228,6 +226,56 @@ def test_fleet_and_recovery_knob_accepted_with_jax_validation(
                                    test_batch_size=TEST_BS))
     assert len(want) == 1 and knob.split("_")[0] in want[0]
     assert port_test(setup, str(tmp_path), "--engine", *bad) == 2
+    assert want[0] in capsys.readouterr().err
+
+
+# the serving-tier knobs the port runs now: knob -> (a value the port
+# runs, a CLI call with a value the JAX package refuses, the JAX check
+# that names it)
+TIER_ACCEPTED = [
+    ("serve_tiers", dict(serve_tiers="prefill-pool", prefix_cache=True),
+     ["test", "--engine", "--serve-tiers", "prefill-pool"],
+     lambda c: jax_disagg.disagg_errors(c.replace(
+         serve_tiers="prefill-pool"))),
+    ("spec_decode", dict(spec_decode="draft"),
+     ["test", "--engine", "--spec-decode", "copy", "--spec-k", "99"],
+     lambda c: jax_spec.spec_errors(c.replace(spec_decode="copy",
+                                              engine_spec_k=99))),
+    ("kv_dtype", dict(kv_dtype="bf16"), ["test", "--kv-dtype", "bf16"],
+     lambda c: jax_quant.quant_errors(c.replace(decode_engine=False,
+                                                kv_dtype="bf16"))),
+    ("serve_precision", dict(serve_precision="int8w"),
+     ["train", "--serve-precision", "int8w"],
+     lambda c: jax_quant.quant_errors(c.replace(serve_precision="int8w"),
+                                      train=True)),
+]
+
+
+@pytest.mark.parametrize("knob,good,bad,jax_check", TIER_ACCEPTED,
+                         ids=[a[0] for a in TIER_ACCEPTED])
+def test_serving_tier_knob_accepted_with_jax_validation(
+        setup, tmp_path, capsys, knob, good, bad, jax_check):
+    """The serving-tier knobs the port runs now: a value the JAX package
+    runs passes the port's checks and the JAX package's (``spec_errors``,
+    ``quant_errors``, ``disagg_errors``) and builds an engine; a CLI call
+    the JAX package refuses exits 2 printing its message."""
+    cfg = fira_tiny(decode_engine=True, vocab_size=40,
+                    ast_change_vocab_size=10, **good)
+    jcfg = jax_fira_tiny(decode_engine=True, **good)
+    assert unsupported(cfg) == []
+    assert (jax_spec.spec_errors(jcfg) == jax_quant.quant_errors(jcfg)
+            == jax_disagg.disagg_errors(jcfg) == [])
+    engine.SlotEngine(FiraModel(cfg).init_parameters(
+        torch.Generator().manual_seed(0)), cfg)
+    want = jax_check(jax_fira_tiny(decode_engine=True,
+                                   test_batch_size=TEST_BS))
+    assert len(want) == 1 and knob.split("_")[0] in want[0]
+    command, *flags = bad
+    rc = cli.main([command, "--config", "fira-tiny", "--device", "cpu",
+                   "--data-dir", setup["dir"], "--out-dir",
+                   str(tmp_path / "o"), "--ckpt-dir", setup["ckpt"],
+                   "--test-batch-size", str(TEST_BS), *flags])
+    assert rc == 2
     assert want[0] in capsys.readouterr().err
 
 

@@ -559,3 +559,69 @@ def test_astdiff_in_a_process_on_the_card_equals_its_cli(cuda, tmp_path):
         ln for ln in out.stdout.splitlines() if ln.strip()]
     assert ad.parse_json("%%% not java") is None
     assert ad.tokenize("int x = 1;") == ["int", "x", "=", "1", ";"]
+
+
+# the spec drafter's K1 call: the copy tier's (and the draft tier's)
+# beam-0 rows at --engine-slots 20, T = 1
+DRAFT_SHAPE = (20, 1, 370, 256)
+
+
+@pytest.mark.gpu
+def test_copy_scores_kernel_at_drafter_shape(cuda):
+    """K1's row kernel at the drafter's (20, 1, 370, 256) in f32, at
+    rtol / atol 1e-5, from the contiguous beam-0 rows the drafter hands
+    it; one launch a call."""
+    src, tgt, w, b = _inputs(60, 1, 370, 256, device=cuda, seed=3)
+    src0 = src[0::3].contiguous()       # a slot's beam-0 row of 3 beams
+    tgt0 = tgt[:20]
+    before = cs.copy_scores.launches
+    got = cs.copy_scores(src0, tgt0, w, b)
+    assert cs.copy_scores.launches == before + 1
+    assert got.shape == DRAFT_SHAPE[:3]
+    torch.testing.assert_close(got, cs.copy_scores_reference(src0, tgt0, w,
+                                                             b),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["copy", "draft"])
+def test_spec_on_the_card_writes_the_plain_engine_bits(cuda, tmp_path, tier):
+    """Speculative decode on the card, fira-tiny widths, <eos>-biased
+    random weights: per sample the plain engine's tokens and scores bit
+    for bit; K1 launches once a plain micro-step, once a verify frame and
+    k times a draft."""
+    from fira_tpu_torch.config import fira_tiny
+    from fira_tpu_torch.data import buckets as B
+    from fira_tpu_torch.data import synthetic
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.data.feeder import Feeder
+    from fira_tpu_torch.decode import beam, engine
+    from fira_tpu_torch.model.model import FiraModel
+
+    synthetic.write_corpus_dir(str(tmp_path), n_commits=60, seed=5)
+    ds = FiraDataset(str(tmp_path), fira_tiny(test_batch_size=4,
+                                              decode_engine=True))
+    cfg, data = ds.cfg, ds.splits["train"]
+    model = FiraModel(cfg).init_parameters(torch.Generator().manual_seed(1))
+    model.load_state_dict(beam.eos_biased(model.state_dict(), 2.0))
+    model = model.to(cuda).eval()
+
+    def run(c):
+        eng = engine.SlotEngine(model, c)
+        before = cs.copy_scores.launches
+        with Feeder(B.bucketed_assembly_tasks(
+                data, B.output_plan(data, c), c, batch_size=4),
+                num_workers=0, depth=1, device=cuda) as f:
+            got = {it.position: (it.tokens, it.probs) for it in eng.run(f)}
+        return got, eng.stats, cs.copy_scores.launches - before
+
+    want, _st, _n = run(cfg)
+    got, st, launched = run(cfg.replace(spec_decode=tier))
+    assert st.verify_dispatches > 0
+    plain = st.step_dispatches - st.verify_dispatches
+    assert launched == (4 * plain + st.spec_frames
+                        + cfg.engine_spec_k * st.verify_dispatches)
+    assert set(got) == set(want)
+    for p in want:
+        np.testing.assert_array_equal(got[p][0], want[p][0])
+        assert got[p][1].tobytes() == want[p][1].tobytes(), p

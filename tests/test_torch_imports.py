@@ -30,7 +30,9 @@ REQUIRED = ("fira_tpu_torch.robust.faults", "fira_tpu_torch.robust.watchdog",
             "fira_tpu_torch.decode.prefix_cache",
             "fira_tpu_torch.decode.engine", "fira_tpu_torch.ingest.cache",
             "fira_tpu_torch.parallel.fleet",
-            "fira_tpu_torch.robust.recovery", "fira_tpu_torch.cli")
+            "fira_tpu_torch.robust.recovery", "fira_tpu_torch.cli",
+            "fira_tpu_torch.decode.quant", "fira_tpu_torch.decode.spec",
+            "fira_tpu_torch.serve.disagg")
 
 
 def test_port_imports_no_jax_and_nothing_of_fira_tpu():

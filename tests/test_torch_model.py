@@ -158,6 +158,6 @@ def test_fused_probs_step_matches_jax(setup):
 
 
 def test_unsupported_knob_raises():
-    with pytest.raises(ValueError, match="spec_decode"):
+    with pytest.raises(ValueError, match="seq_shards"):
         FiraModel(FiraConfig(**GEOM, vocab_size=40, ast_change_vocab_size=10,
-                             spec_decode="draft"))
+                             seq_shards=2))

@@ -201,15 +201,26 @@ def test_fleet_replica_parses_as_jax():
     assert "fleet.replica" not in faults.UNWIRED_SITES
 
 
-@pytest.mark.parametrize("site,item", [
-    ("disagg.transport", "A.9"), ("disagg.worker", "A.9")])
-def test_unwired_site_refused_naming_its_roadmap_item(site, item):
-    spec = f"{site}:raise:0.1:7"
-    jax_faults.parse_fault_specs(spec)      # the JAX package runs it
-    with pytest.raises(ValueError, match=rf"\(ROADMAP {item}\)"):
-        faults.parse_fault_specs(spec)
-    errs = faults.robust_errors(fira_tiny(inject_faults=spec))
-    assert len(errs) == 1 and f"ROADMAP {item}" in errs[0]
+@pytest.mark.parametrize("site", ["disagg.transport", "disagg.worker"])
+def test_disagg_site_parses_as_jax(site):
+    """The prefill tier's sites are wired: each kind the JAX package
+    takes there parses to its specs (``corrupt`` only at the transport,
+    which owns a payload; both packages refuse it at the worker in the
+    same words), and nothing is left unwired."""
+    for kind in ("raise", "hang", "corrupt"):
+        spec = f"{site}:{kind}:0.1:7"
+        errs = faults.robust_errors(fira_tiny(inject_faults=spec))
+        assert errs == jax_faults.robust_errors(jax_fira_tiny(
+            inject_faults=spec))
+        assert bool(errs) == (kind == "corrupt"
+                              and site not in faults.CORRUPT_SITES)
+        if not errs:
+            assert ([dataclasses.astuple(s)
+                     for s in faults.parse_fault_specs(spec)]
+                    == [dataclasses.astuple(s)
+                        for s in jax_faults.parse_fault_specs(spec)])
+    assert faults.UNWIRED_SITES == {}
+    assert faults.SITES == jax_faults.SITES
 
 
 @pytest.mark.parametrize("knobs", [
@@ -488,9 +499,11 @@ def test_cli_robust_knob_validation_exit2(setup, tmp_path, capsys):
             "--data-dir", setup["dir"], "--out-dir", str(tmp_path / "OUT")]
     assert cli.main(base + ["--inject-faults", "nowhere:raise:0.1:7"]) == 2
     assert "not a registered fault site" in capsys.readouterr().err
-    assert cli.main(base + ["--inject-faults", "disagg.transport:raise:1:0"]) \
+    assert cli.main(base + ["--inject-faults", "disagg.transport:raise:2:0"]) \
         == 2
-    assert "ROADMAP A.9" in capsys.readouterr().err
+    want = jax_faults.robust_errors(jax_fira_tiny(
+        inject_faults="disagg.transport:raise:2:0"))
+    assert want and want[0] in capsys.readouterr().err
     assert cli.main(base + ["--dispatch-watchdog-s", "-2"]) == 2
     assert "dispatch_watchdog_s" in capsys.readouterr().err
     assert cli.main(base + ["--robust-retries", "-1"]) == 2

@@ -373,8 +373,9 @@ def test_serve_stats_summary_keys_equal_jax():
      "--resume requires an existing serve journal at "),
     (["--serve-rate", "5", "--input", "diffs", "--diff-trace", __file__,
       "--resume"], "--resume supports --input graphs only"),
-    (["--serve-rate", "5", "--inject-faults", "disagg.worker:hang:1:0"],
-     "ROADMAP A.9"),
+    (["--serve-rate", "5", "--serve-tiers", "prefill-pool",
+      "--prefix-cache", "off"], "serve_tiers=prefill-pool requires "
+     "prefix_cache"),
     (["--serve-rate", "5", "--input", "diffs", "--diff-trace",
       "/no/such/path"], "--diff-trace /no/such/path: path does not exist")])
 def test_cli_serve_refusals_exit_2(setup, tmp_path, capsys, flags, named):
