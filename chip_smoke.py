@@ -19,14 +19,15 @@ Phases, each printing its own line; any failure exits non-zero:
             (T=30, its tanh from one reciprocal a pair of elements; there
             also on inputs with entries of magnitude 15-60 and bitwise
             equal over two launches), at a batch of 85 (the tile kernel's
-            third tiling), at the bucketed training shape (T = the main
+            third tiling, and a data rank's rows on a mesh of 2), at a
+            model rank's 128 features on a mesh of 2, at the bucketed
+            training shape (T = the main
             train bucket's tar_len), at the full-prefix beam's shape
             (test batch x beam, tar_len), at the spec drafter's beam-0
-            rows (20, 1), and those shapes but 85 and the drafter's in
-            bf16; K2
-            (its backward) at the training shape in f32 (also at
-            magnitudes 15-60) and in bf16, and at the bucketed shape in
-            both;
+            rows (20, 1), and those shapes but the mesh shards' and the
+            drafter's in bf16; K2 (its backward) at the training shape
+            in f32 (also at magnitudes 15-60) and in bf16, at the
+            bucketed shape in both, and at the two mesh shards in f32;
 5. train    for f32 and then bf16, the training path at fira-full width
             on a synthetic corpus with the paper's vocabulary sizes and
             random seeded weights, counts from zero around each: one epoch
@@ -108,7 +109,8 @@ Phases, each printing its own line; any failure exits non-zero:
             at 8 and 64 slots the lines that differ); K1 once a
             micro-step, the block allocator healthy after every run; then,
             f32 and bf16, engine against batched early exit in turns a b b
-            a on the trained and the mixed-depth weights (commits/s,
+            a (bf16: a b) on the trained and the mixed-depth weights
+            (commits/s,
             occupancy, steps a commit, pool use, bytes a slot, peak memory
             above what was held, host syncs a dispatch) and one warm engine
             dispatch profiled. K1 (phase 4) also at the 64-slot step
@@ -138,7 +140,7 @@ Phases, each printing its own line; any failure exits non-zero:
             graph streams and diffatt equal to ``process_commits`` in this
             process (hard check); commits/s, shards, degraded commits,
             CPU count;
-20. message ``cli message`` as a subprocess on 1 diff reconstructed from
+20. message ``cli message`` (in this process) on 1 diff reconstructed from
             the test split (f32 checkpoint: exit 0, one line, the
             in-process message); ``one_shot_message`` on 8 in f32 and
             bf16 with K1 (once a beam step, 29 a message, counted) and
@@ -159,7 +161,7 @@ Phases, each printing its own line; any failure exits non-zero:
             faults (a line moves only where it is shed or its payload was
             scrambled); K1 once a micro-step, counted; the ingest stage
             times, stall, cache and memo meters; wall-clock serving at 1.5x
-            the engine's drain rate over the split 2 times, ingest and
+            the engine's drain rate over the split once, ingest and
             prefix caches off, threads and pool in turns;
 22. fleet   the replicated engine fleet and recovery (the f32 checkpoint,
             ``--engine-slots 20`` over 2 or 4 replicas on the one card,
@@ -194,7 +196,23 @@ Phases, each printing its own line; any failure exits non-zero:
             seeded worker death and a transport corrupt too, no
             shared-memory segment left; disaggregated against in-process
             at 1.5x the drain in turns, and the card's memory in use with
-            the workers; K1 as ``k1_formula`` of each run's counters.
+            the workers; K1 as ``k1_formula`` of each run's counters;
+24. mesh    the training mesh (``parallel/mesh.py``), f32: ``cli train
+            --mesh 1x1`` (a one-rank NCCL group) one epoch, its
+            ``latest.pt`` byte-identical to phase 5's ``cli train``;
+            ``train.loop.train`` on a 1x1 mesh with the gate, every loss,
+            ``best.pt`` and ``latest.pt`` bitwise equal to phase 5's f32
+            run; two ranks sharing the card (gloo, collectives staged
+            through host memory) at DP 2x1 and TP 1x2, 3 steps at batch
+            170 from the seeded weights (losses within 2e-5 of one
+            process), K1/K2 once a
+            step on each rank at its shard's shape (phase 4 times K1 and
+            K2 at (85, 30, 370, 256) and (170, 30, 370, 128) too), steps/s
+            and peak memory a rank; TP with dropout on, one step
+            (replicated parameters bit-identical across the ranks); ring
+            attention at
+            ``seq_shards=2`` on the two ranks against dense; out_fc's
+            all-reduce timed; ``cli train --mesh 2x1`` exits 2.
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -220,7 +238,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 N_COMMITS = 720            # -> a test split of ~60 commits
 ENGINE_WIDE = 64           # the slot engine's wide arena (--engine-slots)
-WALL_REPEATS = 2           # wall-clock serving: the test split 2x (~122)
+WALL_REPEATS = 1           # wall-clock serving: the test split once (61)
 WORD_VOCAB, AST_VOCAB = 24_650, 71   # the paper's vocabulary sizes
 SEED = 0
 BF16_SEEDS = 4     # draws a shape on which bf16 K1 is held against plain
@@ -411,7 +429,9 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     record: the decode shape's numbers, with the dev, training, bucket,
     full-prefix beam, engine, replica and drafter shapes' under
     ``dev_*``, ``train_*``, ``bucket_*``, ``prefix_*``, ``engine_*``,
-    ``replica_*`` and ``draft_*``."""
+    ``replica_*`` and ``draft_*``, and a mesh rank's shards (85 rows of 2
+    data ranks, 128 features of 2 model ranks) under ``dp_*`` and
+    ``tp_*``."""
     from fira_tpu_torch.ops.timing import time_ms
 
     B, K = cfg.test_batch_size, cfg.beam_size
@@ -422,8 +442,11 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
              ("train", (cfg.batch_size, cfg.tar_len, S, D), f32, 1e-5),
              # the main path pads every batch to full size, so it gives the
              # tile kernel 128 s a block (train) and 32 (dev); a batch of
-             # 85 takes the third tiling, 64 s a block and 2 slices of d
-             ("batch85", (85, cfg.tar_len, S, D), f32, 1e-5),
+             # 85 takes the third tiling, 64 s a block and 2 slices of d:
+             # it is also a rank's rows on a mesh of 2 data ranks
+             ("dp", (85, cfg.tar_len, S, D), f32, 1e-5),
+             # a rank's feature shard on a mesh of 2 model ranks
+             ("tp", (cfg.batch_size, cfg.tar_len, S, D // 2), f32, 1e-5),
              # buckets keep S and the batch and shrink T: one partial tile
              ("bucket", (cfg.batch_size, bucket_t, S, D), f32, 1e-5),
              # the full-prefix beam (beam_kv_cache=False): every step
@@ -519,7 +542,7 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
               f"kernel at {100 * bound / ms:.1f}% of bound", flush=True)
         if name in ("decode", "dev", "train", "bucket", "prefix", "engine",
-                    "replica", "draft"):
+                    "replica", "draft", "dp", "tp"):
             pre = "" if name == "decode" else f"{name}_"
             records[dtype].update({
                 f"{pre}shape": [b, t, s, d], f"{pre}max_abs_err": err,
@@ -529,7 +552,7 @@ def phase_kernels(torch, cs, cfg, bucket_t: int):
     return records[f32], records[bf16]
 
 
-def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
+def phase_kernels_bwd(torch, cs, cfg, dtype, T=None, B=None, D=None):
     """Copy-score backward (K2) against the plain autograd backward at the
     training shape (``T``: default the full tar_len; the bucketed training
     shape passes its bucket's), the plain version run on the same values
@@ -541,10 +564,13 @@ def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
     dtgt round once to bf16). The
     plain backward is timed in the kernel's type on a retained graph of the
     plain version on the same inputs, so it runs from the saved (B, T, S,
-    D) intermediate, without the forward."""
+    D) intermediate, without the forward. ``B`` and ``D`` (default the
+    training batch and width) give a mesh rank's shards."""
     full_t = T is None
-    B, T = cfg.batch_size, cfg.tar_len if full_t else T
-    S, D = cfg.sou_len + cfg.sub_token_len, cfg.embedding_dim
+    label = ("train" if full_t else "bucket") if B is None and D is None \
+        else "shard"
+    B, T = B or cfg.batch_size, cfg.tar_len if full_t else T
+    S, D = cfg.sou_len + cfg.sub_token_len, D or cfg.embedding_dim
     bf16 = dtype == torch.bfloat16
     rtol, atol = (2e-2, 2e-2) if bf16 else (5e-4, 5e-5)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -583,8 +609,7 @@ def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
         out, leaves, dout, retain_graph=True), n=10)
     del out, leaves
     bound, by = copy_score_bwd_bound_ms(B, T, S, D, src.element_size())
-    print(f"[kernels] copy_score_bwd {'train' if full_t else 'bucket'} "
-          f"({B},{T},{S},{D}) "
+    print(f"[kernels] copy_score_bwd {label} ({B},{T},{S},{D}) "
           f"{dname(dtype)}: max_abs_err against f64 "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (rtol {rtol}, atol {atol}; the plain f32 backward's: "
@@ -594,7 +619,7 @@ def phase_kernels_bwd(torch, cs, cfg, dtype, T=None):
           f"{wrapper_ms:.4f} ms), plain backward {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.1f}% of "
           f"bound", flush=True)
-    if not bf16 and full_t:
+    if not bf16 and label == "train":
         # large magnitudes beside ordinary values
         big = [with_large(torch, src, 0.05, gen),
                with_large(torch, tgt, 0.02, gen)]
@@ -2274,10 +2299,13 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> tuple:
                   f"histogram {dict(sorted(hist.items()))}", flush=True)
         weights["mixed"] = eos_biased(run["state_dict"], ctx["eos_delta"])
         ce = c.replace(beam_early_exit=True)
+        # bf16: one turn each (the smoke's time limit)
+        order = (("batched", "engine", "engine", "batched") if f32
+                 else ("batched", "engine"))
         for wname, sd in weights.items():
             model.load_state_dict(sd)
             got = {"batched": [], "engine": []}
-            for which in ("batched", "engine", "engine", "batched"):
+            for which in order:
                 if which == "batched":
                     torch.cuda.synchronize()
                     held = torch.cuda.memory_allocated()
@@ -2296,11 +2324,12 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> tuple:
             st = e["stats"]
             print(f"[engine {dtype}] {wname}: engine vs batched early exit "
                   f"(cached/fused/prob, {cfg.test_batch_size} slots), "
-                  f"commits/s in turns a b b a: batched "
-                  f"{got['batched'][0]['rate']:.2f}, engine "
-                  f"{got['engine'][0]['rate']:.2f} "
-                  f"{got['engine'][1]['rate']:.2f}, batched "
-                  f"{got['batched'][1]['rate']:.2f}; {len(diff)} of "
+                  f"commits/s in turns {' '.join(w[0] for w in order)}: "
+                  f"batched " + " ".join(f"{r['rate']:.2f}"
+                                          for r in got["batched"])
+                  + ", engine " + " ".join(f"{r['rate']:.2f}"
+                                           for r in got["engine"])
+                  + f"; {len(diff)} of "
                   f"{n_test} lines differ; occupancy {st['slot_occupancy']},"
                   f" steps/commit {st['steps_per_commit']} (batched: "
                   f"{sum(b['steps']) / n_test:.3f}), pool use "
@@ -2911,9 +2940,9 @@ def phase_preprocess(ctx) -> None:
 
 def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     """``cli message``, one diff in, one message out. 8 diffs reconstructed
-    from the test split; ``python -m fira_tpu_torch.cli message`` as a
-    subprocess on 1 of them against the f32 trained checkpoint (exit 0,
-    one non-empty line); then in this process, for f32 and then
+    from the test split; ``cli message`` (its ``main``, in this process)
+    on 1 of them against the f32 trained checkpoint (exit 0, one
+    non-empty line); then, for f32 and then
     bf16, ``one_shot_message`` on all 8 with K1, counts from zero around
     that pass only (K1 once a beam step), then with the plain copy score
     and K1 in turns; f32 also once each in log space. Hard checks: the
@@ -2924,11 +2953,9 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     log space (where nothing underflows); bf16's that differ are counted.
     Printed: the ingest stage times, the beam's and the message's wall
     time; the cost of the test_batch_size - 1 pad rows (the same messages
-    at ``test_batch_size=1``, in turns, and one message at each size
+    at ``test_batch_size=1``, one pass each, and one message at each size
     under the profiler: kernels, device busy, idle share). Returns K1's
     launches a dtype."""
-    import subprocess
-
     from fira_tpu_torch.data.schema import Corpus
     from fira_tpu_torch.ingest.difftext import reconstruct_request
     from fira_tpu_torch.ingest.service import one_shot_message
@@ -2948,22 +2975,19 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
     cli_lines = []
     for path in paths[:1]:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fira_tpu_torch.cli", "message", path,
-             "--config", "fira-full", "--data-dir", ctx["data_dir"],
-             "--ckpt-dir", run32["ckpt_dir"]], cwd=ctx["root"],
-            capture_output=True, text=True, timeout=600)
+        rc, out, err, _k1 = run_cli(torch, ctx, [
+            "message", path, "--config", "fira-full", "--data-dir",
+            ctx["data_dir"], "--ckpt-dir", run32["ckpt_dir"]])
         wall = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        check(proc.returncode == 0 and len(lines) == 1 and lines[0].strip(),
-              f"cli message {os.path.basename(path)}: exit "
-              f"{proc.returncode}, stdout {proc.stdout[-500:]!r}, stderr "
-              f"{proc.stderr[-2000:]}")
+        lines = out.splitlines()
+        check(rc == 0 and len(lines) == 1 and lines[0].strip(),
+              f"cli message {os.path.basename(path)}: exit {rc}, stdout "
+              f"{out[-500:]!r}, stderr {err[-2000:]}")
         cli_lines.append(lines[0])
         print(f"[message] cli message {os.path.basename(path)} --config "
-              f"fira-full (f32 trained checkpoint): exit 0, {wall:.2f} s "
-              f"wall incl. interpreter start, data and weight load; "
-              f"{lines[0]!r}", flush=True)
+              f"fira-full (f32 trained checkpoint, in this process): "
+              f"exit 0, {wall:.2f} s wall incl. data and weight "
+              f"load; {lines[0]!r}", flush=True)
 
     def one_pass(model, c, fn):
         model.copy_net.score_fn = fn
@@ -3070,16 +3094,15 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
             one = c.replace(test_batch_size=1)
             beam = {c.test_batch_size: [], 1: []}
             outs = {}
-            for cc in (c, one, one, c):
+            for cc in (c, one):
                 got, st = one_pass(model, cc, cs.copy_scores)
                 beam[cc.test_batch_size].append(med(st, "beam_s"))
                 outs[cc.test_batch_size] = got
             n_same = sum(a == b for a, b in zip(outs[1], msgs))
-            print(f"[message float32] pad rows: beam wall median in turns "
-                  f"{c.test_batch_size} rows / 1 / 1 / {c.test_batch_size}: "
+            print(f"[message float32] pad rows: beam wall median "
+                  f"{c.test_batch_size} rows / 1: "
                   + " / ".join(f"{1e3 * x:.1f}" for x in (
-                      beam[c.test_batch_size][0], *beam[1],
-                      beam[c.test_batch_size][1]))
+                      beam[c.test_batch_size][0], beam[1][0]))
                   + f" ms; {n_same} of {len(texts)} messages at 1 row equal "
                   f"the {c.test_batch_size}-row ones", flush=True)
             prof = {}
@@ -3161,8 +3184,8 @@ def phase_serve_diffs(torch, ctx, run32: dict) -> int:
     prewarm) a serve. Printed beside the card: the ingest stage times,
     stall, workers and depth, cache and memo meters; then wall-clock
     serving at 1.5x the engine's drain rate on this corpus over the split
-    ``WALL_REPEATS`` times, ingest and prefix caches off, thread / process
-    / process / thread. Returns K1's launches."""
+    ``WALL_REPEATS`` times, ingest and prefix caches off, thread then
+    process. Returns K1's launches."""
     from fira_tpu_torch.config import fira_full
     from fira_tpu_torch.data.dataset import FiraDataset
     from fira_tpu_torch.data.synthetic import write_extracted_corpus_dir
@@ -3356,8 +3379,7 @@ def phase_serve_diffs(torch, ctx, run32: dict) -> int:
                         arrival_times=np.zeros(c.test_batch_size),
                         out_dir=os.path.join(work, f"warm_{mode}"),
                         engine=eng, fast_path=fast[mode])
-        for i, mode in enumerate(("thread", "process", "process",
-                                  "thread")):
+        for i, mode in enumerate(("thread", "process")):
             cm = c.replace(ingest_exec=mode)
             eng.stats = engine_lib.EngineStats(slots=eng.slots)
             cs.copy_scores.launches = 0
@@ -3389,7 +3411,7 @@ def phase_serve_diffs(torch, ctx, run32: dict) -> int:
             print(f"[serve-diffs] wall clock at 1.5x the drain rate "
                   f"({drain['rate']:.2f} commits/s on this corpus), ingest "
                   f"and prefix caches off, --ingest-exec {mode} (turn "
-                  f"{i + 1} of 4): offered {rate:.2f} req/s ({sv['offered']} "
+                  f"{i + 1} of 2): offered {rate:.2f} req/s ({sv['offered']} "
                   f"requests, measured {sv['offered_rate_rps']}), completed "
                   f"{sv['completed']} at {sv['throughput_rps']} req/s; p50/"
                   f"p99 TTFT {sv['p50_ttft_s']}/{sv['p99_ttft_s']} s, p50/"
@@ -3486,8 +3508,8 @@ def phase_fleet(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     a spare attach (median of 3); wall-clock serving at 1.5x the drain
     rate over the split ``WALL_REPEATS`` times, cache off, in turns: one
     engine of 20 slots with the journal on, off, then two replicas of 10
-    twice, then one engine off, on (the journal on/off/off/on, and one
-    engine against two replicas 1/2/2/1 with the journal off). Returns
+    with it off (the journal on/off, and one engine against two replicas
+    with the journal off). Returns
     K1's launches."""
     import gc
     import signal
@@ -3804,12 +3826,10 @@ def phase_fleet(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
 
     k1 += wall("warm_one", c1, eng1, False, warm=True)
     k1 += wall("warm_two", c2, eng2, False, warm=True)
-    # one sequence of turns serves both comparisons: the journal on, off,
-    # off, on (one engine), and around the middle one engine, two
-    # replicas, two replicas, one engine (journal off)
+    # one sequence of turns serves both comparisons: the journal on, off
+    # (one engine), then one engine and two replicas (journal off)
     for i, (two, journal) in enumerate(((False, True), (False, False),
-                                        (True, False), (True, False),
-                                        (False, False), (False, True))):
+                                        (True, False))):
         k1 += wall(f"turn {i + 1}, "
                    f"{'two replicas of 10' if two else 'one engine of 20'} "
                    f"slots, journal {'on' if journal else 'off'}",
@@ -3889,7 +3909,7 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     each run equal ``k1_formula`` of its engines' counters. Printed beside
     the card: each spec tier's acceptance, verify frames and dispatches a
     commit against the plain engine on the trained and the biased
-    checkpoints; spec against plain commits/s in 3 alternating turns;
+    checkpoints; spec against plain commits/s in turns s p p s;
     each tier against f32 (lines that differ, the B-Norm BLEU delta, the
     mean and p99 divergence of the beam scores); disaggregated against
     in-process req/s and p99 TTFT at 1.5x the drain, in 2 turns; the
@@ -4073,21 +4093,20 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
               f"{card}", flush=True)
 
     laps.append(("quality", time.perf_counter() - t_phase))
-    # spec against plain commits/s, in 3 alternating turns (warm engines)
+    # spec against plain commits/s, in turns s p p s (warm engines)
     cspec1 = c1.replace(spec_decode="copy", engine_spec_k=4)
     e_plain = ref["eng"]
     e_spec = engine_lib.SlotEngine(model, cspec1)
     e_spec.prewarm([batches[0][1]])
     rates = {"plain": [], "spec": []}
-    for i, which in enumerate(("spec", "plain", "plain", "spec", "spec",
-                               "plain")):
+    for i, which in enumerate(("spec", "plain", "plain", "spec")):
         c = cspec1 if which == "spec" else c1
         r = engine_decode(torch, ctx, model, c, batches,
                           eng=e_spec if which == "spec" else e_plain)
         k1 += r["k1"]
         check(r["out"] == engine_bytes, f"turn {i + 1} ({which}): bytes")
         rates[which].append(r["rate"])
-    print(f"[tiers] commits/s in turns s p p s s p, copy k4 vs plain "
+    print(f"[tiers] commits/s in turns s p p s, copy k4 vs plain "
           f"(trained checkpoint, 20 slots): spec "
           f"{', '.join(f'{x:.2f}' for x in rates['spec'])}, plain "
           f"{', '.join(f'{x:.2f}' for x in rates['plain'])}; {card}",
@@ -4153,8 +4172,8 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
           f"decode-side prefills {r['metrics']['engine']['prefills']}; K1 "
           f"{r['k1']}; the call {call_s:.2f} s", flush=True)
     laps.append(("disagg checks", time.perf_counter() - t_phase))
-    # disaggregated against in-process, wall clock at 1.5x the drain, in
-    # 2 turns (d i i d) on one warm engine and the pool started at the
+    # disaggregated against in-process, wall clock at 1.5x the drain, one
+    # turn each on one warm engine and the pool started at the
     # phase's start, the prefix cache on (the tiers need it) and emptied
     # before each run
     check(pool.wait_ready(300.0), "the wall turns' prefill pool never "
@@ -4164,8 +4183,7 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     rate = 1.5 * ref["rate"]
     times = poisson_times(n, rate, seed=5)
     walls = {"disagg": [], "in-process": []}
-    for i, which in enumerate(("disagg", "in-process", "in-process",
-                               "disagg")):
+    for i, which in enumerate(("disagg", "in-process")):
         c = ct if which == "disagg" else cc
         eng.stats = engine_lib.EngineStats(slots=eng.slots)
         eng.cache_clear()
@@ -4212,6 +4230,283 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     del model, eng, ref
     torch.cuda.empty_cache()
     return k1
+
+
+MESH_STEPS = 3     # steps of each two-rank layout
+MESH_RTOL = 2e-5   # a layout's loss against one process (the JAX package's
+                   # mesh tolerance, tests/test_train_decode.py)
+GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5   # a layout's first-batch gradients
+                   # against one process, entry by entry (the JAX
+                   # package's, tests/test_train_decode.py)
+
+
+def grad_report(torch, got: dict, want: dict) -> dict:
+    """A layout's gathered gradients ``got`` against one process' ``want``
+    (name -> CPU tensor): the whole gradient's relative error in norm; the
+    leaf furthest outside ``GRAD_RTOL``/``GRAD_ATOL`` (its excess, <= 0
+    inside); and the leaf with the largest error against its own largest
+    entry, with that entry: the key-projection biases and the copy
+    score's scalar bias shift every softmax they feed by a constant, so
+    their gradients are 0 but for rounding, and that ratio is large
+    there."""
+    check(sorted(got) == sorted(want), f"gradient names differ: "
+          f"{sorted(set(got) ^ set(want))}")
+    num = sum(float((got[k] - w).double().pow(2).sum())
+              for k, w in want.items())
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    excess, ratio = {}, {}
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        excess[k] = float((d - GRAD_RTOL * w.abs()).max()) - GRAD_ATOL
+        ratio[k] = (float(d.max()), float(w.abs().max()))
+    worst = max(excess, key=excess.get)
+    odd = max(ratio, key=lambda k: ratio[k][0] / max(ratio[k][1], 1e-30))
+    return {"norm_rel": (num / den) ** 0.5, "worst": worst,
+            "excess": excess[worst], "odd": odd, "odd_err": ratio[odd][0],
+            "odd_max": ratio[odd][1],
+            "g_max": max(m for _, m in ratio.values())}
+
+
+def file_bytes_equal(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_mesh(torch, ctx, run32: dict) -> dict:
+    """The training mesh (``parallel/mesh.py``) on the one card, fira-full
+    f32, counts from zero around each run:
+
+    1. ``cli train --mesh 1x1`` (a one-rank NCCL group in this process),
+       one epoch with ``--feeder-workers 0``: ``latest.pt`` byte-identical
+       to the ``[train]`` phase's ``cli train`` of the same flags;
+    2. ``train.loop.train`` on a 1x1 mesh with the gate, 2 epochs: every
+       step's loss, ``best.pt`` and ``latest.pt`` bitwise equal to the
+       ``[train]`` phase's f32 run;
+    3. two ranks sharing the card through the library (``RankPool``,
+       backend gloo, every collective staged through host memory; gloo's
+       own all-reduce, broadcast and all-gather on CUDA tensors are
+       checked too; its own send/recv ends the process, so it is not run):
+       DP 2x1 and TP 1x2, ``MESH_STEPS`` steps at batch 170 from the
+       seeded weights, dropout off: each step's loss within ``MESH_RTOL``
+       of one process, the first batch's gradients gathered whole within
+       ``GRAD_RTOL``/``GRAD_ATOL`` of one process' entry by entry and
+       within ``GRAD_RTOL`` in norm (``grad_report``); K1 and K2 once a
+       step on each rank at its shard's shape; steps/s and peak memory of
+       each rank (two ranks on one card: not scaling);
+    4. TP 1x2 with dropout on, one step: the replicated parameters
+       bit-identical across the ranks, the loss within ``MESH_RTOL`` of
+       one process drawing from the same seed;
+    5. the ring: ``seq_shards=2`` on the 2x1 ranks, the loss of one batch
+       within ``MESH_RTOL`` of dense cross-attention;
+    6. out_fc's all-reduce of the (170 x 30, 24,650) f32 logits timed on
+       the 1x1 NCCL group and the two gloo ranks;
+    7. ``cli train --mesh 2x1`` exits 2 on the one card.
+
+    Returns the K1/K2 launches of the 1x1 runs (full shapes) and of the
+    ranks (shard shapes)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from fira_tpu_torch import cli
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.parallel import jobs, mesh as pm
+    from fira_tpu_torch.train import loop as train_loop
+    from fira_tpu_torch.train import state as st
+    from fira_tpu_torch.train import step as sl
+
+    cs, ds, work, cfg = ctx["cs"], ctx["ds"], ctx["work"], ctx["cfg"]
+    mwork = os.path.join(work, "mesh")
+    counts = {"k1": 0, "k2": 0}
+
+    def counted(fn):
+        cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts["k1"] += cs.copy_scores.launches
+        counts["k2"] += cs.copy_scores_backward.launches
+        return out
+
+    # 1. cli train --mesh 1x1 against the [train] phase's cli train
+    t0 = time.perf_counter()
+    rc = counted(lambda: cli.main([
+        "train", "--config", "fira-full", "--data-dir", ctx["data_dir"],
+        "--out-dir", os.path.join(mwork, "cli"), "--ckpt-dir",
+        os.path.join(mwork, "ckpt_cli"), "--epochs", "1", "--dtype",
+        "float32", "--feeder-workers", "0", "--mesh", "1x1"]))
+    check(rc == 0, f"cli train --mesh 1x1 exited {rc}")
+    check(not dist.is_initialized(), "cli train --mesh 1x1 left its group")
+    same_cli = file_bytes_equal(
+        os.path.join(mwork, "ckpt_cli", "latest.pt"),
+        os.path.join(work, "ckpt_cli_float32", "latest.pt"))
+    print(f"[mesh] cli train --mesh 1x1 (one-rank NCCL group), 1 epoch, "
+          f"--feeder-workers 0: latest.pt byte-identical to cli train "
+          f"without --mesh: {same_cli} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(same_cli, "cli train --mesh 1x1: latest.pt differs from the run "
+          "without a mesh")
+
+    # 2. train.loop.train on a 1x1 mesh against the [train] phase's run
+    res = counted(lambda: train_loop.train(
+        ds, run32["gated"], device="cuda", mesh=pm.make_mesh(1, 1),
+        out_dir=os.path.join(mwork, "lib"),
+        ckpt_dir=os.path.join(mwork, "ckpt_lib"), epochs=2,
+        var_maps=ctx["var_maps"], resume=False))
+    ref = run32["result"]
+    same = {"losses": res.losses == ref.losses}
+    for name in ("best.pt", "latest.pt"):
+        a = os.path.join(mwork, "ckpt_lib", name)
+        b = os.path.join(run32["ckpt_dir"], name)
+        check(os.path.exists(a) and os.path.exists(b),
+              f"1x1 mesh: {name} missing ({os.path.exists(a)}, "
+              f"{os.path.exists(b)})")
+        same[name] = file_bytes_equal(a, b)
+    print(f"[mesh] train.loop.train on a 1x1 mesh, 2 epochs with the gate: "
+          f"{len(res.losses)} step losses, {res.gates} gates; bitwise equal "
+          f"to the run without a mesh: {same}; steps/s "
+          f"{res.steps_per_sec:.3f} vs {ref.steps_per_sec:.3f}", flush=True)
+    check(all(same.values()), f"1x1 mesh differs from no mesh: {same}")
+    del res
+
+    # 6a. out_fc's all-reduce on the one-rank NCCL group
+    shape = (cfg.batch_size * cfg.tar_len, cfg.vocab_size)
+    bound = pm.init_single(pm.make_mesh(1, 1), mwork)
+    try:
+        nccl_ar = jobs.all_reduce_job(bound, shape)
+    finally:
+        dist.destroy_process_group()
+
+    # the one-process references: MESH_STEPS steps from the seeded weights
+    split = ds.splits["train"]
+    hosts = [make_batch(split, [(cfg.batch_size * i + j) % len(split)
+                                for j in range(cfg.batch_size)], cfg,
+                        batch_size=cfg.batch_size)
+             for i in range(MESH_STEPS)]
+    plain = cfg.replace(dropout_rate=0.0, gcn_dropout_rate=0.0)
+
+    def single(c, n_steps=MESH_STEPS):
+        state = st.init_state(c, "cuda")
+        batches = [batch_to_device(h, torch.device("cuda"), TRAIN_FIELDS)
+                   for h in hosts[:n_steps]]
+        out = {"full": {k: v.detach().cpu().clone()
+                        for k, v in state.model.state_dict().items()}}
+        # the first batch's gradients, as jobs.step_job takes them
+        state.model.train()
+        sl.loss_fn(state.model, batches[0],
+                   torch.Generator(device="cuda").manual_seed(0)).backward()
+        out["grads"] = {k: p.grad.detach().cpu().clone()
+                        for k, p in state.model.named_parameters()}
+        state.optimizer.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        out["losses"] = [float(sl.train_step(state.model, state.optimizer, b,
+                                             gen)) for b in batches]
+        return out
+
+    ref_plain = single(plain)
+    ref_drop = single(cfg, n_steps=1)
+    full = ref_plain["full"]
+    torch.cuda.empty_cache()
+
+    gloo = dict(devices=["cuda:0", "cuda:0"], backend="gloo")
+    rank_counts = {}
+    t0 = time.perf_counter()
+    with pm.RankPool(pm.make_mesh(2, 1, **gloo), mwork,
+                     timeout_s=600) as pool:
+        up = time.perf_counter() - t0
+        probe = pool.run(jobs.probe_job, ops=jobs.PROBE_OPS[:3])[0]
+        probe.update(pool.run(jobs.probe_job, ops=("send_recv",),
+                              modes=("staged",))[0])
+        print(f"[mesh] two gloo ranks sharing the card up in {up:.1f} s; "
+              f"collectives on CUDA tensors: {probe}", flush=True)
+        check(all(v == "ok" for v in probe.values()),
+              f"gloo collectives on the card: {probe}")
+        for name, lay in (("dp", (2, 1)), ("tp", (1, 2))):
+            got = pool.run(jobs.step_job, plain, full, hosts,
+                           mesh=pm.make_mesh(*lay, **gloo))
+            r0 = got[0]
+            rel = max_rel(r0["losses"], ref_plain["losses"])
+            gr = grad_report(torch, r0.pop("grads"), ref_plain["grads"])
+            rank_counts[name] = {"k1": sum(r["k1"] for r in got),
+                                 "k2": sum(r["k2"] for r in got)}
+            print(f"[mesh] {name.upper()} {lay[0]}x{lay[1]} (two ranks on one "
+                  f"card, not scaling): losses "
+                  + " ".join(f"{x:.6f}" for x in r0["losses"])
+                  + f" vs one process "
+                  + " ".join(f"{x:.6f}" for x in ref_plain["losses"])
+                  + f", max rel {rel:.3e} (rtol {MESH_RTOL}); first-batch "
+                  f"gradients: {gr['norm_rel']:.3e} of the norm, every entry "
+                  f"within rtol {GRAD_RTOL} / atol {GRAD_ATOL} (closest: "
+                  f"{gr['worst']}, {gr['excess']:.3e} past it), largest "
+                  f"entry {gr['g_max']:.3e}; the largest error against a "
+                  f"leaf's own largest entry: {gr['odd']}, |err| "
+                  f"{gr['odd_err']:.3e} at max |g| {gr['odd_max']:.3e} "
+                  f"(0 but for rounding); K1/K2 a rank "
+                  + ", ".join(f"{r['k1']}/{r['k2']}" for r in got)
+                  + "; steps/s a rank "
+                  + ", ".join(f"{MESH_STEPS / r['seconds']:.3f}" for r in got)
+                  + "; peak memory a rank "
+                  + ", ".join(f"{r['peak'] / 2**20:.0f} MiB" for r in got),
+                  flush=True)
+            check(rel <= MESH_RTOL, f"{name} loss off by {rel:.3e}")
+            check(gr["excess"] <= 0 and gr["norm_rel"] <= GRAD_RTOL,
+                  f"{name} gradients: {gr}")
+            check(all(r["k1"] == r["k2"] == MESH_STEPS for r in got),
+                  f"{name}: K1/K2 launches {[(r['k1'], r['k2']) for r in got]}"
+                  f", expected {MESH_STEPS} each a rank")
+        tp = pm.make_mesh(1, 2, **gloo)
+        got = pool.run(jobs.step_job, cfg, full, hosts[:1], grads=False,
+                       mesh=tp)
+        rank_counts["tp"]["k1"] += sum(r["k1"] for r in got)
+        rank_counts["tp"]["k2"] += sum(r["k2"] for r in got)
+        rep = got[0]["replicated"]
+        same_rep = all(torch.equal(v, got[1]["replicated"][k])
+                       for k, v in rep.items())
+        rel = max_rel(got[0]["losses"], ref_drop["losses"])
+        print(f"[mesh] TP 1x2 with dropout on, one step: {len(rep)} "
+              f"replicated parameters bit-identical across the ranks: "
+              f"{same_rep}; loss rel {rel:.3e} from one process drawing the "
+              f"same seed", flush=True)
+        check(same_rep, "TP ranks' replicated parameters drifted apart")
+        check(rel <= MESH_RTOL, f"TP dropout loss off by {rel:.3e}")
+        gloo_ar = pool.run(jobs.all_reduce_job, shape, mesh=tp)
+        print(f"[mesh] out_fc's all-reduce of {shape} f32 "
+              f"({nccl_ar['bytes'] / 1e6:.1f} MB): {nccl_ar['ms']:.3f} ms on "
+              f"the one-rank NCCL group (a copy), "
+              + ", ".join(f"{r['ms']:.3f}" for r in gloo_ar)
+              + " ms on the two gloo ranks (staged through host memory)",
+              flush=True)
+        ring_mesh = dataclasses.replace(pm.make_mesh(2, 1, **gloo),
+                                        seq_shards=2)
+        t0 = time.perf_counter()
+        got = pool.run(jobs.model_job, plain.replace(seq_shards=2), full,
+                       hosts[0], mesh=ring_mesh)
+        ring_s = time.perf_counter() - t0
+    model = FiraModel(plain, device="cuda").eval()
+    model.load_state_dict(full)
+    with torch.no_grad():
+        nll, cnt = model(batch_to_device(hosts[0], torch.device("cuda"),
+                                         TRAIN_FIELDS))
+    ring_nll = sum(r["nll"] for r in got)
+    rel = abs(ring_nll - float(nll)) / abs(float(nll))
+    print(f"[mesh] ring attention, seq_shards=2 on the two ranks: nll "
+          f"{ring_nll:.6f} vs dense {float(nll):.6f} (rel {rel:.3e}), count "
+          f"{sum(r['count'] for r in got)} vs {int(cnt)}; {ring_s:.1f} s",
+          flush=True)
+    check(rel <= MESH_RTOL and sum(r["count"] for r in got) == int(cnt),
+          f"ring loss off by {rel:.3e}")
+    del model
+
+    # 7. a mesh larger than the card
+    rc, _out, err, _k1 = run_cli(torch, ctx, [
+        "train", "--config", "fira-full", "--data-dir", ctx["data_dir"],
+        "--out-dir", os.path.join(mwork, "too_big"), "--mesh", "2x1"])
+    want = f"need 2 devices, have {torch.cuda.device_count()}"
+    print(f"[mesh] cli train --mesh 2x1 on {torch.cuda.device_count()} "
+          f"card(s): exit {rc}: {err.strip()}", flush=True)
+    check(rc == 2 and want in err, f"--mesh 2x1: exit {rc}, {err!r}")
+    return dict(full=counts, **rank_counts)
 
 
 def main() -> int:
@@ -4279,6 +4574,11 @@ def main() -> int:
     fwd32, fwd16 = phase_kernels(torch, cs, cfg, bucket_t)
     bwd32 = phase_kernels_bwd(torch, cs, cfg, torch.float32)
     bwd16 = phase_kernels_bwd(torch, cs, cfg, torch.bfloat16)
+    # a mesh rank's shards: 85 rows of 2 data ranks, 128 features of 2
+    # model ranks
+    bwd_dp = phase_kernels_bwd(torch, cs, cfg, torch.float32, B=85)
+    bwd_tp = phase_kernels_bwd(torch, cs, cfg, torch.float32,
+                               D=cfg.embedding_dim // 2)
     for rec, dt in ((bwd32, torch.float32), (bwd16, torch.bfloat16)):
         rec.update({f"bucket_{k}": v for k, v in phase_kernels_bwd(
             torch, cs, cfg, dt, T=bucket_t).items()})
@@ -4404,6 +4704,10 @@ def main() -> int:
     # disaggregated prefill tier ---
     tiers_k1 = phase_tiers(torch, ctx, run32, engine_bytes)
     lap("tiers")
+    # --- the training mesh: 1x1 on NCCL bitwise against no mesh, two
+    # gloo ranks sharing the card in DP and TP, the ring, the refusal ---
+    mesh_k = phase_mesh(torch, ctx, run32)
+    lap("mesh")
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -4430,7 +4734,7 @@ def main() -> int:
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
              + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1
-             + fleet_k1 + tiers_k1,
+             + fleet_k1 + tiers_k1 + mesh_k["full"]["k1"],
              **fwd,
              **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
@@ -4438,11 +4742,25 @@ def main() -> int:
                                             modes16)) + eng_k1["bfloat16"]
              + msg_k1["bfloat16"], **fwd, **fwd16),
         dict(name="copy_score_bwd", dtype="float32",
-             launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32)),
+             launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32))
+             + mesh_k["full"]["k2"],
              **bwd, **bwd32),
         dict(name="copy_score_bwd_bf16", dtype="bfloat16",
              launches=sum(r["k2"] for r in (run16, tb16, ev16)),
              **bwd, **bwd16)]
+    # the mesh ranks' shards (phase mesh; their launches counted in the
+    # ranks)
+    for part, what in (("dp", "85 rows of 2 data ranks"),
+                       ("tp", "128 features of 2 model ranks")):
+        kernels.append(dict(
+            name=f"copy_score_fwd_{part}_shard", dtype="float32",
+            shard=what, launches=mesh_k[part]["k1"], **fwd,
+            **{k[len(part) + 1:]: v for k, v in fwd32.items()
+               if k.startswith(f"{part}_")}))
+        kernels.append(dict(
+            name=f"copy_score_bwd_{part}_shard", dtype="float32",
+            shard=what, launches=mesh_k[part]["k2"], **bwd,
+            **(bwd_dp if part == "dp" else bwd_tp)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

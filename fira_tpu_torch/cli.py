@@ -2,7 +2,14 @@
 
 - ``train`` fits the model with Adam, runs the dev gate, and writes
   ``<ckpt-dir>/best.pt`` (on a dev-BLEU improvement) and
-  ``<ckpt-dir>/latest.pt`` (each epoch; a later call resumes from it);
+  ``<ckpt-dir>/latest.pt`` (each epoch; a later call resumes from it).
+  ``--mesh DPxTP`` trains over a (data, model) mesh of ranks, one a GPU
+  (``parallel/mesh.py``; ``--device cpu`` runs gloo ranks on the CPU);
+  the default puts every visible GPU on the data axis, so one card trains
+  without a mesh. ``--seq-shards N`` runs the decoder's cross-attention as
+  ring attention over groups of N ranks (``parallel/ring.py``). A batch
+  that does not divide the data axis, a mesh larger than the devices, or
+  a ``seq_shards`` the ranks cannot take exits 2;
 - ``test`` beam-decodes the test split with ``<ckpt-dir>/best.pt`` (or,
   when dev BLEU never improved, the model in ``latest.pt``) and writes
   OUTPUT/output_fira;
@@ -149,6 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ignore an existing latest checkpoint")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--mesh", default=None, metavar="DPxTP",
+                   help="train: device mesh, e.g. 4x1 (data x model); "
+                        "default: all GPUs on the data axis (one card: no "
+                        "mesh); with --device cpu, gloo ranks on the CPU")
+    p.add_argument("--seq-shards", type=int, default=None, metavar="N",
+                   help="train: ring-attention sequence parallelism: "
+                        "shard decoder cross-attention K/V over N ranks "
+                        "of the mesh (0/1 = dense attention)")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                    help="compute dtype override (params stay f32)")
     p.add_argument("--feeder-workers", type=int, default=None, metavar="N",
@@ -472,6 +487,30 @@ def resolve_device(name: str) -> "torch.device":
     return torch.device("cuda")
 
 
+def resolve_mesh(args):
+    """``train``'s mesh: ``--mesh DPxTP`` over the GPUs (or ``DP * TP``
+    CPU ranks under ``--device cpu``), by default every visible GPU on the
+    data axis when there are several, else None. A bad spec or a mesh
+    larger than the devices returns the message (the JAX package's
+    words)."""
+    import torch
+
+    from fira_tpu_torch.parallel.mesh import make_mesh
+
+    if args.mesh is None:
+        n = torch.cuda.device_count() if args.device == "cuda" else 0
+        return make_mesh(n_data=n) if n > 1 else None
+    try:
+        dp, tp = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        return f"--mesh {args.mesh!r} is not DPxTP (two integers)"
+    devices = ["cpu"] * (dp * tp) if args.device == "cpu" else None
+    try:
+        return make_mesh(n_data=dp, n_model=tp, devices=devices)
+    except ValueError as e:
+        return f"--mesh {args.mesh}: {e}"
+
+
 def _load_var_maps(data_dir: str) -> Optional[List[dict]]:
     path = os.path.join(data_dir, "variable.json")
     if os.path.exists(path):
@@ -529,6 +568,8 @@ def resolve_config(args):
         cfg = cfg.replace(fused_steps=args.fused_steps)
     if args.accum_steps is not None:
         cfg = cfg.replace(accum_steps=args.accum_steps)
+    if args.seq_shards is not None:
+        cfg = cfg.replace(seq_shards=args.seq_shards)
     for given, knob, value in (
             (args.beam_log_space, "beam_compat_prob_space", False),
             (args.beam_factored_topk, "beam_factored_topk", True),
@@ -653,6 +694,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if c.decode_engine:
             errs += fleet_divisibility_errors(c)
         errs += paging_errors(c) + recovery_errors(c)
+        if args.command != "train":
+            # ring attention runs under a training mesh only
+            from fira_tpu_torch.parallel.mesh import seq_shards_errors
+
+            errs += seq_shards_errors(c, 1)
         if args.command == "serve":
             from fira_tpu_torch.serve.disagg import disagg_errors
             from fira_tpu_torch.serve.server import serve_errors
@@ -678,6 +724,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         for e in errs:
             print(f"parse-time validation: {e}", file=sys.stderr)
         if errs:
+            return 2
+    mesh = None
+    if args.command == "train":
+        mesh = resolve_mesh(args)
+        if isinstance(mesh, str):
+            print(f"fira_tpu_torch: config error: {mesh}", file=sys.stderr)
             return 2
     device = resolve_device(args.device)
     suffix = f"_{args.ablation}" if args.ablation else ""
@@ -711,7 +763,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not isinstance(loaded, tuple):
             return loaded
         dataset, cfg = loaded
-        result = train(dataset, cfg, device=device,
+        # mesh admission at parse time (exit 2, named-bucket messages),
+        # not mid-epoch (the JAX CLI's contract)
+        from fira_tpu_torch.parallel.mesh import layout_errors
+
+        errs = layout_errors(cfg, mesh.n_data if mesh else 1,
+                             mesh.n_model if mesh else 1)
+        for e in errs:
+            print(f"fira_tpu_torch: config error: {e}", file=sys.stderr)
+        if errs:
+            return 2
+        result = train(dataset, cfg, device=device, mesh=mesh,
                        out_dir=args.out_dir, ckpt_dir=ckpt_dir,
                        epochs=args.epochs,
                        var_maps=_load_var_maps(args.data_dir),

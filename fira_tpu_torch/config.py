@@ -334,9 +334,13 @@ def unsupported(cfg: FiraConfig) -> List[str]:
                         ("engine_harvest_every", 1)):
         if getattr(cfg, knob) < least:
             errs.append(f"{knob}={getattr(cfg, knob)} (must be >= {least})")
-    if cfg.seq_shards > 1:
-        errs.append(f"seq_shards={cfg.seq_shards} (the port runs dense "
-                    f"cross-attention only)")
+    # seq_shards > 1 runs ring attention under a training mesh; the
+    # ranks it needs are checked where the mesh is known
+    # (parallel/mesh.seq_shards_errors)
+    if cfg.seq_shards < 0:
+        errs.append(
+            f"seq_shards {cfg.seq_shards} must be >= 0 (0/1 = dense "
+            f"cross-attention, N > 1 ring-shards K/V over N devices)")
     for knob, what in (("fused_steps", "steps a stacked group"),
                        ("accum_steps", "micro-batches an optimizer step")):
         if getattr(cfg, knob) < 1:

@@ -58,21 +58,29 @@ def _flax_leaf_name(module: str, tensor: torch.Tensor) -> str:
     return "kernel"
 
 
+def flax_path(key: str, tensor: torch.Tensor) -> str:
+    """The "/"-joined flax path of the port parameter ``key`` (``tensor``
+    is the parameter, or any tensor of its rank): the path the JAX
+    package's sharding rules (``parallel/mesh.py``) match."""
+    *mods, name = key.split(".")
+    if name == "weight":
+        leaf = _flax_leaf_name(mods[-1], tensor)
+    elif name == "bias" or key == "edge_gain":
+        leaf = name
+    else:
+        raise KeyError(f"no flax counterpart for {key}")
+    return "/".join(mods + [leaf])
+
+
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """Port state_dict -> flax ``params`` tree of numpy arrays; the
     inverse of :func:`params_from_flax`."""
     tree: Dict = {}
     for key, tensor in state_dict.items():
-        *mods, name = key.split(".")
+        *mods, leaf = flax_path(key, tensor).split("/")
         arr = tensor.detach().cpu().numpy()
-        if name == "weight":
-            leaf = _flax_leaf_name(mods[-1], tensor)
-            if leaf == "kernel":
-                arr = arr.T
-        elif name == "bias" or key == "edge_gain":
-            leaf = name
-        else:
-            raise KeyError(f"no flax counterpart for {key}")
+        if leaf == "kernel":
+            arr = arr.T
         node = tree
         for m in mods:
             node = node.setdefault(m, {})

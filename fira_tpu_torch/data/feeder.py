@@ -47,8 +47,15 @@ batch before the transfer. ``faults`` (an armed
 before each attempt's assembly (raise/hang) and scrambles the assembled
 batch after it (corrupt), then checks ``feeder.device_put`` on the worker
 before the batch is handed to the transfer; each draw keyed by the task's
-sequence number (and the attempt), as in the JAX package. Its ``sharding``
-(a multi-device mesh) is not ported here (ROADMAP A.10).
+sequence number (and the attempt), as in the JAX package.
+
+``sharding`` (``parallel.mesh.feed_shardings``): under a training mesh
+every rank runs its own Feeder over the same tasks, so each assembles the
+same global batch in the same order from the same seed, and the callable
+cuts the rank's rows before the copy (axis 1 of a stacked group, axis 0
+of a batch): ``host`` stays the global batch (and ``n_valid`` its count),
+``device`` holds the rank's rows on its device. The stream is thus
+byte-stable across worker counts and data-axis sizes.
 """
 
 from __future__ import annotations
@@ -147,7 +154,8 @@ class Feeder:
     def __init__(self, tasks: Iterable[Task], *, num_workers: int = 2,
                  depth: int = 4, put: bool = True, device="cuda",
                  fields=DEVICE_FIELDS, on_error: str = "raise",
-                 retries: int = 0, faults=None):
+                 retries: int = 0, faults=None,
+                 sharding: Optional[Callable[[Batch], Batch]] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if num_workers < 0:
@@ -165,6 +173,7 @@ class Feeder:
         self._on_error = on_error
         self._retries = retries
         self._faults = faults
+        self._sharding = sharding
         self._next = 0                 # next sequence number to emit
         self._n_stalls = 0
         self._stall_s = 0.0
@@ -331,12 +340,13 @@ class Feeder:
         return item
 
     def _device_put(self, item: FedBatch) -> None:
-        """Queue the copies of ``fields`` to the device on the consumer's
-        current stream. Keys starting with "_" are host-only metadata and
-        never ship."""
+        """Queue the copies of ``fields`` (this rank's rows, under a
+        ``sharding``) to the device on the consumer's current stream. Keys
+        starting with "_" are host-only metadata and never ship."""
         if self._put and item.error is None:
-            item.device = batch_to_device(item.host, self._device,
-                                          self._fields)
+            host = (item.host if self._sharding is None
+                    else self._sharding(item.host))
+            item.device = batch_to_device(host, self._device, self._fields)
 
     def _record(self, item: FedBatch, stall: float, depth_seen: int) -> None:
         self._n_stalls += 1

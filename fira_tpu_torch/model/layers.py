@@ -18,6 +18,15 @@ passes the config's (0.1, and 0.2 for the GCN, as the JAX package).
 Parameters are created on ``device`` and left uninitialised; the model's
 ``init_parameters`` fills them from an explicit ``torch.Generator``.
 
+Under a (data, model) mesh (``parallel/mesh.py``) with ``n_model`` > 1 the
+layers hold tensor-parallel shards under the JAX package's rules:
+q/k/v_proj and fc1 are column-parallel (their output features and biases
+split over the model axis, so attention keeps ``num_heads / n_model``
+heads a rank), out_proj and fc2 row-parallel (the contraction split, one
+all-reduce, the bias added once after it), the embeddings split on the
+feature dim and all-gathered after the lookup. Every dropout mask is
+drawn at the global shape and cut to the rank's part (:func:`dropout`).
+
 Precision follows the JAX layers' contract, with the casts written out (not
 ``torch.autocast``, whose op lists are not flax's): parameters stay f32;
 each ``dense`` casts its input, weight and bias to the module's compute
@@ -80,10 +89,28 @@ class Dense(nn.Linear):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = compute_dtype
+        # tensor parallelism (``dense``): "column" or "row", the model
+        # axis' group, and for a row-parallel layer fed a replicated input
+        # whether to cut its feature slice first
+        self.parallel = self.tp_group = None
+        self.scatter_input = False
 
     def forward(self, x):
+        if self.parallel is None:
+            return self._local(x, self.bias)
+        from fira_tpu_torch.parallel import mesh as pmesh
+
+        if self.parallel == "column":
+            return self._local(pmesh.copy_to(x, self.tp_group), self.bias)
+        if self.scatter_input:
+            x = pmesh.scatter_to(x, self.tp_group, -1)
+        y = pmesh.reduce_from(self._local(x, None), self.tp_group)
+        return y if self.bias is None else y + self.bias.to(
+            self.compute_dtype)
+
+    def _local(self, x, bias):
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
+        b = None if bias is None else bias.to(dt)
         x, w = x.to(dt), self.weight.to(dt)
         if self.out_features < self.NARROW:
             sd = stable_dtype(dt)
@@ -124,20 +151,51 @@ class PostLN(nn.Module):
         return y if self.residual_dtype is None else y.to(self.residual_dtype)
 
 
+def _tp(mesh):
+    """The mesh when it splits the model axis, else None."""
+    return mesh if mesh is not None and mesh.n_model > 1 else None
+
+
 def dense(d_in: int, d_out: int, *, bias: bool = True, device=None,
-          dtype: torch.dtype = torch.float32) -> Dense:
+          dtype: torch.dtype = torch.float32, mesh=None,
+          parallel=None, scatter_input: bool = False) -> Dense:
     """A :class:`Dense` computing in ``dtype``, left uninitialised (no draw
-    from the global generator); ``init_parameters`` fills it."""
-    return skip_init(Dense, d_in, d_out, bias=bias, device=device or "cpu",
-                     compute_dtype=dtype)
+    from the global generator); ``init_parameters`` fills it. Under a mesh
+    that splits the model axis, ``parallel="column"`` keeps this rank's
+    ``d_out / n_model`` outputs and ``"row"`` its ``d_in / n_model``
+    inputs (``scatter_input``: the input arrives whole and is cut)."""
+    tp = _tp(mesh) if parallel else None
+    if tp is not None:
+        if parallel == "column":
+            d_out //= tp.n_model
+        else:
+            d_in //= tp.n_model
+    m = skip_init(Dense, d_in, d_out, bias=bias, device=device or "cpu",
+                  compute_dtype=dtype)
+    if tp is not None:
+        from fira_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        m.parallel, m.tp_group = parallel, tp.group(MODEL_AXIS)
+        m.scatter_input = scatter_input
+    return m
 
 
 def layer_norm(d: int, device=None) -> LayerNorm:
     return skip_init(LayerNorm, d, eps=1e-5, device=device or "cpu")
 
 
-def embedding(n: int, d: int, device=None) -> nn.Embedding:
-    return skip_init(nn.Embedding, n, d, device=device or "cpu")
+def embedding(n: int, d: int, device=None, mesh=None) -> nn.Embedding:
+    """An embedding table, left uninitialised. Under a mesh that splits
+    the model axis it holds this rank's ``d / n_model`` features, and
+    ``tp_group`` names the group its lookups are gathered over."""
+    tp = _tp(mesh)
+    table = skip_init(nn.Embedding, n, d // (tp.n_model if tp else 1),
+                      device=device or "cpu")
+    if tp is not None:
+        from fira_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        table.tp_group = tp.group(MODEL_AXIS)
+    return table
 
 
 def position_encoding(length: int, dmodel: int) -> np.ndarray:
@@ -153,18 +211,35 @@ def position_encoding(length: int, dmodel: int) -> np.ndarray:
     return pos
 
 
-def dropout(x, p: float, generator, *, training: bool = True):
+def dropout(x, p: float, generator, *, training: bool = True, mesh=None,
+            cols: bool = False):
     """Inverted dropout as flax's ``nn.Dropout``: keep each element with
     probability 1-p and scale it by 1/(1-p). The mask comes from
     ``torch.rand`` on ``generator`` (``F.dropout`` takes none). The
-    identity when not ``training`` or at p=0."""
+    identity when not ``training`` or at p=0.
+
+    Under a ``mesh`` ``x`` holds this rank's rows of the global batch
+    (dim 0) and, with ``cols``, its model-axis slice of the features (the
+    last dim): the mask is drawn at the global shape and cut to that part,
+    so the ranks draw the single-process mask between them."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if mesh is None:
+        r = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        shape = list(x.shape)
+        shape[0] *= mesh.n_data
+        if cols:
+            shape[-1] *= mesh.n_model
+        r = torch.rand(shape, generator=generator, device=x.device).narrow(
+            0, mesh.data_index * x.shape[0], x.shape[0])
+        if cols:
+            r = r.narrow(-1, mesh.model_index * x.shape[-1], x.shape[-1])
+    keep = r >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -192,26 +267,30 @@ class Combination(PostLN):
 
     def __init__(self, num_heads: int, d_model: int,
                  dropout_rate: float = 0.0, device=None,
-                 dtype: torch.dtype = torch.float32, residual_dtype=None):
+                 dtype: torch.dtype = torch.float32, residual_dtype=None,
+                 mesh=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} not divisible by "
                              f"num_heads={num_heads}")
         self.dropout_rate = dropout_rate
         self.residual_dtype = residual_dtype
+        self.mesh = mesh
         self.scale = 1.0 / math.sqrt(d_model // num_heads)
-        self.q_proj = dense(d_model, d_model, device=device, dtype=dtype)
-        self.k_proj = dense(d_model, d_model, device=device, dtype=dtype)
-        self.v_proj = dense(d_model, d_model, device=device, dtype=dtype)
-        self.out_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, mesh=mesh)
+        self.q_proj = dense(d_model, d_model, parallel="column", **kw)
+        self.k_proj = dense(d_model, d_model, parallel="column", **kw)
+        self.v_proj = dense(d_model, d_model, parallel="column", **kw)
+        self.out_proj = dense(d_model, d_model, parallel="row", **kw)
         self.norm = layer_norm(d_model, device)
 
     def forward(self, query, key, value, generator=None):
-        p, on = self.dropout_rate, self.training
+        p, on, mesh = self.dropout_rate, self.training, self.mesh
         x = combination_gate(self.q_proj(query), self.k_proj(key),
                              self.v_proj(value), scale=self.scale)
-        x = dropout(x, p, generator, training=on)
-        out = dropout(self.out_proj(x), p, generator, training=on)
+        x = dropout(x, p, generator, training=on, mesh=mesh,
+                    cols=_tp(mesh) is not None)
+        out = dropout(self.out_proj(x), p, generator, training=on, mesh=mesh)
         return self.post_ln(out, query)
 
 
@@ -231,12 +310,15 @@ class GCN(PostLN):
       buffer's."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0, device=None,
-                 dtype: torch.dtype = torch.float32, residual_dtype=None):
+                 dtype: torch.dtype = torch.float32, residual_dtype=None,
+                 mesh=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.dtype, self.residual_dtype = dtype, residual_dtype
-        self.fc1 = dense(d_model, d_model, device=device, dtype=dtype)
-        self.fc2 = dense(d_model, d_model, device=device, dtype=dtype)
+        self.mesh = mesh
+        kw = dict(device=device, dtype=dtype, mesh=mesh)
+        self.fc1 = dense(d_model, d_model, parallel="column", **kw)
+        self.fc2 = dense(d_model, d_model, parallel="row", **kw)
         self.norm = layer_norm(d_model, device)
 
     def forward(self, graph_em, adj, generator=None):
@@ -246,13 +328,13 @@ class GCN(PostLN):
             x = (torch.bmm(adj_top.to(self.dtype), self.fc1(top))
                  + torch.bmm(adj_rest.to(self.dtype), self.fc1(rest)))
             x = dropout(self.fc2(x), self.dropout_rate, generator,
-                        training=self.training)
+                        training=self.training, mesh=self.mesh)
             s = top.shape[1]
             return self.post_ln(x[:, :s], top), self.post_ln(x[:, s:], rest)
         x = self.fc1(graph_em)
         x = adj(x) if callable(adj) else torch.bmm(adj.to(self.dtype), x)
         x = dropout(self.fc2(x), self.dropout_rate, generator,
-                    training=self.training)
+                    training=self.training, mesh=self.mesh)
         return self.post_ln(x, graph_em)
 
 
@@ -265,16 +347,26 @@ class Attention(PostLN):
 
     def __init__(self, num_heads: int, d_model: int,
                  dropout_rate: float = 0.0, device=None,
-                 dtype: torch.dtype = torch.float32, residual_dtype=None):
+                 dtype: torch.dtype = torch.float32, residual_dtype=None,
+                 mesh=None, ring=None):
         super().__init__()
-        self.num_heads = num_heads
+        n = _tp(mesh).n_model if _tp(mesh) else 1
+        if num_heads % n:
+            raise ValueError(f"num_heads={num_heads} not divisible by the "
+                             f"mesh's model axis (n_model={n})")
+        # this rank's heads and their width (all of them without a mesh)
+        self.num_heads = num_heads // n
+        self.d_model = d_model // n
         self.dropout_rate = dropout_rate
-        self.d_model = d_model
         self.dtype, self.residual_dtype = dtype, residual_dtype
-        self.q_proj = dense(d_model, d_model, device=device, dtype=dtype)
-        self.k_proj = dense(d_model, d_model, device=device, dtype=dtype)
-        self.v_proj = dense(d_model, d_model, device=device, dtype=dtype)
-        self.out_proj = dense(d_model, d_model, device=device, dtype=dtype)
+        self.mesh = mesh
+        # a mesh bound with seq_shards > 1: ring attention (``attend``)
+        self.ring = ring
+        kw = dict(device=device, dtype=dtype, mesh=mesh)
+        self.q_proj = dense(d_model, d_model, parallel="column", **kw)
+        self.k_proj = dense(d_model, d_model, parallel="column", **kw)
+        self.v_proj = dense(d_model, d_model, parallel="column", **kw)
+        self.out_proj = dense(d_model, d_model, parallel="row", **kw)
         self.norm = layer_norm(d_model, device)
 
     def _split_heads(self, x):
@@ -300,29 +392,51 @@ class Attention(PostLN):
         that is promoted right after in f32 (its default excess
         precision), and rounding it would make the cached decode (K in a
         cache of the stable dtype) and the full prefix (K in bf16) see
-        different logits."""
+        different logits.
+
+        With a ring mesh (cross-attention under ``seq_shards`` > 1) a
+        non-causal attention over a 2-D key-padding mask whose lengths
+        divide the seq axis runs as ring attention
+        (``parallel/ring.ring_attend``), as the JAX Attention's
+        ``_ring_applicable`` routes it: the same -1e9 semantics, in the
+        stable dtype."""
         B, q_len = query.shape[0], query.shape[1]
         d_head = self.d_model // self.num_heads
         q = self._split_heads(self.q_proj(query))
         sd = stable_dtype(q.dtype)
-        weight = matmul(q.to(sd), k.to(sd).transpose(-1, -2)) / math.sqrt(
-            d_head)
-        if mask.dim() < 4:
-            mask = mask[:, None, None, :]
-        weight = weight.masked_fill(mask == 0, NEG_INF)
-        if causal:
-            if q_len != k.shape[2]:
-                raise ValueError(
-                    f"causal=True requires q_len == kv_len (got {q_len} vs "
-                    f"{k.shape[2]}); offset decode must use the cache path")
-            tri = torch.ones(q_len, q_len, dtype=torch.bool,
-                             device=query.device).tril()
-            weight = weight.masked_fill(~tri, NEG_INF)
-        out = matmul(torch.softmax(weight, dim=-1).to(self.dtype), v)
+        if not causal and self._ring_applicable(q, k, mask):
+            from fira_tpu_torch.parallel.ring import ring_attend
+
+            out = ring_attend(q.to(sd), k.to(sd), v.to(sd), mask != 0,
+                              self.ring).to(self.dtype)
+        else:
+            weight = matmul(q.to(sd), k.to(sd).transpose(-1, -2)) / math.sqrt(
+                d_head)
+            if mask.dim() < 4:
+                mask = mask[:, None, None, :]
+            weight = weight.masked_fill(mask == 0, NEG_INF)
+            if causal:
+                if q_len != k.shape[2]:
+                    raise ValueError(
+                        f"causal=True requires q_len == kv_len (got {q_len} "
+                        f"vs {k.shape[2]}); offset decode must use the "
+                        f"cache path")
+                tri = torch.ones(q_len, q_len, dtype=torch.bool,
+                                 device=query.device).tril()
+                weight = weight.masked_fill(~tri, NEG_INF)
+            out = matmul(torch.softmax(weight, dim=-1).to(self.dtype), v)
         out = out.transpose(1, 2).reshape(B, q_len, self.d_model)
         out = dropout(self.out_proj(out), self.dropout_rate, generator,
-                      training=self.training)
+                      training=self.training, mesh=self.mesh)
         return self.post_ln(out, query)
+
+    def _ring_applicable(self, q, k, mask) -> bool:
+        if self.ring is None or mask.dim() != 2:
+            # the ring carries key-padding semantics only
+            return False
+        from fira_tpu_torch.parallel.ring import ring_applicable
+
+        return ring_applicable(self.ring, q.shape[2], k.shape[2])
 
     def forward(self, query, key, value, mask, *, causal: bool = False,
                 generator=None):
@@ -337,17 +451,20 @@ class FeedForward(PostLN):
 
     def __init__(self, d_model: int, mult: int = 4,
                  dropout_rate: float = 0.0, device=None,
-                 dtype: torch.dtype = torch.float32, residual_dtype=None):
+                 dtype: torch.dtype = torch.float32, residual_dtype=None,
+                 mesh=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.residual_dtype = residual_dtype
-        self.fc1 = dense(d_model, mult * d_model, device=device, dtype=dtype)
-        self.fc2 = dense(mult * d_model, d_model, device=device, dtype=dtype)
+        self.mesh = mesh
+        kw = dict(device=device, dtype=dtype, mesh=mesh)
+        self.fc1 = dense(d_model, mult * d_model, parallel="column", **kw)
+        self.fc2 = dense(mult * d_model, d_model, parallel="row", **kw)
         self.norm = layer_norm(d_model, device)
 
     def forward(self, x, generator=None):
         h = dropout(self.fc2(torch.relu(self.fc1(x))), self.dropout_rate,
-                    generator, training=self.training)
+                    generator, training=self.training, mesh=self.mesh)
         return self.post_ln(h, x)
 
 

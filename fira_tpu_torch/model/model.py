@@ -32,6 +32,21 @@ dtype=...)``: embeddings, the dense adjacency and every matmul in the
 compute dtype (in bf16 the copy score, K1/K2, takes bf16 src, tgt, w and
 bias), LayerNorm and the softmaxes in the stable dtype
 (``layers.stable_dtype``).
+
+``FiraModel(cfg, mesh=...)`` is one rank's part of a training mesh
+(``parallel/mesh.py``, a bound ``Mesh``): it holds this rank's rows of
+every batch, and under ``n_model`` > 1 the tensor-parallel shards of the
+layers (``model/layers.py``). In the copy head ``src_proj`` and
+``tgt_proj`` are column-parallel, so K1 and K2 run on this rank's
+``d / n_model`` features with its slice of ``w``; the partial scores are
+all-reduced over the model axis and the bias added once, and ``w``'s
+gradient is the all-gather of the slices' (``mesh.scatter_to``). The
+vocabulary head ``out_fc`` is row-parallel over d (its all-reduce carries
+the whole (B, T, vocab) logits, as the JAX layout does). With
+``cfg.seq_shards`` > 1 the decoder's cross-attention runs as ring
+attention (``parallel/ring.py``) over the mesh's ``seq`` groups; a
+``seq_shards`` that does not divide the ranks raises the JAX model's
+ValueError.
 """
 
 from __future__ import annotations
@@ -111,10 +126,33 @@ def coo_matvec(senders, receivers, values, x):
     return out.reshape(B, N, d).to(x.dtype)
 
 
+ONE_HOT_ROWS = 128   # a table of at most this many rows: a one-hot product
+
+
 def _embed(table: nn.Embedding, ids, dtype):
-    """Lookup in the table cast to ``dtype``, as flax's ``nn.Embed(dtype=)``
-    (so a bf16 backward accumulates repeated ids in bf16, as there)."""
-    return F.embedding(ids, table.weight.to(dtype))
+    """Lookup in the table cast to ``dtype``, as flax's ``nn.Embed(dtype=)``.
+    A table sharded on the feature dim (``tp_group``) gathers the lookup.
+
+    A table of at most ``ONE_HOT_ROWS`` rows (the 4 marks, the 71 AST
+    tokens) is looked up as the product of the ids' one-hot rows with it:
+    each of its rows repeats thousands of times in a batch, and on the
+    H100 the embedding kernel's backward gave these tables gradients whose
+    last bits changed from run to run, while an index's backward (the
+    sorted ``index_put_``) adds a row's repeats one after another and
+    doubled the training step (``PERF.md``). The product's forward is
+    exact (one nonzero term a sum); its backward is a matrix product."""
+    weight = table.weight.to(dtype)
+    if weight.shape[0] <= ONE_HOT_ROWS:
+        rows = torch.arange(weight.shape[0], device=ids.device)
+        out = (ids[..., None] == rows).to(dtype) @ weight
+    else:
+        out = F.embedding(ids, weight)
+    group = getattr(table, "tp_group", None)
+    if group is None:
+        return out
+    from fira_tpu_torch.parallel.mesh import gather_from
+
+    return gather_from(out, group, -1)
 
 
 def _embed_padded(table: nn.Embedding, ids, dtype):
@@ -138,21 +176,22 @@ class Encoder(nn.Module):
     once a forward and reused by every round."""
 
     def __init__(self, cfg: FiraConfig, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         d = cfg.embedding_dim
         rdt = _residual_dtype(cfg, dtype)
-        self.word_embed = embedding(cfg.vocab_size, d, device)
-        self.mark_embed = embedding(4, d, device)
-        self.ast_change_embed = embedding(cfg.ast_change_vocab_size, d, device)
+        self.word_embed = embedding(cfg.vocab_size, d, device, mesh)
+        self.mark_embed = embedding(4, d, device, mesh)
+        self.ast_change_embed = embedding(cfg.ast_change_vocab_size, d,
+                                          device, mesh)
         for i in range(cfg.num_layers):
             self.add_module(f"combination_{i}", Combination(
                 cfg.num_head, d, cfg.dropout_rate, device=device,
-                dtype=dtype, residual_dtype=rdt))
+                dtype=dtype, residual_dtype=rdt, mesh=mesh))
             self.add_module(f"gcn_{i}", GCN(
                 d, cfg.gcn_dropout_rate, device=device, dtype=dtype,
-                residual_dtype=rdt))
+                residual_dtype=rdt, mesh=mesh))
         self.register_buffer(
             "pos", torch.from_numpy(position_encoding(cfg.sou_len, d)).to(
                 device=device, dtype=dtype), persistent=False)
@@ -197,21 +236,25 @@ class Decoder(nn.Module):
     ``decode_step`` are the cached path with the same parameters."""
 
     def __init__(self, cfg: FiraConfig, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None, ring=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         d, h = cfg.embedding_dim, cfg.num_head
         rdt = _residual_dtype(cfg, dtype)
         # no padding_idx on the decoder embedding (gnn_transformer.py:93-94)
-        self.embed = embedding(cfg.vocab_size, d, device)
+        self.embed = embedding(cfg.vocab_size, d, device, mesh)
         for i in range(cfg.num_layers):
             for kind in ("self_attn", "cross_attn"):
+                # only cross-attention rides the ring: its key axis
+                # ([diff||sub]) is the long one, and self-attention is
+                # causal
                 self.add_module(f"{kind}_{i}", Attention(
                     h, d, cfg.dropout_rate, device=device, dtype=dtype,
-                    residual_dtype=rdt))
+                    residual_dtype=rdt, mesh=mesh,
+                    ring=ring if kind == "cross_attn" else None))
             self.add_module(f"ffn_{i}", FeedForward(
                 d, cfg.ffn_mult, cfg.dropout_rate, device=device, dtype=dtype,
-                residual_dtype=rdt))
+                residual_dtype=rdt, mesh=mesh))
         self.register_buffer(
             "pos", torch.from_numpy(position_encoding(cfg.tar_len, d)).to(
                 device=device, dtype=dtype), persistent=False)
@@ -352,16 +395,18 @@ class CopyNet(nn.Module):
     stable dtype."""
 
     def __init__(self, d_model: int, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.dtype = dtype
-        self.src_proj = dense(d_model, d_model, bias=False, device=device,
-                              dtype=dtype)
-        self.tgt_proj = dense(d_model, d_model, bias=False, device=device,
-                              dtype=dtype)
+        kw = dict(bias=False, device=device, dtype=dtype, mesh=mesh,
+                  parallel="column")
+        self.src_proj = dense(d_model, d_model, **kw)
+        self.tgt_proj = dense(d_model, d_model, **kw)
         self.score = dense(d_model, 1, device=device, dtype=dtype)
         self.gate = dense(d_model, 2, device=device, dtype=dtype)
         self.score_fn = copy_score.copy_scores
+        # the model axis' group when src/tgt hold feature shards
+        self.tp_group = self.src_proj.tp_group
 
     def project_src(self, source):
         """(B,S,D) source projection — constant per batch."""
@@ -371,8 +416,16 @@ class CopyNet(nn.Module):
         """Pointer scores (B,T,S) + gate (B,T,2) from a pre-projected source."""
         tgt = self.tgt_proj(target)
         dt = self.dtype
-        scores = self.score_fn(src, tgt, self.score.weight.t().to(dt),
-                               self.score.bias.to(dt))
+        w, bias = self.score.weight.t().to(dt), self.score.bias.to(dt)
+        if self.tp_group is None:
+            scores = self.score_fn(src, tgt, w, bias)
+        else:
+            from fira_tpu_torch.parallel import mesh as pmesh
+
+            g = self.tp_group
+            part = self.score_fn(src, tgt, pmesh.scatter_to(w, g, 0),
+                                 torch.zeros_like(bias))
+            scores = pmesh.reduce_from(part, g) + bias
         gate = self.gate(target)
         return scores, torch.softmax(gate.to(stable_dtype(gate.dtype)), dim=-1)
 
@@ -387,21 +440,34 @@ class FiraModel(nn.Module):
     ``cfg.typed_edges`` it also holds ``edge_gain``, one f32 gain per
     edge family (ones at init: the adjacency is then the untyped one)."""
 
-    def __init__(self, cfg: FiraConfig, device=None, dtype=None):
+    def __init__(self, cfg: FiraConfig, device=None, dtype=None, mesh=None):
         super().__init__()
         errs = unsupported(cfg)
         if errs:
             raise ValueError("config selects paths the port does not run: "
                              + "; ".join(errs))
+        ring = None
+        if cfg.seq_shards > 1:
+            from fira_tpu_torch.parallel.mesh import seq_shards_errors
+
+            errs = seq_shards_errors(cfg, mesh.world if mesh else 1,
+                                     mesh.n_model if mesh else 1)
+            if errs:
+                raise ValueError("; ".join(errs))
+            if mesh.seq_shards != cfg.seq_shards:
+                raise ValueError(f"seq_shards={cfg.seq_shards}: the mesh was "
+                                 f"bound for seq_shards={mesh.seq_shards}")
+            ring = mesh
         dtype = dtype or cfg.compute_dtype
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self.cfg, self.dtype = cfg, dtype
-        self.encoder = Encoder(cfg, device, dtype)
-        self.decoder = Decoder(cfg, device, dtype)
-        self.copy_net = CopyNet(cfg.embedding_dim, device, dtype)
+        self.encoder = Encoder(cfg, device, dtype, mesh)
+        self.decoder = Decoder(cfg, device, dtype, mesh, ring)
+        self.copy_net = CopyNet(cfg.embedding_dim, device, dtype, mesh)
         self.out_fc = dense(cfg.embedding_dim, cfg.vocab_size, device=device,
-                            dtype=dtype)
+                            dtype=dtype, mesh=mesh, parallel="row",
+                            scatter_input=True)
         if cfg.typed_edges:
             self.edge_gain = nn.Parameter(torch.ones(
                 N_EDGE_KINDS, dtype=torch.float32, device=device))

@@ -42,6 +42,19 @@ watchdog (robust/watchdog.py), as the JAX loop's does: a gate that
 outlives it is abandoned (its cancel event set, which ``run_dev`` polls a
 batch) and skipped with a recorded warning, and training goes on without
 that gate's checkpoint decision.
+
+``train(..., mesh=...)`` trains over a (data, model) mesh
+(``parallel/mesh.py``). ``mesh.layout_errors`` raises ValueError before
+anything is built. An unbound mesh of one rank joins a one-rank process
+group in this process; one of more ranks spawns them (``RankPool``), each
+running this loop on its device with its rows of every batch, and returns
+rank 0's result with the whole state gathered onto ``mesh.devices[0]``.
+Under a mesh the log lines, checkpoints and the dev gate come from rank 0:
+rank 0 decodes on the gathered weights (on the training model itself when
+it is whole, with dense attention otherwise: a ring needs every rank in
+step), the others wait for the gate's decision, which rank 0 broadcasts,
+and commits/s is divided by the ranks, as the JAX loop divides by its
+chips.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from fira_tpu_torch.data import buckets as buckets_lib
 from fira_tpu_torch.data import grouping
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder
+from fira_tpu_torch.parallel.mesh import feed_shardings
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
 from fira_tpu_torch.eval.dev_bleu import nltk_sentence_bleu
@@ -71,25 +85,32 @@ from fira_tpu_torch.train.state import (CheckpointManager, TrainState,
 
 @dataclasses.dataclass
 class TrainLog:
-    """Per-gate and per-interval console/file logging (run_model.py:92,114)."""
+    """Per-gate and per-interval console/file logging (run_model.py:92,114).
+    Silent where ``writes`` is False (a mesh rank other than 0)."""
 
     out_dir: str
+    writes: bool = True
 
     def __post_init__(self):
-        os.makedirs(self.out_dir, exist_ok=True)
+        if self.writes:
+            os.makedirs(self.out_dir, exist_ok=True)
 
     def gate(self, epoch: int, batch: int, bleu: float, better: bool) -> None:
+        if not self.writes:
+            return
         line = (f"epoch: {epoch} batch: {batch} dev bleu: {bleu} "
                 f"is better: {better}\n")
         with open(os.path.join(self.out_dir, "train_process"), "a") as f:
             f.write(line)
 
     def dev_output(self, text: str) -> None:
-        with open(os.path.join(self.out_dir, "dev_output"), "w") as f:
-            f.write(text)
+        if self.writes:
+            with open(os.path.join(self.out_dir, "dev_output"), "w") as f:
+                f.write(text)
 
     def console(self, msg: str) -> None:
-        print(msg, flush=True)
+        if self.writes:
+            print(msg, flush=True)
 
 
 def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
@@ -198,8 +219,70 @@ class _Meter:
         self.last = now
 
 
+def _cpu(x):
+    """Tensors of a nested state (dicts, lists) moved to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_cpu(v) for v in x]
+    return x
+
+
+def train_rank(mesh, dataset: FiraDataset, cfg: FiraConfig,
+               kw: Dict) -> Optional[Dict]:
+    """One spawned rank of a mesh run (``RankPool``): :func:`train` on the
+    bound ``mesh``, then the state gathered; rank 0 returns the result's
+    fields and the whole state on the CPU."""
+    from fira_tpu_torch.train.state import full_state
+
+    result = train(dataset, cfg, mesh=mesh, **kw)
+    full = full_state(result.state, mesh)
+    if mesh.rank != 0:
+        return None
+    out = {f.name: getattr(result, f.name)
+           for f in dataclasses.fields(result) if f.name != "state"}
+    out.update(_cpu(full), generator=result.state.generator.get_state(),
+               step=result.state.step)
+    return out
+
+
+def _launch(dataset: FiraDataset, cfg: FiraConfig, mesh, kw: Dict
+            ) -> TrainResult:
+    """Run :func:`train` on the ranks of an unbound ``mesh``: in this
+    process for one rank, else spawned (a ``FileStore`` under the run's
+    ``out_dir``), rank 0's state rebuilt on ``mesh.devices[0]``."""
+    import torch.distributed as dist
+
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.parallel.mesh import RankPool, init_single
+    from fira_tpu_torch.train.state import make_optimizer
+
+    store_dir = os.path.join(kw["out_dir"], ".mesh")
+    if mesh.world == 1:
+        bound = init_single(mesh, store_dir)
+        try:
+            return train(dataset, cfg, mesh=bound, **kw)
+        finally:
+            dist.destroy_process_group()
+    with RankPool(mesh, store_dir) as pool:
+        res = pool.run(train_rank, dataset, cfg, kw)[0]
+    dev = torch.device(mesh.devices[0])
+    model = FiraModel(cfg.replace(seq_shards=0), device=dev)
+    model.load_state_dict(res.pop("model"))
+    optimizer = make_optimizer(model, cfg)
+    optimizer.load_state_dict(res.pop("optimizer"))
+    gen = torch.Generator(device=dev)
+    gen.set_state(res.pop("generator"))
+    state = TrainState(model=model, optimizer=optimizer, generator=gen,
+                       step=res.pop("step"))
+    return TrainResult(state=state, **res)
+
+
 def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
           device="cuda",
+          mesh=None,
           out_dir: str = "OUTPUT",
           ckpt_dir: Optional[str] = None,
           epochs: Optional[int] = None,
@@ -209,7 +292,8 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
     """Full training run on ``device`` (``cuda`` by default, which raises
     without a card; ``cpu`` on request). ``state``: a prepared
     ``TrainState`` to train (default: ``init_state(cfg, device)``, the
-    model at ``cfg.compute_dtype``)."""
+    model at ``cfg.compute_dtype``). ``mesh``: a ``parallel.mesh.Mesh``
+    (``make_mesh``) to train over, on its own devices (module docstring)."""
     from fira_tpu_torch.cli import resolve_device
 
     cfg = cfg or dataset.cfg   # dataset.cfg has the vocabulary sizes
@@ -218,13 +302,32 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         raise ValueError("fused_steps and accum_steps are mutually "
                          "exclusive (one stacks steps, one accumulates "
                          "gradients); set at most one > 1")
-    device = resolve_device(device) if isinstance(device, str) else device
-    log = TrainLog(out_dir)
-    if state is None:
-        state = init_state(cfg, device)
-    model, optimizer, gen = state.model, state.optimizer, state.generator
+    if mesh is not None:
+        from fira_tpu_torch.parallel.mesh import ALL, layout_errors
 
-    ckpt = CheckpointManager(ckpt_dir or os.path.join(out_dir, "ckpt"))
+        # before anything is built, as the JAX loop (the CLI runs the same
+        # check at parse time and exits 2)
+        errs = layout_errors(cfg, mesh.n_data, mesh.n_model)
+        if errs:
+            raise ValueError("mesh divisibility: " + "; ".join(errs))
+        if not mesh.bound:
+            if state is not None:
+                raise ValueError("train(mesh=...) builds each rank's state; "
+                                 "a prepared state cannot cross to the ranks")
+            return _launch(dataset, cfg, dataclasses.replace(
+                mesh, seq_shards=cfg.seq_shards), dict(
+                    out_dir=out_dir, ckpt_dir=ckpt_dir, epochs=epochs,
+                    var_maps=var_maps, resume=resume))
+        device = mesh.device
+    device = resolve_device(device) if isinstance(device, str) else device
+    lead = mesh is None or mesh.rank == 0
+    log = TrainLog(out_dir, writes=lead)
+    if state is None:
+        state = init_state(cfg, device, mesh=mesh)
+    model, optimizer, gen = state.model, state.optimizer, state.generator
+    gate_model = None   # rank 0's dense decoder of the gathered weights
+
+    ckpt = CheckpointManager(ckpt_dir or os.path.join(out_dir, "ckpt"), mesh)
     best_bleu, start_epoch = 0.0, 0
     if resume and ckpt.has(CheckpointManager.LATEST):
         meta = ckpt.restore_latest(state)
@@ -279,7 +382,8 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         with Feeder(grouping.grouped_assembly_tasks(
                         train_split, plan, cfg, batch_size=bs),
                     num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
-                    device=device, fields=TRAIN_FIELDS) as feed:
+                    device=device, fields=TRAIN_FIELDS,
+                    sharding=feed_shardings(mesh)) as feed:
             for entry in plan:
                 # real batches in the item: only a group's last chunk can
                 # be partial, and the accum tail's pad micro-batches are
@@ -291,27 +395,58 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                     meter.pause()   # dev time is not train time
                     t0 = time.perf_counter()
                     gate_cancel = threading.Event()
-                    try:
-                        bleu, text, n_batches = run_with_watchdog(
-                            lambda: run_dev(model, dataset, cfg, var_maps,
-                                            plan=eval_plan,
-                                            cancel=gate_cancel.is_set),
-                            float(cfg.dispatch_watchdog_s),
-                            label=f"dev_gate[e{epoch}b{idx}]",
-                            cancel_event=gate_cancel)
-                    except WatchdogTimeout as e:
-                        w = (f"dev gate at epoch {epoch} batch {idx} "
-                             f"skipped: {e}; training continues without "
-                             f"this gate's checkpoint decision")
-                        log.console(f"WARNING: {w}")
-                        warnings.append(w)
-                    else:
+                    # rank 0 decodes; under a mesh the others wait for its
+                    # decision: (ran, bleu, dev batches)
+                    decision = None
+                    eval_model = model
+                    if mesh is not None and (mesh.n_model > 1
+                                             or cfg.seq_shards > 1):
+                        from fira_tpu_torch.parallel.mesh import gather_state
+
+                        whole = gather_state(model.state_dict(), mesh)
+                        if lead:
+                            if gate_model is None:
+                                from fira_tpu_torch.model.model import (
+                                    FiraModel)
+
+                                gate_model = FiraModel(
+                                    cfg.replace(seq_shards=0), device=device)
+                            gate_model.load_state_dict(whole)
+                            eval_model = gate_model
+                    if lead:
+                        try:
+                            bleu, text, n_batches = run_with_watchdog(
+                                lambda: run_dev(eval_model, dataset, cfg,
+                                                var_maps, plan=eval_plan,
+                                                cancel=gate_cancel.is_set),
+                                float(cfg.dispatch_watchdog_s),
+                                label=f"dev_gate[e{epoch}b{idx}]",
+                                cancel_event=gate_cancel)
+                        except WatchdogTimeout as e:
+                            w = (f"dev gate at epoch {epoch} batch {idx} "
+                                 f"skipped: {e}; training continues without "
+                                 f"this gate's checkpoint decision")
+                            log.console(f"WARNING: {w}")
+                            warnings.append(w)
+                        else:
+                            decision = (bleu, n_batches)
+                    if mesh is not None:
+                        from fira_tpu_torch.parallel.mesh import broadcast_
+
+                        sent = torch.tensor(
+                            [decision is not None] + list(decision or (0, 0)),
+                            dtype=torch.float64, device=device)
+                        broadcast_(sent, mesh.group(ALL), 0)
+                        if sent[0].item():
+                            decision = (sent[1].item(), int(sent[2].item()))
+                    if decision is not None:
+                        bleu, n_batches = decision
                         better = bleu > best_bleu
                         log.gate(epoch, idx, bleu, better)
                         if better:
                             best_bleu = bleu
                             ckpt.save_best(model)
-                            log.dev_output(text)
+                            log.dev_output(text if lead else "")
                         gates += 1
                         dev_batches += n_batches
                     dev_seconds += time.perf_counter() - t0
@@ -323,13 +458,13 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                 pending["feed_s"] += item.stall_s
                 if entry.pad_to == 1:
                     loss = step_lib.train_step(model, optimizer, item.device,
-                                               gen)[None]
+                                               gen, mesh)[None]
                 elif accum > 1:
                     loss = step_lib.accum_step(model, optimizer, item.device,
-                                               gen)[None]
+                                               gen, mesh)[None]
                 else:
                     loss = step_lib.multi_step(model, optimizer, item.device,
-                                               gen)
+                                               gen, mesh)
                 n_steps = len(loss)
                 state.step += n_steps
                 steps += n_steps
@@ -357,7 +492,9 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         meter.start()   # the checkpoint write is not train time
 
     secs = meter.seconds
-    cps = meter.commits / secs if secs else 0.0
+    # commits of the global batch, over the ranks (the JAX loop's chips)
+    cps = (meter.commits / secs / (1 if mesh is None else mesh.world)
+           if secs else 0.0)
     n_fed = feed_totals["batches"]
     feeder = {
         "batches": n_fed,

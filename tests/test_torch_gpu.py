@@ -625,3 +625,35 @@ def test_spec_on_the_card_writes_the_plain_engine_bits(cuda, tmp_path, tier):
     for p in want:
         np.testing.assert_array_equal(got[p][0], want[p][0])
         assert got[p][1].tobytes() == want[p][1].tobytes(), p
+
+
+@pytest.mark.gpu
+def test_training_gradients_are_reproducible(cuda, tmp_path):
+    """Two backward passes of one batch give bitwise equal gradients on
+    the card. The small tables are looked up by a one-hot product
+    (model._embed): the embedding kernel's backward gave the mark and AST
+    tables (many repeats of few ids) gradients whose last bits changed
+    from run to run."""
+    from fira_tpu_torch.config import fira_tiny
+    from fira_tpu_torch.data import synthetic
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
+    from fira_tpu_torch.train.state import init_state
+    from fira_tpu_torch.train.step import loss_fn
+
+    synthetic.write_corpus_dir(str(tmp_path), n_commits=80, seed=1)
+    ds = FiraDataset(str(tmp_path), fira_tiny(batch_size=64))
+    host = make_batch(ds.splits["train"], np.arange(64), ds.cfg,
+                      batch_size=64)
+    batch = batch_to_device(host, cuda, TRAIN_FIELDS)
+    model = init_state(ds.cfg, cuda).model.train()
+    runs = []
+    for _ in range(3):
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch, torch.Generator(device=cuda).manual_seed(0)
+                ).backward()
+        runs.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    for other in runs[1:]:
+        for k, g in runs[0].items():
+            assert torch.equal(g, other[k]), k

@@ -1,6 +1,8 @@
 """Importing every module of the port pulls in no JAX, flax, orbax and
 nothing of the JAX package ``fira_tpu``. Checked in a fresh interpreter:
-this test process has imported ``fira_tpu`` already (tests/conftest.py)."""
+this test process has imported ``fira_tpu`` already (tests/conftest.py).
+The JAX package's static analyzer (``fira_tpu.analysis.cli check``) finds
+no error in the port."""
 
 import os
 import subprocess
@@ -32,7 +34,9 @@ REQUIRED = ("fira_tpu_torch.robust.faults", "fira_tpu_torch.robust.watchdog",
             "fira_tpu_torch.parallel.fleet",
             "fira_tpu_torch.robust.recovery", "fira_tpu_torch.cli",
             "fira_tpu_torch.decode.quant", "fira_tpu_torch.decode.spec",
-            "fira_tpu_torch.serve.disagg")
+            "fira_tpu_torch.serve.disagg", "fira_tpu_torch.parallel.mesh",
+            "fira_tpu_torch.parallel.ring", "fira_tpu_torch.parallel.jobs",
+            "fira_tpu_torch.model.ablate_embed")
 
 
 def test_port_imports_no_jax_and_nothing_of_fira_tpu():
@@ -43,3 +47,15 @@ def test_port_imports_no_jax_and_nothing_of_fira_tpu():
     assert int(n_modules) >= 20          # the walk found the whole package
     assert bad == "", f"the port imported {bad}"
     assert not set(REQUIRED) - set(names.split(","))
+
+
+def test_analyzer_finds_no_error_in_the_port():
+    proc = subprocess.run(
+        [sys.executable, "-m", "fira_tpu.analysis.cli", "check",
+         "fira_tpu_torch"], cwd=REPO_ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    summary = [line for line in (proc.stdout + proc.stderr).splitlines()
+               if line.startswith("firacheck:")]
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert summary and summary[-1].startswith("firacheck: 0 error(s)"), \
+        proc.stdout
