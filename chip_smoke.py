@@ -212,7 +212,19 @@ Phases, each printing its own line; any failure exits non-zero:
             (replicated parameters bit-identical across the ranks); ring
             attention at
             ``seq_shards=2`` on the two ranks against dense; out_fc's
-            all-reduce timed; ``cli train --mesh 2x1`` exits 2.
+            all-reduce timed; ``cli train --mesh 2x1`` exits 2;
+25. tooling ``cli train --config fira-full --synthetic 200 --epochs 16
+            --sanitize --profile-dir P`` in a child process (fira-full
+            gates from epoch 15; an epoch is one step): exit 0 with no
+            signature change after warmup, K1 once a step and a dev
+            batch, K2 once a step; the trace's 10 ``train_step#N`` ranges
+            (steps 2-11) and K1's and K2's kernels in it, their times
+            beside phase 4's; a NaN copy-head score weight through
+            ``train.loop.train`` under ``sanitizer.sanitize()`` raises
+            FloatingPointError naming the module; ``cli test --sanitize``
+            (a child) and ``--copy-head pallas`` write the plain ``cli
+            test`` bytes with its K1 launches; one full-width step plain
+            and sanitized in turns (the sanitizer's cost).
 
 The last three lines are the kernels' JSON record, nvidia-smi's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -4509,6 +4521,239 @@ def phase_mesh(torch, ctx, run32: dict) -> dict:
     return dict(full=counts, **rank_counts)
 
 
+TOOL_COMMITS = 200   # cli train --synthetic: a train split of 165 commits
+#                      (one step of 170 an epoch) and 18 dev commits (one
+#                      dev batch)
+TOOL_EPOCHS = 16     # fira-full gates from epoch 15: steps 0-15, one gate
+TOOL_WINDOW = 10     # --profile-dir's steps 2-11 (train.loop profile_steps)
+TOOL_TURNS = 3       # the sanitizer's cost: plain and sanitized steps in turns
+
+# a child process running the CLI (``--sanitize`` arms the process it runs
+# in for its lifetime), printing its K1 and K2 launches on its last line
+CLI_COUNTED = (
+    "import sys\n"
+    "from fira_tpu_torch import cli\n"
+    "from fira_tpu_torch.ops import copy_score as cs\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print(f'launches {cs.copy_scores.launches} "
+    "{cs.copy_scores_backward.launches}', flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def cli_counted(ctx, args: list, timeout: int = 600) -> tuple:
+    """``cli.main(args)`` in a child process: (exit code, stdout, stderr,
+    K1 launches, K2 launches), the launches counted in the child."""
+    import subprocess
+
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTED, *args],
+                          cwd=ctx["root"], capture_output=True, text=True,
+                          timeout=timeout)
+    m = re.search(r"^launches (\d+) (\d+)$", proc.stdout, re.M)
+    check(proc.returncode == 0 and m is not None,
+          f"cli {' '.join(args)} (child): exit {proc.returncode}, stdout "
+          f"{proc.stdout[-1500:]!r}, stderr {proc.stderr[-3000:]}")
+    return (proc.returncode, proc.stdout, proc.stderr, int(m.group(1)),
+            int(m.group(2)))
+
+
+def trace_window(log_dir: str) -> dict:
+    """The one ``*.pt.trace.json`` under ``log_dir``: its ``train_step#N``
+    ranges (host side), and K1's and K2's kernels on the device, launches
+    and summed time (K2: its main kernel's launches, both kernels' time),
+    beside every kernel's."""
+    import glob
+
+    paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    check(len(paths) == 1, f"traces under {log_dir}: {paths}")
+    size = os.path.getsize(paths[0])
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted((e["name"] for e in events
+                    if e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("train_step#")),
+                   key=lambda n: int(n.split("#")[1]))
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "copy_score_tile" in e["name"]
+          or "copy_score_row" in e["name"]]
+    k2 = [e for e in kern if "copy_score_bwd" in e["name"]]
+    return dict(steps=steps, bytes=size, events=len(events),
+                kernels=len(kern),
+                kernel_us=sum(float(e.get("dur", 0)) for e in kern),
+                k1=len(k1), k1_us=sum(float(e.get("dur", 0)) for e in k1),
+                k2=sum("copy_score_bwd_kernel" in e["name"] for e in k2),
+                k2_us=sum(float(e.get("dur", 0)) for e in k2))
+
+
+def phase_tooling(torch, ctx, fwd32: dict, bwd32: dict) -> dict:
+    """The tooling, f32. ``cli train --config fira-full --synthetic 200
+    --epochs 16 --sanitize --profile-dir P`` in a child process (the CLI
+    arms the sanitizer for the process's lifetime): exit 0 with no
+    signature change after warmup (its guard's summary line), K2 once a
+    step and K1 once a step and once a dev batch; its trace holds the
+    window's 10 ``train_step#N`` ranges and K1's and K2's kernels, once a
+    step each (no gate falls in it), their summed times beside phase 4's.
+    Then, in this process under ``sanitizer.sanitize()``, ``train.loop
+    .train`` from weights whose copy-head score weight is NaN must raise
+    FloatingPointError naming a module, after one K1 launch. ``cli test
+    --sanitize`` (a child) and ``cli test --copy-head pallas`` must write
+    the plain ``cli test``'s bytes with K1's launches, equal in the three.
+    The sanitizer's cost: one full-width training step plain and
+    sanitized, in turns. Returns the phase's K1 and K2 launches."""
+    from fira_tpu_torch.analysis import sanitizer
+    from fira_tpu_torch.config import fira_full
+    from fira_tpu_torch.data.batching import make_batch
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
+    from fira_tpu_torch.train import loop as train_loop
+    from fira_tpu_torch.train.state import init_state
+    from fira_tpu_torch.train.step import train_step
+
+    cs, work = ctx["cs"], os.path.join(ctx["work"], "tooling")
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(work, "DataSet")
+    out_dir, prof_dir = os.path.join(work, "train"), os.path.join(work, "trace")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    t0 = time.perf_counter()
+    rc, out, err, k1, k2 = cli_counted(ctx, [
+        "train", "--config", "fira-full", "--synthetic", str(TOOL_COMMITS),
+        "--data-dir", data_dir, "--out-dir", out_dir, "--epochs",
+        str(TOOL_EPOCHS), "--dtype", "float32", "--sanitize",
+        "--profile-dir", prof_dir])
+    wall = time.perf_counter() - t0
+    tds = FiraDataset(data_dir, fira_full())
+    n_train, n_valid = len(tds.splits["train"]), len(tds.splits["valid"])
+    c = tds.cfg
+    steps = TOOL_EPOCHS * math.ceil(n_train / c.batch_size)
+    with open(os.path.join(out_dir, "train_process")) as f:
+        gates = len(f.read().splitlines())
+    dev_batches = gates * math.ceil(n_valid / c.test_batch_size)
+    summary = [ln for ln in out.splitlines() if ln.startswith("sanitizer:")]
+    check(gates == 1, f"tooling: {gates} dev gates, expected 1")
+    check(len(summary) == 1 and summary[0].endswith(
+        " 0 signature changes after warmup"),
+          f"tooling: the guard's summary {summary}")
+    check(f"profile trace written to {prof_dir}" in out,
+          f"tooling: no trace line in {out[-2000:]}")
+    check(k2 == steps and k1 == steps + dev_batches,
+          f"tooling: K1 {k1} / K2 {k2} launches, expected {steps} steps + "
+          f"{dev_batches} dev batches / {steps}")
+    print(f"[tooling] cli train --config fira-full --synthetic "
+          f"{TOOL_COMMITS} --epochs {TOOL_EPOCHS} --sanitize --profile-dir "
+          f"(a child process, f32; {n_train} train commits, vocabularies "
+          f"{c.vocab_size}/{c.ast_change_vocab_size}, the synthetic "
+          f"corpus's own): exit 0 in {wall:.2f} s wall incl. the child's "
+          f"start, {steps} steps, {gates} gate of {dev_batches} dev batch; "
+          f"launches K1 {k1} (expected {steps} + {dev_batches}), K2 {k2} "
+          f"(expected {steps}); {summary[0]}", flush=True)
+    tw = trace_window(prof_dir)
+    want = [f"train_step#{i}" for i in range(2, 2 + TOOL_WINDOW)]
+    check(tw["steps"] == want, f"tooling: trace ranges {tw['steps']}")
+    check(tw["k1"] == TOOL_WINDOW and tw["k2"] == TOOL_WINDOW,
+          f"tooling: the trace holds K1 x{tw['k1']}, K2 x{tw['k2']}, "
+          f"expected {TOOL_WINDOW} each (a step each, no gate in the window)")
+    print(f"[tooling] the trace ({tw['bytes'] / 2**20:.1f} MiB, "
+          f"{tw['events']} events): {len(tw['steps'])} train_step ranges "
+          f"({tw['steps'][0]}..{tw['steps'][-1]}); {tw['kernels']} kernels, "
+          f"{tw['kernel_us'] / 1e3:.3f} ms device time; K1 x{tw['k1']} "
+          f"{tw['k1_us'] / 1e3:.4f} ms ({tw['k1_us'] / 1e3 / tw['k1']:.4f} "
+          f"ms a launch; phase 4 at (170,30,370,256) f32, L2 flushed: "
+          f"{fwd32['train_ms']:.4f} ms), K2 x{tw['k2']} "
+          f"{tw['k2_us'] / 1e3:.4f} ms both kernels "
+          f"({tw['k2_us'] / 1e3 / tw['k2']:.4f} ms a launch; phase 4: "
+          f"{bwd32['ms']:.4f} ms); the kernels' shapes in this run: "
+          f"(170,30,370,256) with the synthetic vocabularies", flush=True)
+
+    # NaN injection through train.loop.train under sanitize()
+    state = init_state(c, "cuda")
+    with torch.no_grad():
+        state.model.copy_net.score.weight.fill_(float("nan"))
+    cs.copy_scores.launches = cs.copy_scores_backward.launches = 0
+    raised = None
+    with sanitizer.sanitize() as guard:
+        try:
+            train_loop.train(tds, c, device="cuda", state=state, epochs=1,
+                             out_dir=os.path.join(work, "nan"),
+                             resume=False, guard=guard)
+        except FloatingPointError as e:
+            raised = str(e)
+    torch.cuda.synchronize()
+    nan_k1, nan_k2 = cs.copy_scores.launches, cs.copy_scores_backward.launches
+    check(raised is not None and "module 'FiraModel." in raised,
+          f"tooling: a NaN score weight raised {raised!r}")
+    check(nan_k1 == 1 and nan_k2 == 0,
+          f"tooling: NaN run launched K1 {nan_k1}, K2 {nan_k2}")
+    check(sanitizer.nan_check() is None and not torch.is_anomaly_enabled(),
+          "tooling: sanitize() left its checks armed")
+    print(f"[tooling] train.loop.train under sanitizer.sanitize() with "
+          f"copy_net.score.weight NaN: FloatingPointError after K1 x{nan_k1}: "
+          f"{raised}", flush=True)
+    del state
+
+    # cli test: plain, --copy-head pallas, --sanitize (a child)
+    base = ["test", "--config", "fira-full", "--data-dir", data_dir,
+            "--ckpt-dir", ckpt_dir, "--out-dir"]
+    got = {}
+    for name, extra in (("plain", []), ("pallas", ["--copy-head", "pallas"])):
+        o = os.path.join(work, f"test_{name}")
+        rc, tout, terr, tk1 = run_cli(torch, ctx, base + [o] + extra)
+        check(rc == 0, f"tooling: cli test {extra} exited {rc}: "
+              f"{terr[-2000:]}")
+        with open(os.path.join(o, "output_fira"), "rb") as f:
+            got[name] = (f.read(), tk1)
+    o = os.path.join(work, "test_sanitize")
+    rc, tout, terr, tk1, _ = cli_counted(ctx, base + [o, "--sanitize"])
+    with open(os.path.join(o, "output_fira"), "rb") as f:
+        got["sanitize"] = (f.read(), tk1)
+    tsum = [ln for ln in tout.splitlines() if ln.startswith("sanitizer:")]
+    check(len(tsum) == 1 and tsum[0].endswith(
+        " 0 signature changes after warmup"), f"tooling: test {tsum}")
+    plain, plain_k1 = got["plain"]
+    for name, (b, n) in got.items():
+        check(b == plain, f"tooling: cli test ({name}) bytes differ from "
+              f"the plain cli test's")
+        check(n == plain_k1 and n > 0,
+              f"tooling: cli test ({name}) launched K1 {n}, plain {plain_k1}")
+    print(f"[tooling] cli test plain, --copy-head pallas and --sanitize (a "
+          f"child) on that checkpoint ({len(tds.splits['test'])} commits): "
+          f"the same output_fira bytes ({len(plain)} bytes), K1 "
+          f"x{plain_k1} each; {tsum[0]}", flush=True)
+
+    # the sanitizer's cost: one full-width training step, plain and
+    # sanitized, in turns
+    ds, cfg = ctx["ds"], ctx["cfg"]
+    state = init_state(cfg, "cuda")
+    host = make_batch(ds.splits["train"], list(range(cfg.batch_size)), cfg,
+                      batch_size=cfg.batch_size)
+    batch = batch_to_device(host, torch.device("cuda"), TRAIN_FIELDS)
+
+    def one() -> float:
+        t = time.perf_counter()
+        train_step(state.model, state.optimizer, batch, state.generator)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    one()
+    with sanitizer.sanitize():
+        one()
+    ms = {"plain": [], "sanitized": []}
+    for _ in range(TOOL_TURNS):
+        ms["plain"].append(one())
+        with sanitizer.sanitize():
+            ms["sanitized"].append(one())
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    print(f"[tooling] one fira-full training step (batch {cfg.batch_size}, "
+          f"f32, the paper's vocabularies) on {ctx['kind']}, {TOOL_TURNS} "
+          f"turns, host wall to a sync: plain "
+          + " ".join(f"{x:.1f}" for x in ms["plain"]) + " ms, sanitized "
+          + " ".join(f"{x:.1f}" for x in ms["sanitized"])
+          + f" ms; medians {med['plain']:.1f} / {med['sanitized']:.1f} ms "
+          f"= x{med['sanitized'] / med['plain']:.2f}", flush=True)
+    del state, batch
+    print(f"[tooling] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(k1=k1 + nan_k1 + sum(n for _, n in got.values()), k2=k2)
+
+
 def main() -> int:
     import torch
 
@@ -4708,6 +4953,10 @@ def main() -> int:
     # gloo ranks sharing the card in DP and TP, the ring, the refusal ---
     mesh_k = phase_mesh(torch, ctx, run32)
     lap("mesh")
+    # --- the tooling: the sanitized, profiled cli train, its trace, a NaN
+    # parameter, cli test --sanitize and --copy-head pallas ---
+    tool_k = phase_tooling(torch, ctx, fwd32, bwd32)
+    lap("tooling")
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -4734,7 +4983,7 @@ def main() -> int:
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
              + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1
-             + fleet_k1 + tiers_k1 + mesh_k["full"]["k1"],
+             + fleet_k1 + tiers_k1 + mesh_k["full"]["k1"] + tool_k["k1"],
              **fwd,
              **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
@@ -4743,7 +4992,7 @@ def main() -> int:
              + msg_k1["bfloat16"], **fwd, **fwd16),
         dict(name="copy_score_bwd", dtype="float32",
              launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32))
-             + mesh_k["full"]["k2"],
+             + mesh_k["full"]["k2"] + tool_k["k2"],
              **bwd, **bwd32),
         dict(name="copy_score_bwd_bf16", dtype="bfloat16",
              launches=sum(r["k2"] for r in (run16, tb16, ev16)),

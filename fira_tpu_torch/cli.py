@@ -85,6 +85,20 @@ production knob sets (``config.PRODUCTION_PERF_KNOBS`` and
 beam). A config the port does not run, or a bad knob, exits 2 with the
 knob named.
 
+The tooling: ``--sanitize`` arms the runtime sanitizer
+(analysis/sanitizer.py) for the process: NaN/Inf checks on every module
+output and in the training backward (a hit raises ``FloatingPointError``
+naming the module or backward function), the guard that raises
+``RetraceError`` when a dispatch's input signature drifts after its
+label's first, and the lock-discipline and leak checks. ``train
+--profile-dir D`` writes a ``torch.profiler`` trace of steps 2-11 under D
+(``*.pt.trace.json``). ``--synthetic N`` writes an N-commit synthetic
+corpus into ``--data-dir`` first. ``--copy-head xla|pallas``,
+``--rng-impl threefry|rbg`` and ``--backend torch`` take the JAX
+package's choices: the card launches K1/K2 for either copy head, and the
+rng impl is recorded in ``latest.pt`` (a resume under another is
+refused). ``--sanitize`` and ``--profile-dir`` refuse a spawned mesh.
+
 Example:
     python -m fira_tpu_torch.cli train --config fira-full --data-dir DataSet
     python -m fira_tpu_torch.cli test --config fira-full --data-dir DataSet
@@ -104,6 +118,7 @@ Example:
     python -m fira_tpu_torch.cli test --engine --spec-decode copy --spec-k 4
     python -m fira_tpu_torch.cli test --engine --kv-dtype bf16
     python -m fira_tpu_torch.cli serve --serve-rate 20 --serve-tiers prefill-pool
+    python -m fira_tpu_torch.cli train --synthetic 512 --sanitize --profile-dir P
 """
 
 from __future__ import annotations
@@ -138,6 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("target", nargs="?", default=None,
                    help="message: the unified-diff file to generate a "
                         "commit message for (unused by other commands)")
+    p.add_argument("--backend", default="torch", choices=["torch"],
+                   help="compute backend (this package is the PyTorch/CUDA "
+                        "port; the flag exists for CLI parity with the JAX "
+                        "package's --backend jax)")
     p.add_argument("--config", default="fira-full",
                    help="named config: fira-tiny | fira-full | fira-large")
     p.add_argument("--ablation", default=None,
@@ -154,6 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test-batch-size", type=int, default=None)
     p.add_argument("--no-resume", action="store_true",
                    help="ignore an existing latest checkpoint")
+    p.add_argument("--synthetic", type=int, default=None, metavar="N",
+                   help="generate an N-commit synthetic corpus into "
+                        "--data-dir first (fixture / smoke runs)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--mesh", default=None, metavar="DPxTP",
@@ -212,6 +234,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sort-edges", action="store_true",
                    help="sort each sample's COO edges by (sender, "
                         "receiver) on the host (the same results)")
+    p.add_argument("--copy-head", default=None, choices=["xla", "pallas"],
+                   help="pointer-score impl, the JAX package's choices "
+                        "(recorded as copy_head_impl): either way the card "
+                        "launches the hand-written CUDA kernels (K1 forward, "
+                        "K2 backward) and the CPU runs their plain version")
+    p.add_argument("--rng-impl", default=None, choices=["threefry", "rbg"],
+                   help="dropout PRNG of the JAX package, recorded in the "
+                        "checkpoint (a resume under another one is "
+                        "refused); torch draws dropout from its own "
+                        "generator either way")
+    p.add_argument("--profile-dir", default=None,
+                   help="train: write a torch.profiler trace of a "
+                        "steady-state step window (steps 2-11) here: "
+                        "*.pt.trace.json, for chrome://tracing, Perfetto or "
+                        "TensorBoard")
+    p.add_argument("--sanitize", action="store_true",
+                   help="arm the runtime sanitizer (analysis.sanitizer): "
+                        "NaN/Inf checks on every module output and in the "
+                        "training backward, a guard that raises if a "
+                        "program's input signature changes after its "
+                        "warmup dispatch, and the lock-discipline and leak "
+                        "checks. Debugging mode: each check syncs, so "
+                        "throughput numbers are not meaningful")
     p.add_argument("--engine", action="store_true",
                    help="test: decode through the slot-refill engine "
                         "(decode/engine.py): settled slots are harvested "
@@ -564,6 +609,10 @@ def resolve_config(args):
         cfg = cfg.replace(compute_dtype=args.dtype)
     if args.feeder_workers is not None:
         cfg = cfg.replace(feeder_workers=args.feeder_workers)
+    if args.copy_head:
+        cfg = cfg.replace(copy_head_impl=args.copy_head)
+    if args.rng_impl is not None:
+        cfg = cfg.replace(rng_impl=args.rng_impl)
     if args.fused_steps is not None:
         cfg = cfg.replace(fused_steps=args.fused_steps)
     if args.accum_steps is not None:
@@ -664,6 +713,13 @@ def serve_input_errors(args, cfg) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
+    if args.synthetic:
+        from fira_tpu_torch.data.synthetic import write_corpus_dir
+
+        os.makedirs(args.data_dir, exist_ok=True)
+        write_corpus_dir(args.data_dir, n_commits=args.synthetic)
+        print(f"synthetic corpus: {args.synthetic} commits -> {args.data_dir}")
+
     if args.command == "preprocess":
         # host work only: no config, no device
         from fira_tpu_torch.preprocess.pipeline import main as preprocess
@@ -731,9 +787,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         if isinstance(mesh, str):
             print(f"fira_tpu_torch: config error: {mesh}", file=sys.stderr)
             return 2
+        if mesh is not None and mesh.world > 1 and (args.sanitize
+                                                    or args.profile_dir):
+            from fira_tpu_torch.train.loop import mesh_tooling_error
+
+            print(f"fira_tpu_torch: config error: {mesh_tooling_error()}",
+                  file=sys.stderr)
+            return 2
     device = resolve_device(args.device)
     suffix = f"_{args.ablation}" if args.ablation else ""
     ckpt_dir = args.ckpt_dir or os.path.join(args.out_dir, f"ckpt{suffix}")
+    # --sanitize: process-lifetime arming is right here and only here, the
+    # process ending with the run (library callers use the restoring
+    # sanitizer.sanitize() context manager)
+    from fira_tpu_torch.analysis import sanitizer
+
+    guard = sanitizer.arm(args.sanitize)
 
     def load_data():
         """The corpus, and the config with its vocabulary sizes and
@@ -777,11 +846,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                        out_dir=args.out_dir, ckpt_dir=ckpt_dir,
                        epochs=args.epochs,
                        var_maps=_load_var_maps(args.data_dir),
-                       resume=not args.no_resume)
+                       resume=not args.no_resume,
+                       profile_dir=args.profile_dir, guard=guard)
         print(f"best dev bleu: {result.best_bleu:.4f}  "
               f"throughput: {result.commits_per_sec:.1f} "
               f"commits/sec/chip  "
               f"feed_stall_frac: {result.feed_stall_frac:.3f}")
+        if guard is not None:
+            print(guard.summary())
         return 0
 
     ckpt = CheckpointManager(ckpt_dir)
@@ -822,23 +894,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1
         return 0
     if args.command == "serve":
-        return serve(args, model, dataset, cfg)
+        return serve(args, model, dataset, cfg, guard)
     if cfg.decode_tar_buckets and cfg.buckets:
         from fira_tpu_torch.data.buckets import decode_table, geom_tag
 
         print(f"decode table: {', '.join(map(geom_tag, decode_table(cfg)))}")
     metrics = run_test(model, dataset, cfg, out_dir=args.out_dir,
                        ablation=args.ablation,
-                       var_maps=_load_var_maps(args.data_dir))
+                       var_maps=_load_var_maps(args.data_dir), guard=guard)
     print(f"test sentence-bleu: {metrics['sentence_bleu']:.4f} "
           f"({int(metrics['n'])} commits) -> "
           f"{os.path.join(args.out_dir, output_name(args.ablation))}")
     if "engine" in metrics:
         print(f"engine: {json.dumps(metrics['engine'])}")
+    if guard is not None:
+        print(guard.summary())
     return 0
 
 
-def serve(args, model, dataset, cfg) -> int:
+def serve(args, model, dataset, cfg, guard=None) -> int:
     """``cli serve`` after the checkpoint is loaded: the requests (the
     test split, or the ``--diff-trace`` diffs), the arrival times, the
     serving run, the summary lines."""
@@ -871,7 +945,7 @@ def serve(args, model, dataset, cfg) -> int:
                               arrival_times=times, out_dir=args.out_dir,
                               ablation=args.ablation,
                               clock=args.serve_clock,
-                              metrics_path=metrics_path)
+                              metrics_path=metrics_path, guard=guard)
     else:
         from fira_tpu_torch.robust.recovery import ResumeError
 
@@ -884,7 +958,7 @@ def serve(args, model, dataset, cfg) -> int:
                                   clock=args.serve_clock,
                                   metrics_path=metrics_path,
                                   journal_path=journal_path(args),
-                                  resume=args.resume)
+                                  resume=args.resume, guard=guard)
         except ResumeError as e:
             # the journal pins another request stream: exit 2, named
             print(f"parse-time validation: {e}", file=sys.stderr)

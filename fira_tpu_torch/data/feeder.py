@@ -56,6 +56,10 @@ cuts the rank's rows before the copy (axis 1 of a stacked group, axis 0
 of a batch): ``host`` stays the global batch (and ``n_valid`` its count),
 ``device`` holds the rank's rows on its device. The stream is thus
 byte-stable across worker counts and data-axis sizes.
+
+Under the runtime sanitizer (analysis/sanitizer.py), the ordered-ready
+channel is a lock-checked proxy and every pipeline thread is ledgered
+from its start to its join; unarmed, both hooks are one is-None branch.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from fira_tpu_torch.analysis.sanitizer import guard_structures, leak_guard
 from fira_tpu_torch.robust.faults import backoff_s
 
 Batch = Dict[str, Any]
@@ -184,6 +189,10 @@ class Feeder:
         self._n_task_retries = 0
         self._task_s = 0.0
         self._closed = False
+        # resource-lifecycle sanitizer: armed, every pipeline thread is
+        # ledgered at start and retired at join, so a close() that skips
+        # a join is named at teardown (analysis.sanitizer.LeakGuard)
+        self._leaks = leak_guard()
 
         if num_workers == 0:
             self._task_iter: Iterator[Task] = iter(tasks)
@@ -192,6 +201,11 @@ class Feeder:
 
         self._cond = threading.Condition()
         self._ready: Dict[int, FedBatch] = {}
+        # lock-discipline sanitizer: the ordered-ready channel is the one
+        # structure every worker and the consumer mutate; armed, a write
+        # outside ``with self._cond`` raises at the line
+        self._cond, (self._ready,) = guard_structures(
+            self, self._cond, [(self._ready, "_ready")], lock_label="_cond")
         self._error: Optional[BaseException] = None
         self._total: Optional[int] = None   # set when tasks exhaust
         self._stop = threading.Event()
@@ -207,6 +221,8 @@ class Feeder:
         ]
         for t in self._threads:
             t.start()
+            if self._leaks is not None:
+                self._leaks.track_thread(t)
 
     # --- pipeline threads ---
 
@@ -379,6 +395,8 @@ class Feeder:
             self._cond.notify_all()
         for t in self._threads:
             t.join()
+            if self._leaks is not None:
+                self._leaks.note_joined(t)
         self._threads = []
 
     def __enter__(self) -> "Feeder":

@@ -104,6 +104,13 @@ host read of the loop's predicate a frame), with ``STALL_COOLDOWN`` plain
 dispatches after a verify whose drafts all missed. The output does not
 depend on it. The verify's device counters ride back with the harvest's
 done-mask read.
+
+Sanitizer (analysis/sanitizer.py): with a ``guard`` every dispatch is
+stepped under its label (:meth:`SlotEngine.labels`, the JAX package's
+names): a prefill with its batch, the insert, step (or draft and verify)
+and harvest with the arena, so a signature that drifts after the first
+dispatch raises; the prewarm is each label's first. An armed leak guard
+ledgers every paged-block grant until its release.
 """
 
 from __future__ import annotations
@@ -115,6 +122,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fira_tpu_torch.analysis.sanitizer import leak_guard, program_label
 from fira_tpu_torch.config import FiraConfig, unsupported
 from fira_tpu_torch.data.feeder import batch_to_device
 from fira_tpu_torch.decode import paging
@@ -129,12 +137,6 @@ PREFILL_KIND = "engine_prefill"
 STEP_LABEL = "engine_step"
 INSERT_LABEL = "engine_insert"
 HARVEST_LABEL = "engine_harvest"
-
-
-def program_label(kind: str, mods: Optional[str] = None) -> str:
-    """``kind[mods]`` (the JAX package's program-label format), ``kind``
-    alone without mods."""
-    return f"{kind}[{mods}]" if mods else kind
 
 
 @dataclasses.dataclass
@@ -304,7 +306,7 @@ class SlotEngine:
     def __init__(self, model: FiraModel, cfg: FiraConfig, *,
                  slots: Optional[int] = None,
                  pool_blocks: Optional[int] = None, faults=None,
-                 tag: Optional[str] = None):
+                 tag: Optional[str] = None, guard=None):
         errs = unsupported(cfg)
         if errs:
             raise ValueError("config selects paths the port does not run: "
@@ -314,6 +316,12 @@ class SlotEngine:
         # retire(): every piece returns early on a retired engine
         self._faults = faults
         self.retired = False
+        # an armed analysis.sanitizer.CompileGuard (None: off): every
+        # dispatch is labelled, its input signature fixed at its first
+        self.guard = guard
+        # the resource-lifecycle sanitizer: armed, every paged-block grant
+        # is ledgered until its release; unarmed, one is-None branch
+        self._leaks = leak_guard()
         self.device = next(model.parameters()).device
         self.slots = int(slots or cfg.engine_slots or cfg.test_batch_size)
         if self.slots < 1:
@@ -392,10 +400,39 @@ class SlotEngine:
         the (S, k) draft and verify when spec is on."""
         from fira_tpu_torch.data.buckets import geom_tag
 
-        prefills = ([self.label(PREFILL_KIND, geom_tag(g)) for g in table]
-                    if table is not None else [self.label(PREFILL_KIND)])
-        return prefills + [self.label(STEP_LABEL), self.label(INSERT_LABEL),
-                           self.label(HARVEST_LABEL)] + self._spec_labels()
+        return self.labels_for_tags(
+            [geom_tag(g) for g in table] if table is not None else [None])
+
+    def labels_for_tags(self, geom_tags) -> List[str]:
+        """:meth:`labels` from the prefill geometry tags directly (None:
+        the untagged prefill), the form a respawned replica declares
+        with."""
+        return ([self.label(PREFILL_KIND, t) for t in geom_tags]
+                + [self.label(STEP_LABEL), self.label(INSERT_LABEL),
+                   self.label(HARVEST_LABEL)] + self._spec_labels())
+
+    def _prefill_label(self, host: Dict) -> str:
+        """A prefill's label: its batch's bucket tag under ``cfg.buckets``,
+        untagged at the single full geometry (as the JAX package's)."""
+        return self.label(PREFILL_KIND,
+                          host.get("_tag") if self.cfg.buckets else None)
+
+    def _guard_step(self, label: str, *inputs) -> None:
+        if self.guard is not None:
+            self.guard.step(label, *inputs)
+
+    def _guard_dispatch(self, spec: bool) -> None:
+        """The guard's step of one step dispatch over the arena: the draft
+        and verify pair with spec decode, else the step."""
+        if self.guard is None:
+            return
+        if spec:
+            km = f"k{self._spec_k}"
+            self.guard.step(self.label(spec_lib.DRAFT_LABEL, km), self._state)
+            self.guard.step(self.label(spec_lib.VERIFY_LABEL, km),
+                            self._state)
+        else:
+            self.guard.step(self.label(STEP_LABEL), self._state)
 
     def _spec_labels(self) -> List[str]:
         """The draft and verify names when spec is on (``k<k>`` composes
@@ -699,7 +736,9 @@ class SlotEngine:
         the stats but ``warm_step_dispatches``."""
         chunk = None
         for host in hosts:
-            chunk = self._prefill(batch_to_device(host, self.device))
+            batch = batch_to_device(host, self.device)
+            chunk = self._prefill(batch)
+            self._guard_step(self._prefill_label(host), batch)
             self._ensure_state(chunk)
         if chunk is None:
             return
@@ -707,11 +746,15 @@ class SlotEngine:
         unmapped = (np.full((1, self._table_width), self._pool_blocks)
                     if self._paged else None)
         self._insert(chunk, [0], [0], self.cfg.tar_len, unmapped)
+        self._guard_step(self.label(INSERT_LABEL), self._state)
         self._state["live"][0] = False
         self._decode_call(self._step)
+        self._guard_dispatch(False)
         if self._spec_tier is not None:
             self._decode_call(self._spec_round)
+            self._guard_dispatch(True)
         self._read_rows([0])
+        self._guard_step(self.label(HARVEST_LABEL), self._state)
         self.stats.host_syncs = syncs
         self.stats.warm_step_dispatches += 1
 
@@ -755,6 +798,11 @@ class SlotEngine:
                 f"block {b} granted while already held (double grant)"
             self._block_refs[b] = 1
             grant.append(b)
+        if self._leaks is not None:
+            for b in grant:
+                self._leaks.note_acquire(
+                    "block", f"{self.tag or 'engine'}@{id(self):x}:{b}",
+                    what=f"paged block {b}")
         return grant
 
     def _release_blocks(self, blocks) -> None:
@@ -766,6 +814,9 @@ class SlotEngine:
             if n == 1:
                 del self._block_refs[b]
                 self._free_blocks.append(b)
+                if self._leaks is not None:
+                    self._leaks.note_release(
+                        "block", f"{self.tag or 'engine'}@{id(self):x}:{b}")
             else:
                 self._block_refs[b] = n - 1
 
@@ -1050,6 +1101,7 @@ class SlotEngine:
                 # the watchdog expired during the prefill and the engine
                 # was retired: its requests were handed back already
                 return
+            self._guard_step(self._prefill_label(host), device_batch)
             self._ensure_state(chunk)
             st.prefills += 1
             if self._cache is not None:
@@ -1121,6 +1173,7 @@ class SlotEngine:
                          np.asarray(grants) if self._paged else None)
             if self.retired:
                 return
+            self._guard_step(self.label(INSERT_LABEL), self._state)
             self.stats.refills += 1
             self.stats.slots_refilled += len(rows)
             self._staged_rows -= len(rows)
@@ -1144,6 +1197,7 @@ class SlotEngine:
             occ = self._decode_call(self._step)
         if self.retired:
             return   # abandoned by the watchdog: the loop owns the stats
+        self._guard_dispatch(spec_now)
         self._pending_occ = occ
         self._pending_spec = (counters, iters) if spec_now else None
         if self._spec_cd > 0:
@@ -1222,6 +1276,7 @@ class SlotEngine:
         toks, probs = self._read_rows(newly)
         if self.retired:
             return []   # abandoned mid-read: retire() requeued them all
+        self._guard_step(self.label(HARVEST_LABEL), self._state)
         K, T = self.cfg.beam_size, self.cfg.tar_len
         row_bytes = (K * T + K) * 8   # the f64 rows harvest copies
         for i, s in enumerate(newly):

@@ -39,11 +39,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from fira_tpu_torch.analysis.sanitizer import program_label
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
 from fira_tpu_torch.data.batching import make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.data.feeder import Feeder
+from fira_tpu_torch.data.feeder import Feeder, batch_to_device
 from fira_tpu_torch.decode import engine as engine_lib
 from fira_tpu_torch.decode import prefix_cache as prefix_cache_lib
 from fira_tpu_torch.decode import quant
@@ -98,6 +99,17 @@ def _stamped(task, namespace: bytes):
     return build
 
 
+def warm_batch(data, cfg: FiraConfig, geom) -> Dict:
+    """An all-pad test batch at ``geom``, carrying its bucket tag under
+    ``cfg.buckets`` (the prewarm's batch and each label's first
+    signature)."""
+    batch = make_batch(data, np.arange(0), cfg,
+                       batch_size=cfg.test_batch_size, geom=geom)
+    if cfg.buckets:
+        batch["_tag"] = buckets_lib.geom_tag(geom)
+    return batch
+
+
 def run_test(model: FiraModel, dataset: FiraDataset,
              cfg: Optional[FiraConfig] = None, *,
              out_dir: str = "OUTPUT",
@@ -105,7 +117,8 @@ def run_test(model: FiraModel, dataset: FiraDataset,
              var_maps: Optional[List[Dict[str, str]]] = None,
              split: str = "test",
              engine_slots: Optional[int] = None,
-             refill_order: str = "fifo", faults=None) -> Dict[str, float]:
+             refill_order: str = "fifo", faults=None,
+             guard=None) -> Dict[str, float]:
     """Decode ``split`` on the model's device, in the model's compute
     dtype, with the batched beam ``cfg`` selects or, under
     ``cfg.decode_engine``, the slot engine (``engine_slots`` slots,
@@ -113,7 +126,12 @@ def run_test(model: FiraModel, dataset: FiraDataset,
     sentence BLEU, the sample count and the path, and with the engine its
     ``stats.summary()`` under "engine". ``faults``: an armed
     ``robust.faults.FaultInjector`` (None resolves from
-    ``cfg.inject_faults``; "" keeps it off)."""
+    ``cfg.inject_faults``; "" keeps it off). ``guard``: an armed
+    ``analysis.sanitizer.CompileGuard``: every beam call (``beam_search``)
+    or engine dispatch is stepped under its label, and under
+    ``cfg.buckets`` the family is declared and each member's signature
+    taken from an all-pad batch at its geometry first (the JAX package's
+    pre-warm), so a later batch outside it raises."""
     cfg = cfg or dataset.cfg
     if faults is None:
         faults = injector_from(cfg)
@@ -142,16 +160,17 @@ def run_test(model: FiraModel, dataset: FiraDataset,
             from fira_tpu_torch.parallel import fleet as fleet_lib
 
             eng = fleet_lib.EngineFleet(model, cfg, replicas=n_rep,
-                                        slots=engine_slots, faults=faults)
+                                        slots=engine_slots, faults=faults,
+                                        guard=guard)
         else:
             eng = engine_lib.SlotEngine(model, cfg, slots=engine_slots,
-                                        faults=faults)
+                                        faults=faults, guard=guard)
         # one all-pad batch a geometry of the plan: the kernels' build and
         # first launch, outside the decode
         geoms = list(dict.fromkeys(g for _, g in plan))
-        eng.prewarm([make_batch(data, np.arange(0), cfg,
-                                batch_size=cfg.test_batch_size, geom=g)
-                     for g in geoms])
+        if cfg.buckets and guard is not None:
+            guard.declare(eng.labels(geoms))
+        eng.prewarm([warm_batch(data, cfg, g) for g in geoms])
         if cfg.buckets:
             print(f"decode buckets: {len(geoms)} engine prefill programs "
                   f"pre-warmed"
@@ -174,8 +193,22 @@ def run_test(model: FiraModel, dataset: FiraDataset,
                 emit(it.position, it.host, it.row, it.tokens, it.probs)
         else:
             search = make_beam_search(model, cfg)
+            if cfg.buckets and guard is not None:
+                geoms = list(dict.fromkeys(g for _, g in plan))
+                guard.declare(program_label(
+                    "beam_search", buckets_lib.geom_tag(g)) for g in geoms)
+                for g in geoms:
+                    guard.step(program_label("beam_search",
+                                             buckets_lib.geom_tag(g)),
+                               batch_to_device(warm_batch(data, cfg, g),
+                                               device))
             for item in feed:
                 tokens, probs = search(item.device)
+                if guard is not None:
+                    guard.step(program_label(
+                        "beam_search",
+                        item.host["_tag"] if cfg.buckets else None),
+                        item.device)
                 tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
                 positions = item.host["_positions"]
                 for i in np.flatnonzero(item.host["valid"]):

@@ -33,6 +33,10 @@ GIL-bound parse stage a process pool:
   the GIL released. Each pool process keeps its own memos; the output is
   bit-exact either way, the stages being pure functions of their inputs.
 
+Under the runtime sanitizer (analysis/sanitizer.py) the LRUs and the
+in-flight map are lock-checked proxies and the process pool is ledgered
+from its start to its shutdown.
+
 This module imports no torch: it is the spawn entry of the process pool,
 and a pool worker must not load the device runtime (the parent holds a
 CUDA context) just to parse Java.
@@ -47,6 +51,8 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from fira_tpu_torch.analysis.sanitizer import guard_structures, leak_guard
 
 _DIGEST_KEY = b"fira-ingest-cache-v1"
 
@@ -138,6 +144,12 @@ class IngestCache:
         self.fault_misses = 0
         self.integrity_drops = 0
         self.evictions = 0
+        # lock-discipline sanitizer: the LRU and the in-flight map are
+        # mutated from every feeder worker; armed, a mutation outside
+        # ``with self._lock`` raises at the line
+        self._lock, (self._lru, self._pending) = guard_structures(
+            self, self._lock, [(self._lru, "_lru"),
+                               (self._pending, "_pending")])
 
     def _integrity(self) -> bool:
         return self._faults is not None and self._faults.armed(
@@ -293,6 +305,8 @@ class LexMemo:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self._lock, (self._lru,) = guard_structures(
+            self, self._lock, [(self._lru, "_lru")])
 
     def __call__(self, text: str):
         with self._lock:
@@ -326,6 +340,8 @@ class HunkMemo:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self._lock, (self._lru,) = guard_structures(
+            self, self._lock, [(self._lru, "_lru")])
 
     @staticmethod
     def _key(chunk, typ: int) -> str:
@@ -473,6 +489,10 @@ class IngestExecutor:
         self._memo = memo
         self._pool = None
         self._has_context = context is not None
+        # resource-lifecycle sanitizer: armed, the process pool is
+        # ledgered at construction and retired at close(), so a serve path
+        # that drops the executor without a shutdown is named at teardown
+        self._leaks = leak_guard()
         if mode == "process":
             import concurrent.futures
             import multiprocessing
@@ -485,6 +505,10 @@ class IngestExecutor:
             self._pool = concurrent.futures.ProcessPoolExecutor(
                 max_workers=max(1, int(workers)), mp_context=ctx,
                 initializer=_proc_init, initargs=(context,))
+            if self._leaks is not None:
+                self._leaks.note_acquire(
+                    "pool", f"IngestExecutor@{id(self):x}",
+                    what=f"process pool ({max(1, int(workers))} workers)")
 
     @property
     def offloads_requests(self) -> bool:
@@ -513,6 +537,9 @@ class IngestExecutor:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+            if self._leaks is not None:
+                self._leaks.note_release("pool",
+                                         f"IngestExecutor@{id(self):x}")
 
     def __enter__(self) -> "IngestExecutor":
         return self

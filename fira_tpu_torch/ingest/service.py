@@ -536,7 +536,7 @@ def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
                 clock: str = "wall",
                 engine=None,
                 metrics_path: Optional[str] = None,
-                fast_path=None) -> Dict:
+                fast_path=None, guard=None) -> Dict:
     """Serve the raw diffs ``requests`` (request ``i`` arrives at
     ``arrival_times[i]``) on the model's device through the ServeLoop of
     ``serve_split``, on one engine or a fleet of ``cfg.engine_replicas``
@@ -552,7 +552,10 @@ def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
     config and stats). ``fast_path``: a caller-owned ``(cache, lex,
     executor)`` from :func:`build_fast_path`, kept across runs (a warm
     process pool); the caller clears and closes it. Without it the run
-    builds its own and closes its executor."""
+    builds its own and closes its executor. ``guard``: an armed
+    ``analysis.sanitizer.CompileGuard`` for the engines' dispatches; with
+    the leak guard armed, the run ends with ``assert_clean`` as
+    ``serve_split``'s."""
     from fira_tpu_torch.data import buckets as buckets_lib
     from fira_tpu_torch.data.feeder import Feeder
     from fira_tpu_torch.decode.runner import output_name
@@ -581,10 +584,10 @@ def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
     table = buckets_lib.decode_table(cfg) if cfg.buckets else None
     model.eval()
     owner, engines, built = build_engines(model, cfg, engine=engine,
-                                          faults=faults)
+                                          faults=faults, guard=guard)
     templates = prepare_templates(
         owner, _template_split(word_vocab, ast_change_vocab, cfg), cfg,
-        table, prewarm=built)
+        table, prewarm=built, guard=guard)
 
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, output_name(ablation))
@@ -641,6 +644,11 @@ def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
     finally:
         if own_executor is not None:
             own_executor.close()
+    from fira_tpu_torch.analysis.sanitizer import leak_guard
+
+    lg = leak_guard()
+    if lg is not None:
+        lg.assert_clean("serve_diffs teardown")
     return finalize_serve_result(stats, owner, faults, out_path=out_path,
                                  bleu_by_pos=bleu_by_pos,
                                  metrics_path=metrics_path)

@@ -429,8 +429,14 @@ class CopyNet(nn.Module):
         gate = self.gate(target)
         return scores, torch.softmax(gate.to(stable_dtype(gate.dtype)), dim=-1)
 
-    def forward(self, source, target):
-        return self.score_gate(self.project_src(source), target)
+    def forward(self, source, target, projected: bool = False):
+        """(scores, gate) of ``target`` over ``source``, or over an
+        already projected source (``projected``, the model's own calls:
+        the projection is made once a batch). The model calls the head
+        through here, so module hooks see its output (the sanitizer's
+        NaN check, analysis/sanitizer.py)."""
+        src = source if projected else self.project_src(source)
+        return self.score_gate(src, target)
 
 
 class FiraModel(nn.Module):
@@ -510,7 +516,7 @@ class FiraModel(nn.Module):
         the stable dtype."""
         sd = stable_dtype(self.dtype)
         gen = torch.softmax(self.out_fc(tar_emb).to(sd), dim=-1)
-        scores, gate = self.copy_net.score_gate(src_proj, tar_emb)
+        scores, gate = self.copy_net(src_proj, tar_emb, projected=True)
         copy = torch.softmax(
             scores.masked_fill(~mask[:, None, :], NEG_INF).to(sd), dim=-1)
         return gen, copy, gate
@@ -591,7 +597,7 @@ class FiraModel(nn.Module):
         acceptance rate, never the output (the verify is the exact step).
         tok: (B, 1); pos_idx: (B,). Returns (B, 1, S)."""
         x = self.decoder.embed_at(tok, pos_idx)
-        scores, _gate = self.copy_net.score_gate(src_proj, x)
+        scores, _gate = self.copy_net(src_proj, x, projected=True)
         return scores.masked_fill(~mask[:, None, :], NEG_INF)
 
     def dist_parts_step(self, mask, tok, pos_idx: int, k_cache, v_cache,

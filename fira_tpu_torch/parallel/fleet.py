@@ -199,7 +199,8 @@ class EngineFleet:
     over the visible cards (all on the CPU when the model is there)."""
 
     def __init__(self, model: FiraModel, cfg: FiraConfig, *,
-                 replicas: int, slots: Optional[int] = None, faults=None):
+                 replicas: int, slots: Optional[int] = None, faults=None,
+                 guard=None):
         if replicas < 1:
             raise ValueError(f"fleet needs >= 1 replica, got {replicas}")
         total = int(slots or cfg.engine_slots or 0)
@@ -223,6 +224,7 @@ class EngineFleet:
             devices = [home] * replicas
         self.cfg = cfg
         self.faults = faults
+        self._guard = guard
         # the degradation record; ``engines`` stays the full roster (the
         # stats keep counting a retired replica's commits), the run loop
         # keeps its own live list
@@ -251,7 +253,12 @@ class EngineFleet:
             model = copy.deepcopy(self._model).to(device).eval()
         return SlotEngine(model, self.cfg, slots=self._per_replica,
                           pool_blocks=self._per_replica_pool,
-                          faults=self.faults, tag=tag)
+                          faults=self.faults, tag=tag, guard=self._guard)
+
+    def labels(self, table=None) -> List[str]:
+        """The fleet's declared dispatch family: the union of every
+        replica's labels, each suffixed with its tag."""
+        return [lbl for e in self.engines for lbl in e.labels(table)]
 
     @property
     def stats(self) -> FleetStats:
@@ -284,6 +291,14 @@ class EngineFleet:
         and prewarmed on the stored warm batches, so its first serving
         dispatch pays no kernel build or first launch."""
         eng = self._engine(device, tag)
+        if self._guard is not None and self._guard.family_closed:
+            # additive declare into an already closed family only: a first
+            # declare here would close an open family (unbucketed runs
+            # never declare) around the replacement's labels alone and
+            # outlaw every serving replica's
+            tags = [h.get("_tag") if self.cfg.buckets else None
+                    for h in (self._warm or [])] or [None]
+            self._guard.declare(eng.labels_for_tags(tags))
         if self._warm:
             eng.prewarm(self._warm)
         return eng

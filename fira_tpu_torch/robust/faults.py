@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from fira_tpu_torch.analysis.sanitizer import guard_structures
 from fira_tpu_torch.config import FiraConfig
 
 SITES = (
@@ -200,6 +201,10 @@ class FaultInjector:
         self.fired_keys: Dict[str, List] = collections.defaultdict(list)
         # feeder workers record fires concurrently
         self._lock = threading.Lock()
+        # lock-discipline sanitizer: armed, a ``fired[site] += 1`` outside
+        # ``with self._lock`` raises at the line
+        self._lock, (self.fired,) = guard_structures(
+            self, self._lock, [(self.fired, "fired")])
 
     def _record_fire(self, site: str, key) -> None:
         with self._lock:

@@ -19,6 +19,9 @@ failure and recovery trace:
   warm-spare pool (``cfg.engine_spares`` engines built and prewarmed up
   front, so a replacement costs an attach instead of a build). A lineage
   that keeps crashing exhausts ``cfg.max_respawns`` and stays retired.
+  Under the sanitizer's guard a replacement declares its own labels into
+  the already closed family before its prewarm (additively, never as the
+  first declare: ``EngineFleet._build_replacement``).
 
 - **Crash-resume**: :class:`Journal` is an append-only request journal
   beside the output file, one JSON line a request at admit and at done or

@@ -20,6 +20,8 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable
 
+from fira_tpu_torch.analysis.sanitizer import leak_guard
+
 
 class WatchdogTimeout(RuntimeError):
     """A dispatch exceeded its wall-clock budget and was abandoned."""
@@ -52,14 +54,24 @@ def run_with_watchdog(fn: Callable[[], Any], timeout_s: float, *,
 
     t = threading.Thread(target=body, name="fira-dispatch-watchdog",
                          daemon=True)
+    lg = leak_guard()
     t.start()
+    if lg is not None:
+        lg.track_thread(t, what="dispatch-watchdog thread")
     t.join(timeout_s)
     if t.is_alive():
+        if lg is not None:
+            # sanctioned: a blown dispatch is abandoned by design (the
+            # thread stops at its next retired check); the ledger records
+            # the reason instead of calling it a leak at teardown
+            lg.abandon_thread(t, "watchdog expiry — abandoned by design")
         if cancel_event is not None:
             cancel_event.set()
         raise WatchdogTimeout(
             f"dispatch{f' {label}' if label else ''} exceeded the "
             f"{timeout_s:.3f}s wall-clock watchdog and was abandoned")
+    if lg is not None:
+        lg.note_joined(t)
     if "error" in box:
         raise box["error"]
     return box.get("value")

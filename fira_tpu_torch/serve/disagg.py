@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from fira_tpu_torch.analysis.sanitizer import leak_guard
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.decode import prefix_cache as prefix_cache_lib
 from fira_tpu_torch.robust import faults as faults_lib
@@ -385,6 +386,14 @@ class PrefillTier:
         self._rr = 0
         self._dead = False
         self._closed = False
+        # resource-lifecycle sanitizer: armed, the worker pool is ledgered
+        # from its spawn to close(), so a serve path that drops the tier
+        # without closing it is named at teardown
+        self._leaks = leak_guard()
+        if self._leaks is not None:
+            self._leaks.note_acquire(
+                "pool", f"PrefillTier@{id(self):x}",
+                what=f"prefill worker pool ({cfg.prefill_workers} procs)")
         # spawn, never fork: the parent runs live threads and has its CUDA
         # context; each child makes its own on the same device
         ctx = multiprocessing.get_context("spawn")
@@ -705,6 +714,8 @@ class PrefillTier:
                 w.conn.close()
             except Exception:
                 pass
+        if self._leaks is not None:
+            self._leaks.note_release("pool", f"PrefillTier@{id(self):x}")
 
     def __enter__(self) -> "PrefillTier":
         return self

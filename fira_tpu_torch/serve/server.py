@@ -96,6 +96,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from fira_tpu_torch.analysis import sanitizer
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
 from fira_tpu_torch.data.dataset import FiraDataset
@@ -1151,7 +1152,7 @@ def make_clock(clock: str):
 
 
 def build_engines(model: FiraModel, cfg: FiraConfig, *, engine=None,
-                  faults=None):
+                  faults=None, guard=None):
     """(owner, engines, built): the caller's (presumably warm) ``engine``
     (a ``SlotEngine``, or an ``EngineFleet`` served through its
     ``engines``), built False so its prewarm does not rerun; else an
@@ -1166,19 +1167,20 @@ def build_engines(model: FiraModel, cfg: FiraConfig, *, engine=None,
         from fira_tpu_torch.parallel import fleet as fleet_lib
 
         owner = fleet_lib.EngineFleet(model, cfg, replicas=n_rep,
-                                      faults=faults)
+                                      faults=faults, guard=guard)
         return owner, owner.engines, True
-    owner = SlotEngine(model, cfg, faults=faults)
+    owner = SlotEngine(model, cfg, faults=faults, guard=guard)
     return owner, [owner], True
 
 
 def prepare_templates(owner, split, cfg: FiraConfig, table, *,
-                      prewarm: bool = True) -> Dict[int, Dict]:
+                      prewarm: bool = True, guard=None) -> Dict[int, Dict]:
     """An all-pad batch a decode bucket (the rows a packed batch is padded
     from), and the engine's (each replica's) prewarm on them when
     serve_split built the engines itself (so no kernel builds or first
     launch inside a timed dispatch, and the watchdog never reads one as a
-    hang)."""
+    hang). With a ``guard`` and a bucket table the prewarm is preceded by
+    the family's declare."""
     from fira_tpu_torch.data.batching import make_batch
 
     bs = int(cfg.test_batch_size)
@@ -1190,7 +1192,14 @@ def prepare_templates(owner, split, cfg: FiraConfig, table, *,
         templates = {0: make_batch(split, np.arange(0), cfg,
                                    batch_size=bs)}
     if prewarm:
-        owner.prewarm(templates.values())
+        warm = list(templates.values())
+        if table is not None:
+            if guard is not None:
+                guard.declare(owner.labels(table))
+            # each prefill's label carries its bucket's tag
+            warm = [dict(templates[b], _tag=buckets_lib.geom_tag(g))
+                    for b, g in enumerate(table)]
+        owner.prewarm(warm)
     return templates
 
 
@@ -1345,7 +1354,7 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
                 request_mix=None,
                 journal_path: Optional[str] = None,
                 resume: bool = False,
-                tier=None) -> Dict:
+                tier=None, guard=None) -> Dict:
     """Serve the first ``len(arrival_times)`` samples of ``split`` as an
     open-loop request stream (request ``i`` is split position ``i``,
     arriving at ``arrival_times[i]``) on the model's device. Writes the
@@ -1375,7 +1384,14 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
     ``cfg.serve_tiers`` is on (a bench reuses one across runs, as it does
     an engine, so the rows measure serving, not the pool's start); the
     caller owns it and closes it. Without one a tier is spawned here and
-    closed on every exit path."""
+    closed on every exit path.
+
+    ``guard``: an armed ``analysis.sanitizer.CompileGuard`` for the
+    engines' dispatches (see ``decode.runner.run_test``). With the leak
+    guard armed, the run ends with every paged-block grant released and
+    every pipeline thread joined or sanctioned, or raises ``LeakError``
+    naming the acquire site (on the success path only: a serve error
+    surfaces as itself)."""
     cfg = cfg or dataset.cfg
     faults = faults_lib.injector_from(cfg)
     data = dataset.splits[split]
@@ -1471,8 +1487,9 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
     # replace_slot and the spare pool)
     respawn_armed = cfg.max_respawns > 0
     owner, engines, built = build_engines(model, cfg, engine=engine,
-                                          faults=faults)
-    templates = prepare_templates(owner, data, cfg, table, prewarm=built)
+                                          faults=faults, guard=guard)
+    templates = prepare_templates(owner, data, cfg, table, prewarm=built,
+                                  guard=guard)
     recovery = None
     if respawn_armed and hasattr(owner, "replace_slot"):
         if cfg.engine_spares:
@@ -1544,6 +1561,9 @@ def serve_split(model: FiraModel, dataset: FiraDataset,
             tier.close()
         if journal is not None:
             journal.close()
+    lg = sanitizer.leak_guard()
+    if lg is not None:
+        lg.assert_clean("serve teardown")
     return finalize_serve_result(stats, owner, faults, out_path=out_path,
                                  bleu_by_pos=bleu_by_pos,
                                  metrics_path=metrics_path)

@@ -55,6 +55,11 @@ it is whole, with dense attention otherwise: a ring needs every rank in
 step), the others wait for the gate's decision, which rank 0 broadcasts,
 and commits/s is divided by the ranks, as the JAX loop divides by its
 chips.
+
+The tooling, as the JAX loop's: ``profile_dir`` traces a window of steps
+with ``torch.profiler`` (utils/profiling.py), and ``guard`` (the runtime
+sanitizer's, analysis/sanitizer.py) is stepped at every dispatch under
+the JAX package's labels. Without them the step runs as it would.
 """
 
 from __future__ import annotations
@@ -68,11 +73,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from fira_tpu_torch.analysis.sanitizer import program_label
 from fira_tpu_torch.config import FiraConfig
 from fira_tpu_torch.data import buckets as buckets_lib
 from fira_tpu_torch.data import grouping
 from fira_tpu_torch.data.dataset import FiraDataset
-from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder
+from fira_tpu_torch.data.feeder import TRAIN_FIELDS, Feeder, batch_to_device
 from fira_tpu_torch.parallel.mesh import feed_shardings
 from fira_tpu_torch.decode.text import (cook_prediction, deanonymize,
                                         reference_words)
@@ -81,6 +87,7 @@ from fira_tpu_torch.robust.watchdog import WatchdogTimeout, run_with_watchdog
 from fira_tpu_torch.train import step as step_lib
 from fira_tpu_torch.train.state import (CheckpointManager, TrainState,
                                         init_state)
+from fira_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -115,7 +122,8 @@ class TrainLog:
 
 def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
             var_maps: Optional[List[Dict[str, str]]] = None,
-            split: str = "valid", plan=None, cancel=None) -> tuple:
+            split: str = "valid", plan=None, cancel=None,
+            guard=None) -> tuple:
     """Greedy teacher-forced validation (run_model.py:118-184). Returns
     (mean sentence BLEU over the split, dev_output text in split order,
     number of dev batches). The batches follow ``plan`` (default
@@ -123,7 +131,9 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
     once) and each line goes to its ``_positions`` place. ``cancel``: a
     zero-arg callable polled a batch, the watchdog's cooperative kill
     switch: a gate the watchdog abandoned stops launching instead of
-    racing the training it was abandoned for."""
+    racing the training it was abandoned for. ``guard``: an armed
+    ``analysis.sanitizer.CompileGuard``, stepped a batch under
+    ``dev_step`` (with its bucket tag under ``cfg.buckets``)."""
     data = dataset.splits[split]
     vocab = dataset.word_vocab
     indices = dataset.split_indices[split]
@@ -144,6 +154,9 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
                     "dev gate abandoned by the dispatch watchdog")
             host = item.host
             ids = step_lib.dev_step(model, item.device).cpu().numpy()
+            if guard is not None:
+                guard.step(program_label("dev_step", _tag(host, cfg)),
+                           item.device)
             for i in np.flatnonzero(host["valid"]):
                 hyp = cook_prediction(ids[i].tolist(), host["diff"][i],
                                       host["sub_token"][i], vocab, cfg)
@@ -158,6 +171,12 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
     lines.sort(key=lambda r: r[0])
     return (total_bleu / max(len(data), 1),
             "\n".join(line for _, line in lines) + "\n", len(plan))
+
+
+def _tag(host: Dict, cfg: FiraConfig) -> Optional[str]:
+    """A batch's label tag: its bucket's under ``cfg.buckets``, none at the
+    single full geometry (the JAX package's labels)."""
+    return host.get("_tag") if cfg.buckets else None
 
 
 @dataclasses.dataclass
@@ -189,34 +208,6 @@ class TrainResult:
     groups: int = 0
     # conditions a reader of this run's numbers must know (printed too)
     warnings: List[str] = dataclasses.field(default_factory=list)
-
-
-class _Meter:
-    """Train throughput between sync points; ``warmup`` leading intervals
-    are dropped, and time between ``pause`` and ``start`` is not counted."""
-
-    def __init__(self, warmup: int = 1):
-        self.warmup, self.seen = warmup, 0
-        self.seconds = self.feed_seconds = 0.0
-        self.commits = self.steps = 0
-        self.last: Optional[float] = None
-
-    def start(self) -> None:
-        self.last = time.perf_counter()
-
-    def pause(self) -> None:
-        self.last = None
-
-    def tick(self, commits: int, steps: int, feed_s: float) -> None:
-        now = time.perf_counter()
-        if self.last is not None and steps:
-            self.seen += 1
-            if self.seen > self.warmup:
-                self.seconds += now - self.last
-                self.commits += commits
-                self.steps += steps
-                self.feed_seconds += feed_s
-        self.last = now
 
 
 def _cpu(x):
@@ -288,12 +279,28 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
           epochs: Optional[int] = None,
           var_maps: Optional[List[Dict[str, str]]] = None,
           resume: bool = True,
-          state: Optional[TrainState] = None) -> TrainResult:
+          state: Optional[TrainState] = None,
+          profile_dir: Optional[str] = None,
+          profile_steps: int = 10,
+          guard=None) -> TrainResult:
     """Full training run on ``device`` (``cuda`` by default, which raises
     without a card; ``cpu`` on request). ``state``: a prepared
     ``TrainState`` to train (default: ``init_state(cfg, device)``, the
     model at ``cfg.compute_dtype``). ``mesh``: a ``parallel.mesh.Mesh``
-    (``make_mesh``) to train over, on its own devices (module docstring)."""
+    (``make_mesh``) to train over, on its own devices (module docstring).
+
+    ``profile_dir``: a ``torch.profiler`` trace of the steps
+    ``range(2, 2 + profile_steps)`` (the first steps build and first launch
+    the kernels) is written there (utils/profiling.py), each step named
+    ``train_step#<step>``; the real program is profiled, a grouped
+    dispatch's range spanning its whole group. ``guard``: an armed
+    ``analysis.sanitizer.CompileGuard``: each dispatch is stepped under its
+    label (``train_step``, ``grouped_step`` with its group size,
+    ``dev_step``; bucket tags under ``cfg.buckets``, whose family is then
+    declared and each member's signature taken from an all-pad batch first,
+    as the JAX loop's pre-warm). The CLI arms it with ``--sanitize``;
+    library callers use ``with sanitizer.sanitize() as guard:``. Neither
+    crosses to spawned mesh ranks."""
     from fira_tpu_torch.cli import resolve_device
 
     cfg = cfg or dataset.cfg   # dataset.cfg has the vocabulary sizes
@@ -314,6 +321,8 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
             if state is not None:
                 raise ValueError("train(mesh=...) builds each rank's state; "
                                  "a prepared state cannot cross to the ranks")
+            if mesh.world > 1 and (guard is not None or profile_dir):
+                raise ValueError(mesh_tooling_error())
             return _launch(dataset, cfg, dataclasses.replace(
                 mesh, seq_shards=cfg.seq_shards), dict(
                     out_dir=out_dir, ckpt_dir=ckpt_dir, epochs=epochs,
@@ -330,7 +339,7 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
     ckpt = CheckpointManager(ckpt_dir or os.path.join(out_dir, "ckpt"), mesh)
     best_bleu, start_epoch = 0.0, 0
     if resume and ckpt.has(CheckpointManager.LATEST):
-        meta = ckpt.restore_latest(state)
+        meta = ckpt.restore_latest(state, expect_rng_impl=cfg.rng_impl)
         best_bleu, start_epoch = meta["best_bleu"], meta["epoch"]
         log.console(f"resumed at epoch {start_epoch}, best dev bleu "
                     f"{best_bleu:.4f}")
@@ -357,7 +366,23 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         if len(table) > 1 else None)
     eval_plan = buckets_lib.decode_plan(dataset.splits["valid"], cfg)
 
-    meter = _Meter(warmup=1)
+    if (fused > 1 or accum > 1) and profile_dir:
+        # the real grouped program is profiled (profiled numbers must be
+        # the production path's); each step range then spans one dispatch
+        w = (f"profiling the grouped program: each step annotation spans "
+             f"one {'fused' if fused > 1 else 'accum'} dispatch of "
+             f"{fused if fused > 1 else accum} stacked batches")
+        log.console(w)
+        warnings.append(w)
+    if cfg.buckets and guard is not None:
+        _prewarm_guard(guard, dataset, cfg, table, group_size,
+                       warm_per_step=group_size == 1 or fused > 1,
+                       device=device, sharding=feed_shardings(mesh))
+
+    # the JAX loop's Meter(warmup=1); the optimizer steps of its measured
+    # intervals are counted beside it
+    meter = profiling.Meter(warmup=1)
+    measured_steps = 0
     pending = {"commits": 0, "steps": 0, "feed_s": 0.0}
     losses: List[torch.Tensor] = []
     gates = dev_batches = steps = batches = groups = 0
@@ -366,135 +391,178 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                    "queue_depth_sum": 0.0, "queue_depth_min": float("inf")}
 
     def sync_tick(loss: Optional[torch.Tensor]) -> None:
+        """Close the interval since the last sync; an empty interval just
+        restarts the clock."""
+        nonlocal measured_steps
         if loss is not None:
             loss.item()   # waits for the queued steps
-        meter.tick(pending["commits"], pending["steps"], pending["feed_s"])
+        if pending["steps"]:
+            if meter.tick(pending["commits"], stall_s=pending["feed_s"]):
+                measured_steps += pending["steps"]
+        else:
+            meter.start()
         pending.update(commits=0, steps=0, feed_s=0.0)
 
+    profile_window = range(2, 2 + profile_steps) if profile_dir else range(0)
+    prof = None   # the torch.profiler of the window, while it runs
+    profile_done = False
+    global_step = 0
+
     meter.start()
-    for epoch in range(start_epoch, n_epochs):
-        last = None
-        idx = 0   # batch index of the next item's first batch
-        plan = grouping.grouped_plan(
-            train_split, cfg, batch_size=bs, group_size=group_size,
-            accum=accum > 1, shuffle=True, seed=cfg.seed, epoch=epoch,
-            table=table, assignment=assignment)
-        with Feeder(grouping.grouped_assembly_tasks(
-                        train_split, plan, cfg, batch_size=bs),
-                    num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
-                    device=device, fields=TRAIN_FIELDS,
-                    sharding=feed_shardings(mesh)) as feed:
-            for entry in plan:
-                # real batches in the item: only a group's last chunk can
-                # be partial, and the accum tail's pad micro-batches are
-                # not batches of the split
-                k = len(entry.chunks)
-                if (epoch >= cfg.dev_start_epoch
-                        and (-idx) % cfg.dev_every_batches < k):
-                    sync_tick(last)
-                    meter.pause()   # dev time is not train time
-                    t0 = time.perf_counter()
-                    gate_cancel = threading.Event()
-                    # rank 0 decodes; under a mesh the others wait for its
-                    # decision: (ran, bleu, dev batches)
-                    decision = None
-                    eval_model = model
-                    if mesh is not None and (mesh.n_model > 1
-                                             or cfg.seq_shards > 1):
-                        from fira_tpu_torch.parallel.mesh import gather_state
+    try:
+        for epoch in range(start_epoch, n_epochs):
+            last = None
+            idx = 0   # batch index of the next item's first batch
+            plan = grouping.grouped_plan(
+                train_split, cfg, batch_size=bs, group_size=group_size,
+                accum=accum > 1, shuffle=True, seed=cfg.seed, epoch=epoch,
+                table=table, assignment=assignment)
+            with Feeder(grouping.grouped_assembly_tasks(
+                            train_split, plan, cfg, batch_size=bs),
+                        num_workers=cfg.feeder_workers, depth=cfg.feeder_depth,
+                        device=device, fields=TRAIN_FIELDS,
+                        sharding=feed_shardings(mesh)) as feed:
+                for entry in plan:
+                    # real batches in the item: only a group's last chunk can
+                    # be partial, and the accum tail's pad micro-batches are
+                    # not batches of the split
+                    k = len(entry.chunks)
+                    if (epoch >= cfg.dev_start_epoch
+                            and (-idx) % cfg.dev_every_batches < k):
+                        sync_tick(last)
+                        meter.pause()   # dev time is not train time
+                        t0 = time.perf_counter()
+                        gate_cancel = threading.Event()
+                        # rank 0 decodes; under a mesh the others wait for its
+                        # decision: (ran, bleu, dev batches)
+                        decision = None
+                        eval_model = model
+                        if mesh is not None and (mesh.n_model > 1
+                                                 or cfg.seq_shards > 1):
+                            from fira_tpu_torch.parallel.mesh import gather_state
 
-                        whole = gather_state(model.state_dict(), mesh)
+                            whole = gather_state(model.state_dict(), mesh)
+                            if lead:
+                                if gate_model is None:
+                                    from fira_tpu_torch.model.model import (
+                                        FiraModel)
+
+                                    gate_model = FiraModel(
+                                        cfg.replace(seq_shards=0), device=device)
+                                gate_model.load_state_dict(whole)
+                                eval_model = gate_model
                         if lead:
-                            if gate_model is None:
-                                from fira_tpu_torch.model.model import (
-                                    FiraModel)
+                            try:
+                                bleu, text, n_batches = run_with_watchdog(
+                                    lambda: run_dev(eval_model, dataset, cfg,
+                                                    var_maps, plan=eval_plan,
+                                                    cancel=gate_cancel.is_set,
+                                                    guard=guard),
+                                    float(cfg.dispatch_watchdog_s),
+                                    label=f"dev_gate[e{epoch}b{idx}]",
+                                    cancel_event=gate_cancel)
+                            except WatchdogTimeout as e:
+                                w = (f"dev gate at epoch {epoch} batch {idx} "
+                                     f"skipped: {e}; training continues without "
+                                     f"this gate's checkpoint decision")
+                                log.console(f"WARNING: {w}")
+                                warnings.append(w)
+                            else:
+                                decision = (bleu, n_batches)
+                        if mesh is not None:
+                            from fira_tpu_torch.parallel.mesh import broadcast_
 
-                                gate_model = FiraModel(
-                                    cfg.replace(seq_shards=0), device=device)
-                            gate_model.load_state_dict(whole)
-                            eval_model = gate_model
-                    if lead:
-                        try:
-                            bleu, text, n_batches = run_with_watchdog(
-                                lambda: run_dev(eval_model, dataset, cfg,
-                                                var_maps, plan=eval_plan,
-                                                cancel=gate_cancel.is_set),
-                                float(cfg.dispatch_watchdog_s),
-                                label=f"dev_gate[e{epoch}b{idx}]",
-                                cancel_event=gate_cancel)
-                        except WatchdogTimeout as e:
-                            w = (f"dev gate at epoch {epoch} batch {idx} "
-                                 f"skipped: {e}; training continues without "
-                                 f"this gate's checkpoint decision")
-                            log.console(f"WARNING: {w}")
-                            warnings.append(w)
-                        else:
-                            decision = (bleu, n_batches)
-                    if mesh is not None:
-                        from fira_tpu_torch.parallel.mesh import broadcast_
+                            sent = torch.tensor(
+                                [decision is not None] + list(decision or (0, 0)),
+                                dtype=torch.float64, device=device)
+                            broadcast_(sent, mesh.group(ALL), 0)
+                            if sent[0].item():
+                                decision = (sent[1].item(), int(sent[2].item()))
+                        if decision is not None:
+                            bleu, n_batches = decision
+                            better = bleu > best_bleu
+                            log.gate(epoch, idx, bleu, better)
+                            if better:
+                                best_bleu = bleu
+                                ckpt.save_best(model)
+                                log.dev_output(text if lead else "")
+                            gates += 1
+                            dev_batches += n_batches
+                        dev_seconds += time.perf_counter() - t0
+                        meter.start()
 
-                        sent = torch.tensor(
-                            [decision is not None] + list(decision or (0, 0)),
-                            dtype=torch.float64, device=device)
-                        broadcast_(sent, mesh.group(ALL), 0)
-                        if sent[0].item():
-                            decision = (sent[1].item(), int(sent[2].item()))
-                    if decision is not None:
-                        bleu, n_batches = decision
-                        better = bleu > best_bleu
-                        log.gate(epoch, idx, bleu, better)
-                        if better:
-                            best_bleu = bleu
-                            ckpt.save_best(model)
-                            log.dev_output(text if lead else "")
-                        gates += 1
-                        dev_batches += n_batches
-                    dev_seconds += time.perf_counter() - t0
-                    meter.start()
+                    # fetched after the gate, inside the measured interval (the
+                    # workers keep assembling while a gate runs)
+                    item = next(feed)
+                    pending["feed_s"] += item.stall_s
+                    if (profile_window and prof is None and not profile_done
+                            and global_step >= profile_window[0]):
+                        prof = profiling.begin_trace(profile_dir)
+                    if prof is None:
+                        loss = _dispatch(entry, accum, model, optimizer,
+                                         item.device, gen, mesh)
+                    else:
+                        with profiling.step_annotation(global_step):
+                            loss = _dispatch(entry, accum, model, optimizer,
+                                             item.device, gen, mesh)
+                    stacked = entry.pad_to > 1
+                    if guard is not None:
+                        guard.step(program_label(
+                            "grouped_step" if stacked else "train_step",
+                            _tag(item.host, cfg),
+                            group_size if stacked else 1), item.device)
+                    n_steps = len(loss)
+                    global_step += n_steps
+                    state.step += n_steps
+                    steps += n_steps
+                    batches += entry.pad_to
+                    groups += entry.pad_to > 1
+                    losses.append(loss)
+                    last = loss[-1]
+                    pending["commits"] += item.n_valid
+                    pending["steps"] += n_steps
+                    if prof is not None and global_step > profile_window[-1]:
+                        sync_tick(last)
+                        profiling.end_trace(prof)
+                        prof = None
+                        profile_done = True
+                        log.console(f"profile trace written to {profile_dir}")
+                        meter.start()   # the trace's write is not train time
+                    if (-idx) % 10 < k:
+                        sync_tick(last)
+                        log.console(f"epoch: {epoch} batch: {idx} loss: "
+                                    f"{last.item():.4f}")
+                    idx += k
+                fs = feed.stats()
+            feed_totals["batches"] += fs["batches"]
+            feed_totals["feed_stall_s"] += fs["feed_stall_s"]
+            feed_totals["queue_depth_sum"] += fs["queue_depth_sum"]
+            if fs["batches"]:
+                feed_totals["queue_depth_min"] = min(
+                    feed_totals["queue_depth_min"], fs["queue_depth_min"])
+            if last is not None:
+                sync_tick(last)
+            ckpt.save_latest(state, best_bleu=best_bleu, epoch=epoch + 1,
+                             rng_impl=cfg.rng_impl)
+            meter.start()   # the checkpoint write is not train time
+    except BaseException:
+        if prof is not None:   # a run that raises inside the window
+            profiling.end_trace(prof)
+        raise
+    if prof is not None:   # the run ended inside the profile window
+        profiling.end_trace(prof)
+        log.console(f"profile trace written to {profile_dir}")
+    elif profile_dir and not profile_window:
+        log.console("profile trace NOT written: profile_steps=0")
+    elif profile_dir and not profile_done:
+        log.console(f"profile trace NOT written: run ended after "
+                    f"{global_step} steps, before the profile window "
+                    f"(starts at step {profile_window[0]})")
 
-                # fetched after the gate, inside the measured interval (the
-                # workers keep assembling while a gate runs)
-                item = next(feed)
-                pending["feed_s"] += item.stall_s
-                if entry.pad_to == 1:
-                    loss = step_lib.train_step(model, optimizer, item.device,
-                                               gen, mesh)[None]
-                elif accum > 1:
-                    loss = step_lib.accum_step(model, optimizer, item.device,
-                                               gen, mesh)[None]
-                else:
-                    loss = step_lib.multi_step(model, optimizer, item.device,
-                                               gen, mesh)
-                n_steps = len(loss)
-                state.step += n_steps
-                steps += n_steps
-                batches += entry.pad_to
-                groups += entry.pad_to > 1
-                losses.append(loss)
-                last = loss[-1]
-                pending["commits"] += item.n_valid
-                pending["steps"] += n_steps
-                if (-idx) % 10 < k:
-                    sync_tick(last)
-                    log.console(f"epoch: {epoch} batch: {idx} loss: "
-                                f"{last.item():.4f}")
-                idx += k
-            fs = feed.stats()
-        feed_totals["batches"] += fs["batches"]
-        feed_totals["feed_stall_s"] += fs["feed_stall_s"]
-        feed_totals["queue_depth_sum"] += fs["queue_depth_sum"]
-        if fs["batches"]:
-            feed_totals["queue_depth_min"] = min(
-                feed_totals["queue_depth_min"], fs["queue_depth_min"])
-        if last is not None:
-            sync_tick(last)
-        ckpt.save_latest(state, best_bleu=best_bleu, epoch=epoch + 1)
-        meter.start()   # the checkpoint write is not train time
-
+    msum = meter.summary()
     secs = meter.seconds
     # commits of the global batch, over the ranks (the JAX loop's chips)
-    cps = (meter.commits / secs / (1 if mesh is None else mesh.world)
-           if secs else 0.0)
+    cps = msum["items_per_sec"] / (1 if mesh is None else mesh.world)
     n_fed = feed_totals["batches"]
     feeder = {
         "batches": n_fed,
@@ -505,9 +573,10 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         "num_workers": float(cfg.feeder_workers),
         "depth": float(cfg.feeder_depth),
     }
-    if meter.steps:
-        log.console(f"throughput: {cps:.2f} commits/sec over {meter.steps} "
-                    f"measured steps ({1e3 * secs / meter.steps:.1f} "
+    if measured_steps:
+        log.console(f"throughput: {cps:.2f} commits/sec over "
+                    f"{measured_steps} measured steps "
+                    f"({1e3 * secs / measured_steps:.1f} "
                     f"ms/step), dev gates {dev_seconds:.2f} s | feeder "
                     f"queue depth mean {feeder['queue_depth_mean']:.1f} min "
                     f"{feeder['queue_depth_min']:.0f} (workers "
@@ -516,9 +585,71 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         state=state, best_bleu=best_bleu,
         epochs_run=max(0, n_epochs - start_epoch),
         commits_per_sec=cps,
-        steps_per_sec=meter.steps / secs if secs else 0.0,
-        feed_stall_frac=min(1.0, meter.feed_seconds / secs) if secs else 0.0,
+        steps_per_sec=measured_steps / secs if secs else 0.0,
+        feed_stall_frac=msum["feed_stall_frac"],
         steps=steps, gates=gates, dev_batches=dev_batches,
         dev_seconds=dev_seconds,
         losses=(torch.cat(losses).cpu().tolist() if losses else []),
         feeder=feeder, batches=batches, groups=groups, warnings=warnings)
+
+
+def _dispatch(entry, accum: int, model, optimizer, batch, gen, mesh
+              ) -> torch.Tensor:
+    """The optimizer steps of one plan entry: a step for a lone batch, one
+    accumulated step or K fused steps for a stacked group. Returns their
+    losses, (n_steps,) on the device."""
+    if entry.pad_to == 1:
+        return step_lib.train_step(model, optimizer, batch, gen, mesh)[None]
+    if accum > 1:
+        return step_lib.accum_step(model, optimizer, batch, gen, mesh)[None]
+    return step_lib.multi_step(model, optimizer, batch, gen, mesh)
+
+
+def _prewarm_guard(guard, dataset: FiraDataset, cfg: FiraConfig, table,
+                   group_size: int, *, warm_per_step: bool, device,
+                   sharding) -> None:
+    """The JAX loop's bucketed pre-warm, for the guard: declare the
+    (geometry x entrypoint x group-size) family, then step each member
+    once with an all-pad batch at its geometry, copied to the device as
+    the Feeder copies its batches, so each label's signature is fixed
+    before the first real dispatch. Eager torch has nothing to compile, so
+    no step runs."""
+    from fira_tpu_torch.data.batching import make_batch
+
+    train_split = dataset.splits["train"]
+    dev_geoms = buckets_lib.decode_table(cfg.replace(decode_tar_buckets=False))
+    labels = [program_label("dev_step", buckets_lib.geom_tag(g))
+              for g in dev_geoms]
+    for g in table:
+        tag = buckets_lib.geom_tag(g)
+        if warm_per_step:
+            labels.append(program_label("train_step", tag))
+        if group_size > 1:
+            labels.append(program_label("grouped_step", tag, group_size))
+    guard.declare(labels)
+
+    def wire(host):
+        return batch_to_device(host if sharding is None else sharding(host),
+                               device, TRAIN_FIELDS)
+
+    for g in table:
+        tag = buckets_lib.geom_tag(g)
+        wb = make_batch(train_split, np.arange(0), cfg,
+                        batch_size=cfg.batch_size, geom=g)
+        if warm_per_step:
+            guard.step(program_label("train_step", tag), wire(wb))
+        if group_size > 1:
+            guard.step(program_label("grouped_step", tag, group_size),
+                       wire(grouping.stack_group([wb] * group_size)))
+    for g in dev_geoms:
+        wb = make_batch(train_split, np.arange(0), cfg,
+                        batch_size=cfg.test_batch_size, geom=g)
+        guard.step(program_label("dev_step", buckets_lib.geom_tag(g)),
+                   batch_to_device(wb, device, TRAIN_FIELDS))
+
+
+def mesh_tooling_error() -> str:
+    """Why ``--sanitize``/``--profile-dir`` refuse a spawned mesh."""
+    return ("--sanitize and --profile-dir run in one process: the guard, "
+            "the module hooks and the profiler do not cross to spawned "
+            "mesh ranks (use one rank, or no mesh)")

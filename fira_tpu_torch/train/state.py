@@ -9,7 +9,9 @@ directory:
   file ``cli test`` decodes;
 - ``latest.pt``: everything a resume needs, written at each epoch's end:
   model, optimizer, step, epoch, best dev BLEU and the dropout generator's
-  state, so a resumed run draws the same masks.
+  state, so a resumed run draws the same masks, and the config's
+  ``rng_impl`` (JAX's dropout generator; a resume under another one is
+  refused, as in the JAX package).
 
 Both are written to a private name and renamed, so a reader never sees a
 half-written file.
@@ -128,13 +130,17 @@ class CheckpointManager:
             _atomic_save(sd, self.path(self.BEST))
 
     def save_latest(self, state: TrainState, *, best_bleu: float,
-                    epoch: int) -> None:
+                    epoch: int, rng_impl: str = "threefry") -> None:
+        """``rng_impl``: the config's ``rng_impl``, recorded as the JAX
+        package's checkpoint meta records it (torch draws dropout from its
+        own generator whatever it says)."""
         full = full_state(state, self.mesh)
         if self._writes():
             _atomic_save({**full,
                           "generator": state.generator.get_state(),
                           "step": int(state.step), "epoch": int(epoch),
-                          "best_bleu": float(best_bleu)},
+                          "best_bleu": float(best_bleu),
+                          "rng_impl": rng_impl},
                          self.path(self.LATEST))
 
     def load_latest(self) -> Dict[str, Any]:
@@ -142,10 +148,22 @@ class CheckpointManager:
         return torch.load(self.path(self.LATEST), map_location="cpu",
                           weights_only=True)
 
-    def restore_latest(self, state: TrainState) -> Dict[str, Any]:
+    def restore_latest(self, state: TrainState, *,
+                       expect_rng_impl: Optional[str] = None
+                       ) -> Dict[str, Any]:
         """Load ``latest.pt`` into ``state`` in place (cut to this rank's
-        shards under a mesh); returns {"epoch", "best_bleu"}."""
+        shards under a mesh); returns {"epoch", "best_bleu"}.
+        A checkpoint written without ``rng_impl`` reads as "threefry"; one
+        whose ``rng_impl`` is not ``expect_rng_impl`` (when given) is
+        refused with the JAX package's message, before anything loads."""
         payload = self.load_latest()
+        saved_impl = payload.get("rng_impl", "threefry")
+        if expect_rng_impl is not None and saved_impl != expect_rng_impl:
+            raise ValueError(
+                f"checkpoint was trained with rng_impl={saved_impl!r} but "
+                f"this run is configured with rng_impl={expect_rng_impl!r}; "
+                f"resume with the matching --rng-impl or use a fresh "
+                f"checkpoint dir")
         model_sd, opt_sd = payload["model"], payload["optimizer"]
         if self.mesh is not None:
             from fira_tpu_torch.parallel import mesh as pmesh

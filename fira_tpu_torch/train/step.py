@@ -17,6 +17,10 @@ axis), so every rank reports the global loss, and the gradients are
 summed over the data axis before Adam steps (``mesh.sync_grads``), as the
 JAX package's jitted steps do on its mesh
 (``fira_tpu/train/step.py`` ``jit_train_step``, ``_jit_stacked``).
+
+Each backward goes through ``analysis.sanitizer.backward``: a plain
+``backward()`` unless the sanitizer's NaN check is armed, which then runs
+it under anomaly detection (``--sanitize``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from fira_tpu_torch.analysis import sanitizer
 from fira_tpu_torch.model.model import FiraModel
 
 
@@ -52,7 +57,7 @@ def train_step(model: FiraModel, optimizer: torch.optim.Optimizer,
     model.train()
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(model, batch, generator, mesh)
-    loss.backward()
+    sanitizer.backward(loss)
     if mesh is not None:
         from fira_tpu_torch.parallel.mesh import sync_grads
 
@@ -95,7 +100,7 @@ def accum_step(model: FiraModel, optimizer: torch.optim.Optimizer,
     nll_sum = count = None
     for i in range(a):
         nll, cnt = model(_member(stacked, i), generator)
-        nll.backward()
+        sanitizer.backward(nll)
         nll_sum = nll.detach() if nll_sum is None else nll_sum + nll.detach()
         count = cnt if count is None else count + cnt
     if mesh is not None:

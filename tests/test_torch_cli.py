@@ -18,7 +18,13 @@ decodes the trained checkpoint.
 ``--fused-steps`` pins it; ``train --buckets auto`` runs with
 ``--fused-steps 2`` and with ``--accum-steps 2``, and ``test --buckets
 auto`` writes the unbucketed decode's bytes; ``decode_tar_buckets=True``
-is refused."""
+is refused.
+
+``--synthetic 24`` writes the JAX CLI's corpus files byte for byte; the
+two CLIs' flag sets differ only by the port's ``--device`` and
+``--feeder-workers``; ``latest.pt`` records ``rng_impl`` and a resume
+under another is refused in the JAX package's words (a checkpoint without
+the field reads as threefry)."""
 
 import dataclasses
 import os
@@ -263,3 +269,102 @@ def test_decode_tar_buckets_refused(tiny_corpus, tmp_path, capsys):
     assert rc == 2
     assert ("kv_block_size 5 does not divide decode tar budget 12"
             in capsys.readouterr().err)
+
+
+def test_synthetic_writes_the_jax_clis_files(tmp_path, capsys):
+    """``--synthetic 24`` writes the corpus before anything else, file for
+    file and byte for byte the JAX CLI's (both then stop: no
+    checkpoint)."""
+    from fira_tpu import cli as jax_cli
+
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_cli.main(["test", "--config", "fira-tiny", "--synthetic",
+                         "24", "--data-dir", jdir,
+                         "--out-dir", str(tmp_path / "jo")]) == 1
+    assert cli.main(["test", "--config", "fira-tiny", "--device", "cpu",
+                     "--synthetic", "24", "--data-dir", tdir,
+                     "--out-dir", str(tmp_path / "to")]) == 1
+    out = capsys.readouterr().out
+    assert f"synthetic corpus: 24 commits -> {tdir}" in out
+    assert f"synthetic corpus: 24 commits -> {jdir}" in out
+    # the JAX CLI loads the corpus before its checkpoint check, which
+    # writes the split index; the port's loads it after
+    from fira_tpu_torch.config import fira_tiny as torch_fira_tiny
+    from fira_tpu_torch.data.dataset import FiraDataset
+
+    FiraDataset(tdir, torch_fira_tiny())
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    names = [n for n in sorted(os.listdir(tdir))    # the corpus files, not
+             if os.path.isfile(os.path.join(tdir, n))]   # the load's cache
+    assert len(names) > 5
+    for name in names:
+        with open(os.path.join(tdir, name), "rb") as f, \
+                open(os.path.join(jdir, name), "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def test_flag_sets_differ_only_by_device_and_feeder_workers():
+    """Every flag of the JAX CLI, with its choices; the port adds
+    --device and --feeder-workers."""
+    from fira_tpu import cli as jax_cli
+
+    def flags(parser):
+        return {o: a for a in parser._actions for o in a.option_strings}
+
+    jax_flags, port_flags = flags(jax_cli.build_parser()), flags(
+        cli.build_parser())
+    assert set(port_flags) ^ set(jax_flags) == {"--device",
+                                                "--feeder-workers"}
+    for name in ("--copy-head", "--rng-impl", "--sanitize", "--profile-dir",
+                 "--synthetic"):
+        assert port_flags[name].choices == jax_flags[name].choices, name
+        assert port_flags[name].default == jax_flags[name].default, name
+    assert jax_flags["--backend"].choices == ["jax"]
+    assert port_flags["--backend"].choices == ["torch"]
+    args = cli.build_parser().parse_args(
+        ["train", "--copy-head", "pallas", "--rng-impl", "rbg"])
+    cfg = cli.resolve_config(args)
+    assert (cfg.copy_head_impl, cfg.rng_impl) == ("pallas", "rbg")
+
+
+def test_checkpoint_rng_impl_recorded_and_mismatch_refused(tmp_path):
+    """``latest.pt`` records the config's rng_impl; a resume under another
+    is refused with the JAX package's message (from its own orbax
+    checkpoint), and a checkpoint without the field reads as threefry."""
+    from fira_tpu.data.batching import make_batch as jax_make_batch
+    from fira_tpu.train.state import CheckpointManager as JaxCkpt
+    from fira_tpu.train.state import init_state as jax_init_state
+    from fira_tpu_torch.train import state as state_lib
+
+    jdir = str(tmp_path / "jax_data")
+    jax_synthetic.write_corpus_dir(jdir, n_commits=24, seed=SEED)
+    jds = JaxDataset(jdir, fira_tiny(batch_size=2))
+    jbatch = jax_make_batch(jds.splits["train"], [0, 1], jds.cfg)
+    jstate = jax_init_state(JaxModel(jds.cfg), jds.cfg, jbatch)
+    jck = JaxCkpt(str(tmp_path / "jax_ckpt"))
+    jck.save_latest(jstate, best_bleu=0.0, epoch=1, rng_impl="rbg")
+    with pytest.raises(ValueError) as jerr:
+        jck.restore_latest(jstate, expect_rng_impl="threefry")
+
+    tcfg = TorchConfig(vocab_size=jds.cfg.vocab_size,
+                       ast_change_vocab_size=jds.cfg.ast_change_vocab_size,
+                       **{f.name: getattr(jds.cfg, f.name)
+                          for f in dataclasses.fields(TorchConfig)
+                          if f.name not in ("vocab_size",
+                                            "ast_change_vocab_size")
+                          and hasattr(jds.cfg, f.name)})
+    state = state_lib.init_state(tcfg, "cpu")
+    ck = state_lib.CheckpointManager(str(tmp_path / "ckpt"))
+    ck.save_latest(state, best_bleu=0.0, epoch=1, rng_impl="rbg")
+    assert ck.load_latest()["rng_impl"] == "rbg"
+    with pytest.raises(ValueError) as terr:
+        ck.restore_latest(state, expect_rng_impl="threefry")
+    assert str(terr.value) == str(jerr.value)
+    assert ck.restore_latest(state, expect_rng_impl="rbg")["epoch"] == 1
+
+    payload = ck.load_latest()
+    del payload["rng_impl"]        # a checkpoint from before the field
+    torch.save(payload, ck.path(ck.LATEST))
+    assert ck.restore_latest(state, expect_rng_impl="threefry")["epoch"] == 1
+    with pytest.raises(ValueError, match="rng_impl='threefry'"):
+        ck.restore_latest(state, expect_rng_impl="rbg")

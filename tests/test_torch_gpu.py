@@ -657,3 +657,56 @@ def test_training_gradients_are_reproducible(cuda, tmp_path):
     for other in runs[1:]:
         for k, g in runs[0].items():
             assert torch.equal(g, other[k]), k
+
+
+@pytest.mark.gpu
+def test_guard_holds_the_kernels_cuda_signatures(cuda):
+    """The sanitizer's guard on the copy score's CUDA inputs: the same
+    shapes on the card pass, a changed T or a CPU copy raises."""
+    from fira_tpu_torch.analysis import sanitizer
+
+    guard = sanitizer.CompileGuard()
+    for seed in (0, 1):
+        src, tgt, w, b = _inputs(20, 30, 370, 256, device=cuda, seed=seed)
+        cs.copy_scores(src, tgt, w, b)
+        guard.step("copy_score", src, tgt, w)
+    with pytest.raises(sanitizer.RetraceError, match="'copy_score'"):
+        guard.step("copy_score", *_inputs(20, 1, 370, 256, device=cuda)[:3])
+    with pytest.raises(sanitizer.RetraceError, match="cpu"):
+        guard.step("copy_score", src.cpu(), tgt, w)
+    assert guard._seen == {"copy_score": 4}
+
+
+@pytest.mark.gpu
+def test_nan_checks_through_the_kernels(cuda):
+    """Armed, a NaN score weight makes K1's output (the copy head's)
+    raise FloatingPointError naming the module, and a NaN reaching K2's
+    gradients raises it from the backward; unarmed, both run on."""
+    from fira_tpu_torch.analysis import sanitizer
+    from fira_tpu_torch.model.model import CopyNet
+
+    net = CopyNet(256, device=cuda)
+    src, tgt, _, _ = _inputs(20, 30, 370, 256, device=cuda)
+    with torch.no_grad():
+        net.score.weight.fill_(float("nan"))
+    before = cs.copy_scores.launches
+    with sanitizer.sanitize():
+        with pytest.raises(FloatingPointError,
+                           match=r"'CopyNet' \(CopyNet\) produced NaN"):
+            net(src, tgt, projected=True)
+    assert cs.copy_scores.launches == before + 1
+    scores, _ = net(src, tgt, projected=True)
+    assert torch.isnan(scores).all()
+
+    # a NaN source row: K2 takes a finite dout and returns NaN gradients,
+    # so the anomaly report names its backward
+    s, t, w, b = _inputs(20, 30, 370, 256, device=cuda)
+    s[0, 0, 0] = float("nan")
+    s, t, w, b = (x.requires_grad_() for x in (s, t, w, b))
+    out = cs.copy_scores(s, t, w, b)
+    bwd = cs.copy_scores_backward.launches
+    with sanitizer.sanitize():
+        with pytest.raises(FloatingPointError,
+                           match="backward produced NaN.*_CopyScoreFn"):
+            sanitizer.backward(out.sum())
+    assert cs.copy_scores_backward.launches == bwd + 1

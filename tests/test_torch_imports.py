@@ -36,7 +36,9 @@ REQUIRED = ("fira_tpu_torch.robust.faults", "fira_tpu_torch.robust.watchdog",
             "fira_tpu_torch.decode.quant", "fira_tpu_torch.decode.spec",
             "fira_tpu_torch.serve.disagg", "fira_tpu_torch.parallel.mesh",
             "fira_tpu_torch.parallel.ring", "fira_tpu_torch.parallel.jobs",
-            "fira_tpu_torch.model.ablate_embed")
+            "fira_tpu_torch.model.ablate_embed",
+            "fira_tpu_torch.analysis.sanitizer",
+            "fira_tpu_torch.utils.profiling")
 
 
 def test_port_imports_no_jax_and_nothing_of_fira_tpu():
