@@ -108,8 +108,8 @@ Phases, each printing its own line; any failure exits non-zero:
             the engine's bytes equal to the batched early exit's there (and
             at 8 and 64 slots the lines that differ); K1 once a
             micro-step, the block allocator healthy after every run; then,
-            f32 and bf16, engine against batched early exit in turns a b b
-            a (bf16: a b) on the trained and the mixed-depth weights
+            f32 and bf16, engine against batched early exit in turns a b
+            on the trained and the mixed-depth weights
             (commits/s,
             occupancy, steps a commit, pool use, bytes a slot, peak memory
             above what was held, host syncs a dispatch) and one warm engine
@@ -203,7 +203,7 @@ Phases, each printing its own line; any failure exits non-zero:
             ``train.loop.train`` on a 1x1 mesh with the gate, every loss,
             ``best.pt`` and ``latest.pt`` bitwise equal to phase 5's f32
             run; two ranks sharing the card (gloo, collectives staged
-            through host memory) at DP 2x1 and TP 1x2, 3 steps at batch
+            through host memory) at DP 2x1 and TP 1x2, 2 steps at batch
             170 from the seeded weights (losses within 2e-5 of one
             process), K1/K2 once a
             step on each rank at its shard's shape (phase 4 times K1 and
@@ -211,8 +211,19 @@ Phases, each printing its own line; any failure exits non-zero:
             and peak memory a rank; TP with dropout on, one step
             (replicated parameters bit-identical across the ranks); ring
             attention at
-            ``seq_shards=2`` on the two ranks against dense; out_fc's
-            all-reduce timed; ``cli train --mesh 2x1`` exits 2;
+            ``seq_shards=2`` on the two ranks against dense, at DP 2x1
+            and beside tensor parallelism, TP 1x2 (one step and its
+            gradients against one process, K1/K2 once a rank, every
+            cross-attention on the ring); out_fc's all-reduce timed;
+            ``cli train --mesh 2x1`` exits 2; the one-process ring
+            (``parallel/ring.DeviceRing``) over ``["cuda:0", "cuda:0"]``
+            at ``seq_shards=2``: the full-prefix beam over the test split
+            in f32 (the bytes of the dense full-prefix decode and of
+            phase 16's) and bf16 (lines differing from dense bf16
+            reported), the engine's full-prefix arena (the same f32
+            bytes), K1 once a step, the ring and dense calls counted,
+            seconds beside dense; ``cli test --seq-shards 2`` on one card
+            exits 2 in the JAX model's words;
 25. tooling ``cli train --config fira-full --synthetic 200 --epochs 16
             --sanitize --profile-dir P`` in a child process (fira-full
             gates from epoch 15; an epoch is one step): exit 0 with no
@@ -978,7 +989,7 @@ def train_plain(torch, ctx, run: dict, rtol=None, f32_plain=None) -> list:
 def feed_designs(torch, ctx, dtype: str) -> None:
     """The same training steps with the Feeder's 2 workers assembling (the
     path's design) and with 0 (the loop's own thread assembles), in turns
-    a b b a; the loop issues the copies to the card in both. Each: 16
+    a b; the loop issues the copies to the card in both. Each: 16
     steps (4 epochs of 4) after a warm epoch, host wall to a synchronise,
     and the share of it the loop spent in the Feeder."""
     from fira_tpu_torch.data.batching import epoch_index_chunks
@@ -1014,10 +1025,10 @@ def feed_designs(torch, ctx, dtype: str) -> None:
 
     run(2, [0])   # warm: kernels built and launched, allocator filled
     got = {2: [], 0: []}
-    for workers in (2, 0, 0, 2):
+    for workers in (2, 0):
         got[workers].append(run(workers, [1, 2, 3, 4]))
     print(f"[feed {dtype}] the same 16 steps with 2 Feeder workers and with "
-          f"0, in turns a b b a: "
+          f"0, in turns a b: "
           + "; ".join(f"workers {k}: steps/s "
                       + " ".join(f"{r[0]:.3f}" for r in v) + ", feed share "
                       + " ".join(f"{r[1]:.4f}" for r in v)
@@ -1071,7 +1082,7 @@ def test_path(torch, ctx, run: dict) -> dict:
 
 def decode_plain(torch, ctx, run: dict, main: dict) -> None:
     """The same decode with the plain copy score swapped in, in turns
-    kernel/plain/plain/kernel; then both once in log space. f32:
+    kernel/plain; then both once in log space. f32:
     byte-identical to the CLI's output, and the two log-space outputs
     byte-identical. bf16: the lines that differ are counted (a one-step
     bf16 rounding difference can flip a near-tie in the beam), and the
@@ -1086,7 +1097,7 @@ def decode_plain(torch, ctx, run: dict, main: dict) -> None:
     model.load_state_dict(run["state_dict"])
     rates = {"kernel": [], "plain": []}
     outs = {}
-    for label in ("kernel", "plain", "plain", "kernel"):
+    for label in ("kernel", "plain"):
         model.copy_net.score_fn = (cs.copy_scores if label == "kernel"
                                    else cs.copy_scores_reference)
         out = os.path.join(work, f"dec_{dtype}_{label}_{len(rates[label])}")
@@ -1100,7 +1111,6 @@ def decode_plain(torch, ctx, run: dict, main: dict) -> None:
         outs.setdefault(f"{label}_file", os.path.join(out, "output_fira"))
     check(outs["kernel"] == {main["out_bytes"]},
           f"{dtype}: kernel decode output differs from the CLI's")
-    check(len(outs["plain"]) == 1, f"{dtype}: two plain decodes differ")
     plain_bytes = next(iter(outs["plain"]))
     a = main["out_bytes"].decode().split("\n")
     b = plain_bytes.decode().split("\n")
@@ -1113,7 +1123,7 @@ def decode_plain(torch, ctx, run: dict, main: dict) -> None:
              f"({len(plain_bytes)} bytes)" if plain_bytes == main["out_bytes"]
              else f"{n_diff} of {n_test} lines of output_fira differ from the "
                   f"kernel run")
-          + f"; decode loop commits/s, in turns kernel/plain/plain/kernel: "
+          + f"; decode loop commits/s, in turns kernel/plain: "
           f"kernel {' '.join(f'{r:.2f}' for r in rates['kernel'])}, plain "
           f"{' '.join(f'{r:.2f}' for r in rates['plain'])}", flush=True)
     if plain_bytes != main["out_bytes"]:
@@ -1456,7 +1466,7 @@ def bucket_checks(torch, ctx, tables: dict) -> None:
 def bucket_turns(torch, ctx, dtype: str, tables: dict) -> None:
     """``train.loop.train`` over the same two epochs at the full geometry
     one step a batch, with the train buckets one step a batch, and with the
-    buckets and fused_steps=3, in turns a b c c b a on one state (no gate:
+    buckets and fused_steps=3, in turns a b c on one state (no gate:
     the gates start past the run), after a warm epoch of each: its
     steps/s and commits/s (first interval and checkpoint writes out)."""
     from fira_tpu_torch.train import loop as train_loop
@@ -1480,11 +1490,10 @@ def bucket_turns(torch, ctx, dtype: str, tables: dict) -> None:
     for mode in modes:
         run(mode, 1)
     got = {m: [] for m in modes}
-    for mode in ("single", "buckets", "fused3", "fused3", "buckets",
-                 "single"):
+    for mode in ("single", "buckets", "fused3"):
         got[mode].append(run(mode, 2))
     print(f"[turns {dtype}] train.loop.train, the same 2 epochs, in turns "
-          f"a b c c b a: "
+          f"a b c: "
           + "; ".join(f"{m}: steps/s "
                       + " ".join(f"{r[0]:.3f}" for r in v)
                       + ", commits/s " + " ".join(f"{r[1]:.1f}" for r in v)
@@ -1585,14 +1594,14 @@ def test_buckets(torch, ctx, run: dict, main: dict) -> dict:
     model = FiraModel(cfg, device="cuda", dtype=dtype)
     model.load_state_dict(run["state_dict"])
     rates = {"unbucketed": [], "bucketed": []}
-    for label in ("unbucketed", "bucketed", "bucketed", "unbucketed"):
+    for label in ("unbucketed", "bucketed"):
         c = bcfg if label == "bucketed" else cfg.replace(compute_dtype=dtype)
         t0 = time.perf_counter()
         run_test(model, ds, c, out_dir=os.path.join(work, f"turn_{dtype}"),
                  var_maps=ctx["var_maps"])
         torch.cuda.synchronize()
         rates[label].append(n_test / (time.perf_counter() - t0))
-    print(f"[main buckets {dtype}] decode loop commits/s in turns u b b u: "
+    print(f"[main buckets {dtype}] decode loop commits/s in turns u b: "
           + "; ".join(f"{k} " + " ".join(f"{r:.2f}" for r in v)
                       for k, v in rates.items())
           + f"; metrics of the bucketed output_fira: "
@@ -1797,23 +1806,23 @@ def beam_modes(torch, ctx, run: dict, main: dict) -> dict:
                   f"prob {bnorm_bleu_files(files[0], ctx['gt_file'])!r}",
                   flush=True)
     # the cached modes a user picks between, on the trained weights, timed
-    # in turns a b c d d c b a (one decode each is noisy on a shared host)
+    # in turns a b c d
     model.load_state_dict(run["state_dict"])
     turns = {"fused": (False, False), "factored": (True, False),
              "fused+early": (False, True), "factored+early": (True, True)}
     rates = {name: [] for name in turns}
-    for name in [*turns, *reversed(turns)]:
+    for name in turns:
         fac, early = turns[name]
         r = decode_split(torch, ctx, model, c0.replace(
             beam_factored_topk=fac, beam_early_exit=early), batches)
         k1 += r["k1"]
         rates[name].append(r["rate"])
     print(f"[beam modes {dtype}] trained, cached, prob space, beam loop "
-          f"commits/s in turns a b c d d c b a: "
+          f"commits/s in turns a b c d: "
           + "; ".join(f"{name} " + " ".join(f"{x:.2f}" for x in v)
                       for name, v in rates.items()), flush=True)
     print(f"[beam modes {dtype}] copy_score launches over the "
-          f"{len(got) + 2 * len(turns)} decodes: {k1} ({prefix_k1} at the "
+          f"{len(got) + len(turns)} decodes: {k1} ({prefix_k1} at the "
           f"full-prefix shape ({bs * cfg.beam_size}, {T}, {cfg.copy_len}, "
           f"{cfg.embedding_dim}))", flush=True)
     return dict(k1=k1, out={k: r["out"] for k, r in got.items()})
@@ -2217,7 +2226,7 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> tuple:
     launches once a micro-step. Reported: lines that differ at 8 and 64
     slots, ``--buckets auto --decode-tar-buckets`` and its B-Norm BLEU;
     then, f32 and bf16, the engine against the batched early exit beam in
-    turns a b b a (commits/s, occupancy, steps per commit, pool use,
+    turns a b (commits/s, occupancy, steps per commit, pool use,
     bytes a slot, peak memory above what was held, host syncs a
     dispatch) on the trained and the mixed-depth weights, and one warm
     engine dispatch profiled. Returns K1's launches a dtype and the bytes of
@@ -2311,9 +2320,8 @@ def engine_phase(torch, ctx, run32: dict, run16: dict, modes: dict) -> tuple:
                   f"histogram {dict(sorted(hist.items()))}", flush=True)
         weights["mixed"] = eos_biased(run["state_dict"], ctx["eos_delta"])
         ce = c.replace(beam_early_exit=True)
-        # bf16: one turn each (the smoke's time limit)
-        order = (("batched", "engine", "engine", "batched") if f32
-                 else ("batched", "engine"))
+        # one turn each (the smoke's time limit)
+        order = ("batched", "engine")
         for wname, sd in weights.items():
             model.load_state_dict(sd)
             got = {"batched": [], "engine": []}
@@ -3052,17 +3060,8 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
               f"message path, expected {want} (one a beam step)")
         check(all(m.strip() for m in msgs), f"{dtype}: an empty message")
         lat = {"kernel": [med(stats, "latency_s")], "plain": []}
-        plain = None
-        for label in ("plain", "plain", "kernel"):
-            got, st = one_pass(model, c, cs.copy_scores if label == "kernel"
-                               else cs.copy_scores_reference)
-            lat[label].append(med(st, "latency_s"))
-            if label == "plain":
-                check(plain is None or got == plain,
-                      f"{dtype}: two plain passes differ")
-                plain, plain_stats = got, st
-            else:
-                check(got == msgs, f"{dtype}: two K1 passes differ")
+        plain, plain_stats = one_pass(model, c, cs.copy_scores_reference)
+        lat["plain"].append(med(plain_stats, "latency_s"))
         n_diff = sum(a != b for a, b in zip(msgs, plain))
         rel, close = probs_gap(stats, plain_stats, f"{dtype} prob space")
         if dtype == "float32":
@@ -3091,7 +3090,7 @@ def phase_message(torch, ctx, run32: dict, run16: dict) -> dict:
               + ", ".join(f"{k[:-2]} {1e3 * med(stats, k):.3f} ms"
                           for k in stages)
               + f" (first message {1e3 * stats[0]['latency_s']:.1f} ms); "
-              f"message latency in turns K1/plain/plain/K1: K1 "
+              f"message latency in turns K1/plain: K1 "
               f"{' '.join(f'{1e3 * x:.1f}' for x in lat['kernel'])} ms, "
               f"plain {' '.join(f'{1e3 * x:.1f}' for x in lat['plain'])} ms; "
               f"{n_diff} of {len(texts)} messages differ from the plain "
@@ -3921,7 +3920,7 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     each run equal ``k1_formula`` of its engines' counters. Printed beside
     the card: each spec tier's acceptance, verify frames and dispatches a
     commit against the plain engine on the trained and the biased
-    checkpoints; spec against plain commits/s in turns s p p s;
+    checkpoints; spec against plain commits/s in turns s p;
     each tier against f32 (lines that differ, the B-Norm BLEU delta, the
     mean and p99 divergence of the beam scores); disaggregated against
     in-process req/s and p99 TTFT at 1.5x the drain, in 2 turns; the
@@ -4105,20 +4104,20 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
               f"{card}", flush=True)
 
     laps.append(("quality", time.perf_counter() - t_phase))
-    # spec against plain commits/s, in turns s p p s (warm engines)
+    # spec against plain commits/s, in turns s p (warm engines)
     cspec1 = c1.replace(spec_decode="copy", engine_spec_k=4)
     e_plain = ref["eng"]
     e_spec = engine_lib.SlotEngine(model, cspec1)
     e_spec.prewarm([batches[0][1]])
     rates = {"plain": [], "spec": []}
-    for i, which in enumerate(("spec", "plain", "plain", "spec")):
+    for i, which in enumerate(("spec", "plain")):
         c = cspec1 if which == "spec" else c1
         r = engine_decode(torch, ctx, model, c, batches,
                           eng=e_spec if which == "spec" else e_plain)
         k1 += r["k1"]
         check(r["out"] == engine_bytes, f"turn {i + 1} ({which}): bytes")
         rates[which].append(r["rate"])
-    print(f"[tiers] commits/s in turns s p p s, copy k4 vs plain "
+    print(f"[tiers] commits/s in turns s p, copy k4 vs plain "
           f"(trained checkpoint, 20 slots): spec "
           f"{', '.join(f'{x:.2f}' for x in rates['spec'])}, plain "
           f"{', '.join(f'{x:.2f}' for x in rates['plain'])}; {card}",
@@ -4244,7 +4243,7 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     return k1
 
 
-MESH_STEPS = 3     # steps of each two-rank layout
+MESH_STEPS = 2     # steps of each two-rank layout
 MESH_RTOL = 2e-5   # a layout's loss against one process (the JAX package's
                    # mesh tolerance, tests/test_train_decode.py)
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5   # a layout's first-batch gradients
@@ -4284,7 +4283,7 @@ def file_bytes_equal(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
-def phase_mesh(torch, ctx, run32: dict) -> dict:
+def phase_mesh(torch, ctx, run32: dict, run16: dict, modes32: dict) -> dict:
     """The training mesh (``parallel/mesh.py``) on the one card, fira-full
     f32, counts from zero around each run:
 
@@ -4309,13 +4308,19 @@ def phase_mesh(torch, ctx, run32: dict) -> dict:
        bit-identical across the ranks, the loss within ``MESH_RTOL`` of
        one process drawing from the same seed;
     5. the ring: ``seq_shards=2`` on the 2x1 ranks, the loss of one batch
-       within ``MESH_RTOL`` of dense cross-attention;
+       within ``MESH_RTOL`` of dense cross-attention; and beside tensor
+       parallelism, TP 1x2 with ``seq_shards=2``: one step's loss within
+       ``MESH_RTOL`` of one process at ``seq_shards=0`` and the first
+       batch's gradients as in 3, K1/K2 once on each rank, every
+       cross-attention call on the ring;
     6. out_fc's all-reduce of the (170 x 30, 24,650) f32 logits timed on
        the 1x1 NCCL group and the two gloo ranks;
-    7. ``cli train --mesh 2x1`` exits 2 on the one card.
+    7. ``cli train --mesh 2x1`` exits 2 on the one card;
+    8. the decode commands' one-process ring (``device_ring``).
 
-    Returns the K1/K2 launches of the 1x1 runs (full shapes) and of the
-    ranks (shard shapes)."""
+    Returns the K1/K2 launches of the 1x1 runs (full shapes), of the
+    ranks (shard shapes) and of the one-process ring's decodes (K1 by
+    dtype)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4482,7 +4487,7 @@ def phase_mesh(torch, ctx, run32: dict) -> dict:
               f"same seed", flush=True)
         check(same_rep, "TP ranks' replicated parameters drifted apart")
         check(rel <= MESH_RTOL, f"TP dropout loss off by {rel:.3e}")
-        gloo_ar = pool.run(jobs.all_reduce_job, shape, mesh=tp)
+        gloo_ar = pool.run(jobs.all_reduce_job, shape, reps=2, mesh=tp)
         print(f"[mesh] out_fc's all-reduce of {shape} f32 "
               f"({nccl_ar['bytes'] / 1e6:.1f} MB): {nccl_ar['ms']:.3f} ms on "
               f"the one-rank NCCL group (a copy), "
@@ -4495,6 +4500,39 @@ def phase_mesh(torch, ctx, run32: dict) -> dict:
         got = pool.run(jobs.model_job, plain.replace(seq_shards=2), full,
                        hosts[0], mesh=ring_mesh)
         ring_s = time.perf_counter() - t0
+        # ring attention beside tensor parallelism: one step and the first
+        # batch's gradients on TP 1x2 with seq_shards=2
+        tp_ring = dataclasses.replace(tp, seq_shards=2)
+        t0 = time.perf_counter()
+        tpr = pool.run(jobs.step_job, plain.replace(seq_shards=2), full,
+                       hosts[:1], mesh=tp_ring)
+        tpr_s = time.perf_counter() - t0
+    r0 = tpr[0]
+    rel = max_rel(r0["losses"], ref_plain["losses"][:1])
+    gr = grad_report(torch, r0.pop("grads"), ref_plain["grads"])
+    rank_counts["tp"]["k1"] += sum(r["k1"] for r in tpr)
+    rank_counts["tp"]["k2"] += sum(r["k2"] for r in tpr)
+    rank_counts["tp_ring"] = [(r["k1"], r["k2"]) for r in tpr]
+    print(f"[mesh] TP 1x2 with seq_shards=2 (ring attention beside tensor "
+          f"parallelism, two ranks on one card): loss {r0['losses'][0]:.6f} "
+          f"vs one process at seq_shards=0 {ref_plain['losses'][0]:.6f}, "
+          f"rel {rel:.3e} (rtol {MESH_RTOL}); first-batch gradients: "
+          f"{gr['norm_rel']:.3e} of the norm, every entry within rtol "
+          f"{GRAD_RTOL} / atol {GRAD_ATOL} (closest: {gr['worst']}, "
+          f"{gr['excess']:.3e} past it); K1/K2 a rank "
+          + ", ".join(f"{r['k1']}/{r['k2']}" for r in tpr)
+          + " at (170, 30, 370, 128); cross-attention calls a rank by "
+          f"route " + ", ".join(str(r["routes"]) for r in tpr)
+          + f"; {tpr_s:.1f} s", flush=True)
+    check(rel <= MESH_RTOL, f"TP+ring loss off by {rel:.3e}")
+    check(gr["excess"] <= 0 and gr["norm_rel"] <= GRAD_RTOL,
+          f"TP+ring gradients: {gr}")
+    check(all(r["k1"] == r["k2"] == 1 for r in tpr),
+          f"TP+ring: K1/K2 launches {rank_counts['tp_ring']}, expected 1 "
+          f"each a rank")
+    check(all(r["routes"] == {"ring": 2 * cfg.num_layers} for r in tpr),
+          f"TP+ring routes {[r['routes'] for r in tpr]}, expected every "
+          f"cross-attention of the gradient pass and the step on the ring")
     model = FiraModel(plain, device="cuda").eval()
     model.load_state_dict(full)
     with torch.no_grad():
@@ -4518,7 +4556,103 @@ def phase_mesh(torch, ctx, run32: dict) -> dict:
     print(f"[mesh] cli train --mesh 2x1 on {torch.cuda.device_count()} "
           f"card(s): exit {rc}: {err.strip()}", flush=True)
     check(rc == 2 and want in err, f"--mesh 2x1: exit {rc}, {err!r}")
-    return dict(full=counts, **rank_counts)
+    ring_k1 = device_ring(torch, ctx, run32, run16, modes32)
+    return dict(full=counts, ring=ring_k1, **rank_counts)
+
+
+RING_DEVICES = ["cuda:0", "cuda:0"]   # the one-process ring on one card
+
+
+def device_ring(torch, ctx, run32: dict, run16: dict, modes32) -> dict:
+    """The decode commands' one-process ring (``parallel/ring.DeviceRing``)
+    over ``RING_DEVICES`` at ``seq_shards=2``, on each dtype's trained
+    weights, beside the same decode without the ring, counts from zero
+    around each: the full-prefix beam over the test split (fused, prob
+    space, full scan) in f32 must write the dense decode's bytes and
+    ``modes32``'s (phase 16's, when given), in bf16 the lines that differ
+    from dense bf16 are reported; in f32 the engine's full-prefix arena
+    must write those bytes too. K1 once a beam step (engine:
+    ``k1_formula``), every cross-attention call of a ring decode on the
+    ring (60 rows over a data axis of 1); seconds beside dense. Then
+    ``cli test --seq-shards 2`` on one card exits 2 in the JAX model's
+    words. Returns K1's launches by dtype."""
+    from fira_tpu_torch.model.model import FiraModel
+    from fira_tpu_torch.parallel import ring
+
+    ds, cfg = ctx["ds"], ctx["cfg"]
+    k1 = {}
+    t_phase = time.perf_counter()
+    for run in (run32, run16):
+        dtype = run["gated"].compute_dtype
+        c = cfg.replace(compute_dtype=dtype, beam_kv_cache=False)
+        batches = staged_batches(torch, ctx, c)
+        n = sum(int(h["valid"].sum()) for _, h, _ in batches)
+        dense = FiraModel(c, device="cuda", dtype=dtype).eval()
+        dense.load_state_dict(run["state_dict"])
+        cr = c.replace(seq_shards=2)
+        ringed = FiraModel(cr, device="cuda", dtype=dtype,
+                           ring_devices=RING_DEVICES).eval()
+        ringed.load_state_dict(run["state_dict"])
+        paths = [("full-prefix beam", decode_split)]
+        if dtype == "float32":
+            paths.append(("engine full-prefix arena", engine_decode))
+        k1[dtype] = 0
+        ref = None
+        for name, fn in paths:
+            d = fn(torch, ctx, dense, c, batches)
+            ring.ROUTES.clear()
+            r = fn(torch, ctx, ringed, cr, batches)
+            routes = dict(ring.ROUTES)
+            k1[dtype] += d["k1"] + r["k1"]
+            ref = ref or d
+            diff = n_lines_differ(r["out"], ref["out"])
+            if name == "full-prefix beam":
+                check(r["k1"] == sum(r["steps"]) == d["k1"],
+                      f"{dtype} ring beam: K1 {r['k1']} for {r['steps']} "
+                      f"steps (dense {d['k1']})")
+                want_ring = cfg.num_layers * sum(r["steps"])
+            else:
+                want_ring = routes.get("ring", 0)
+            check(routes == {"ring": want_ring} and want_ring > 0,
+                  f"{dtype} {name}: routes {routes}")
+            same = None
+            if dtype == "float32":
+                check(not diff and d["out"] == ref["out"],
+                      f"{name} on the ring: {len(diff)} lines differ from "
+                      f"the dense full-prefix decode")
+                if modes32 is not None:
+                    same = r["out"] == modes32["out"][
+                        "trained", False, False, True, False]
+                    check(same, f"{name} on the ring: bytes differ from "
+                          f"the beam-modes phase's full-prefix decode")
+            print(f"[mesh] one-process ring over {RING_DEVICES}, "
+                  f"seq_shards=2, {dtype} {name} over the {n} test commits: "
+                  f"{len(diff)} of {n} lines differ from the dense "
+                  f"full-prefix decode"
+                  + ("" if same is None else
+                     f", byte-identical to the beam-modes phase's: {same}")
+                  + f"; K1 {r['k1']} (dense {d['k1']}) at "
+                  f"({c.test_batch_size * cfg.beam_size}, {cfg.tar_len}, "
+                  f"{cfg.copy_len}, {cfg.embedding_dim}); cross-attention "
+                  f"calls by route "
+                  f"{routes}; {n / r['rate']:.3f} s vs dense "
+                  f"{n / d['rate']:.3f} s (not timed in turns); on "
+                  f"{ctx['kind']}, {ctx['smi']}", flush=True)
+        del dense, ringed, batches
+        torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    rc, _out, err, _k1 = run_cli(torch, ctx, [
+        "test", "--config", "fira-full", "--data-dir", ctx["data_dir"],
+        "--ckpt-dir", run32["ckpt_dir"], "--seq-shards", "2",
+        "--out-dir", os.path.join(ctx["work"], "mesh", "ring_cli")])
+    want = f"seq_shards=2 does not divide the {n_cards} visible devices"
+    print(f"[mesh] cli test --seq-shards 2 on {n_cards} card(s): exit {rc}: "
+          f"{err.strip()}; the one-process ring's part "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if n_cards % 2:
+        check(rc == 2 and want in err, f"cli test --seq-shards 2: exit {rc}, "
+              f"{err!r}")
+    return k1
 
 
 TOOL_COMMITS = 200   # cli train --synthetic: a train split of 165 commits
@@ -4951,7 +5085,7 @@ def main() -> int:
     lap("tiers")
     # --- the training mesh: 1x1 on NCCL bitwise against no mesh, two
     # gloo ranks sharing the card in DP and TP, the ring, the refusal ---
-    mesh_k = phase_mesh(torch, ctx, run32)
+    mesh_k = phase_mesh(torch, ctx, run32, run16, modes32)
     lap("mesh")
     # --- the tooling: the sanitized, profiled cli train, its trace, a NaN
     # parameter, cli test --sanitize and --copy-head pallas ---
@@ -4983,13 +5117,15 @@ def main() -> int:
              launches=sum(r["k1"] for r in (run32, main32, tb32, mb32, ev32,
                                             modes32, flags32))
              + eng_k1["float32"] + msg_k1["float32"] + serve_k1 + diffs_k1
-             + fleet_k1 + tiers_k1 + mesh_k["full"]["k1"] + tool_k["k1"],
+             + fleet_k1 + tiers_k1 + mesh_k["full"]["k1"]
+             + mesh_k["ring"]["float32"] + tool_k["k1"],
              **fwd,
              **fwd32),
         dict(name="copy_score_fwd_bf16", dtype="bfloat16",
              launches=sum(r["k1"] for r in (run16, main16, tb16, mb16, ev16,
                                             modes16)) + eng_k1["bfloat16"]
-             + msg_k1["bfloat16"], **fwd, **fwd16),
+             + msg_k1["bfloat16"] + mesh_k["ring"]["bfloat16"], **fwd,
+             **fwd16),
         dict(name="copy_score_bwd", dtype="float32",
              launches=sum(r["k2"] for r in (run32, tb32, ev32, flags32))
              + mesh_k["full"]["k2"] + tool_k["k2"],

@@ -7,9 +7,10 @@
   (``parallel/mesh.py``; ``--device cpu`` runs gloo ranks on the CPU);
   the default puts every visible GPU on the data axis, so one card trains
   without a mesh. ``--seq-shards N`` runs the decoder's cross-attention as
-  ring attention over groups of N ranks (``parallel/ring.py``). A batch
-  that does not divide the data axis, a mesh larger than the devices, or
-  a ``seq_shards`` the ranks cannot take exits 2;
+  ring attention over groups of N consecutive ranks
+  (``parallel/ring.py``), beside tensor parallelism too. A batch that
+  does not divide the data axis, a mesh larger than the devices, or a
+  ``seq_shards`` that does not divide the ranks exits 2;
 - ``test`` beam-decodes the test split with ``<ckpt-dir>/best.pt`` (or,
   when dev BLEU never improved, the model in ``latest.pt``) and writes
   OUTPUT/output_fira;
@@ -83,7 +84,13 @@ decode/quant.py), each refused without ``--engine`` and on ``train``; ``--perf p
 production knob sets (``config.PRODUCTION_PERF_KNOBS`` and
 ``DECODE_PERF_KNOBS``: the engine with the cached, factored, early-exit
 beam). A config the port does not run, or a bad knob, exits 2 with the
-knob named.
+knob named. ``--seq-shards N`` on ``test``, ``message`` and ``serve``
+builds the model with a one-process ring over the visible devices (every
+card; one device under ``--device cpu``), as the JAX model builds its
+ring mesh over its devices, and exits 2 when N does not divide them; a
+cross-attention rides the ring where JAX's would (the full-prefix beam
+and arena), and the cached beam's one-position queries stay dense, as in
+JAX.
 
 The tooling: ``--sanitize`` arms the runtime sanitizer
 (analysis/sanitizer.py) for the process: NaN/Inf checks on every module
@@ -183,9 +190,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "default: all GPUs on the data axis (one card: no "
                         "mesh); with --device cpu, gloo ranks on the CPU")
     p.add_argument("--seq-shards", type=int, default=None, metavar="N",
-                   help="train: ring-attention sequence parallelism: "
-                        "shard decoder cross-attention K/V over N ranks "
-                        "of the mesh (0/1 = dense attention)")
+                   help="ring-attention sequence parallelism: shard "
+                        "decoder cross-attention K/V over N ranks of the "
+                        "mesh (train) or N of the visible devices, driven "
+                        "by one process (test/message/serve); 0/1 = "
+                        "dense attention")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                    help="compute dtype override (params stay f32)")
     p.add_argument("--feeder-workers", type=int, default=None, metavar="N",
@@ -751,10 +760,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             errs += fleet_divisibility_errors(c)
         errs += paging_errors(c) + recovery_errors(c)
         if args.command != "train":
-            # ring attention runs under a training mesh only
+            # the decode commands' one-process ring spans the visible
+            # devices (train checks its mesh's ranks)
             from fira_tpu_torch.parallel.mesh import seq_shards_errors
+            from fira_tpu_torch.parallel.ring import visible_device_count
 
-            errs += seq_shards_errors(c, 1)
+            errs += seq_shards_errors(c, visible_device_count(args.device))
         if args.command == "serve":
             from fira_tpu_torch.serve.disagg import disagg_errors
             from fira_tpu_torch.serve.server import serve_errors

@@ -334,8 +334,8 @@ def unsupported(cfg: FiraConfig) -> List[str]:
                         ("engine_harvest_every", 1)):
         if getattr(cfg, knob) < least:
             errs.append(f"{knob}={getattr(cfg, knob)} (must be >= {least})")
-    # seq_shards > 1 runs ring attention under a training mesh; the
-    # ranks it needs are checked where the mesh is known
+    # seq_shards > 1 runs ring attention over a training mesh's ranks or
+    # the visible devices; they are checked where they are known
     # (parallel/mesh.seq_shards_errors)
     if cfg.seq_shards < 0:
         errs.append(

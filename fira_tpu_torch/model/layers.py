@@ -360,7 +360,9 @@ class Attention(PostLN):
         self.dropout_rate = dropout_rate
         self.dtype, self.residual_dtype = dtype, residual_dtype
         self.mesh = mesh
-        # a mesh bound with seq_shards > 1: ring attention (``attend``)
+        # seq_shards > 1: ring attention (``attend``) over a training
+        # mesh's seq groups or a one-process ring of devices
+        # (``parallel/ring.MeshRing`` / ``DeviceRing``)
         self.ring = ring
         kw = dict(device=device, dtype=dtype, mesh=mesh)
         self.q_proj = dense(d_model, d_model, parallel="column", **kw)
@@ -394,21 +396,20 @@ class Attention(PostLN):
         cache of the stable dtype) and the full prefix (K in bf16) see
         different logits.
 
-        With a ring mesh (cross-attention under ``seq_shards`` > 1) a
+        With a ring (cross-attention under ``seq_shards`` > 1) a
         non-causal attention over a 2-D key-padding mask whose lengths
-        divide the seq axis runs as ring attention
-        (``parallel/ring.ring_attend``), as the JAX Attention's
-        ``_ring_applicable`` routes it: the same -1e9 semantics, in the
-        stable dtype."""
+        divide the seq axis, and whose rows divide the ring's data axis,
+        runs as ring attention (``parallel/ring.py``), as the JAX
+        Attention's ``_ring_applicable`` routes it: the same -1e9
+        semantics, in the stable dtype. ``ring.ROUTES`` counts the calls
+        that took the ring and the ones that took dense."""
         B, q_len = query.shape[0], query.shape[1]
         d_head = self.d_model // self.num_heads
         q = self._split_heads(self.q_proj(query))
         sd = stable_dtype(q.dtype)
         if not causal and self._ring_applicable(q, k, mask):
-            from fira_tpu_torch.parallel.ring import ring_attend
-
-            out = ring_attend(q.to(sd), k.to(sd), v.to(sd), mask != 0,
-                              self.ring).to(self.dtype)
+            out = self.ring.attend(q.to(sd), k.to(sd), v.to(sd),
+                                   mask != 0).to(self.dtype)
         else:
             weight = matmul(q.to(sd), k.to(sd).transpose(-1, -2)) / math.sqrt(
                 d_head)
@@ -431,12 +432,15 @@ class Attention(PostLN):
         return self.post_ln(out, query)
 
     def _ring_applicable(self, q, k, mask) -> bool:
-        if self.ring is None or mask.dim() != 2:
-            # the ring carries key-padding semantics only
+        if self.ring is None:
             return False
-        from fira_tpu_torch.parallel.ring import ring_applicable
+        from fira_tpu_torch.parallel.ring import ROUTES
 
-        return ring_applicable(self.ring, q.shape[2], k.shape[2])
+        # the ring carries key-padding semantics only
+        ok = mask.dim() == 2 and self.ring.applicable(
+            q.shape[0], q.shape[2], k.shape[2])
+        ROUTES["ring" if ok else "dense"] += 1
+        return ok
 
     def forward(self, query, key, value, mask, *, causal: bool = False,
                 generator=None):

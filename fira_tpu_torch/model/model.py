@@ -44,9 +44,16 @@ gradient is the all-gather of the slices' (``mesh.scatter_to``). The
 vocabulary head ``out_fc`` is row-parallel over d (its all-reduce carries
 the whole (B, T, vocab) logits, as the JAX layout does). With
 ``cfg.seq_shards`` > 1 the decoder's cross-attention runs as ring
-attention (``parallel/ring.py``) over the mesh's ``seq`` groups; a
-``seq_shards`` that does not divide the ranks raises the JAX model's
-ValueError.
+attention (``parallel/ring.py``) over the mesh's ``seq`` groups, beside
+tensor parallelism too; a ``seq_shards`` that does not divide the ranks
+raises the JAX model's ValueError.
+
+``FiraModel(cfg)`` with ``cfg.seq_shards`` > 1 and no mesh holds a
+one-process ring (``ring.DeviceRing``) over ``ring_devices``, by default
+the visible devices of ``device``'s kind (``ring.visible_device_count``:
+every card, or one CPU), as the JAX model builds its ring mesh over every
+visible device; the same ValueError when ``seq_shards`` does not divide
+them.
 """
 
 from __future__ import annotations
@@ -446,7 +453,8 @@ class FiraModel(nn.Module):
     ``cfg.typed_edges`` it also holds ``edge_gain``, one f32 gain per
     edge family (ones at init: the adjacency is then the untyped one)."""
 
-    def __init__(self, cfg: FiraConfig, device=None, dtype=None, mesh=None):
+    def __init__(self, cfg: FiraConfig, device=None, dtype=None, mesh=None,
+                 ring_devices=None):
         super().__init__()
         errs = unsupported(cfg)
         if errs:
@@ -454,16 +462,9 @@ class FiraModel(nn.Module):
                              + "; ".join(errs))
         ring = None
         if cfg.seq_shards > 1:
-            from fira_tpu_torch.parallel.mesh import seq_shards_errors
+            from fira_tpu_torch.parallel.ring import make_ring
 
-            errs = seq_shards_errors(cfg, mesh.world if mesh else 1,
-                                     mesh.n_model if mesh else 1)
-            if errs:
-                raise ValueError("; ".join(errs))
-            if mesh.seq_shards != cfg.seq_shards:
-                raise ValueError(f"seq_shards={cfg.seq_shards}: the mesh was "
-                                 f"bound for seq_shards={mesh.seq_shards}")
-            ring = mesh
+            ring = make_ring(cfg, mesh, ring_devices, device)
         dtype = dtype or cfg.compute_dtype
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)

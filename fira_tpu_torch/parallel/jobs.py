@@ -8,7 +8,8 @@ that spawned ranks import nothing but it.
   mesh, from whole weights: the global loss of each step, the first
   batch's gradients and the weights after the steps gathered whole, this
   rank's replicated parameters (the tensor-parallel ranks must keep them
-  bit-identical), the steps' wall time, peak memory and kernel launches.
+  bit-identical), the steps' wall time, peak memory and kernel launches,
+  and the cross-attention calls by route (``ring.ROUTES``).
 - :func:`model_job`: the model's loss (and optionally the full-prefix
   beam) on this rank's rows, with the cross-attention on the ring under
   ``cfg.seq_shards``.
@@ -61,10 +62,12 @@ def step_job(mesh, cfg: FiraConfig, full_sd, host_batches: List[Dict], *,
     are taken first from a generator of the same seed, without a step.
     Gathers are collectives: every rank returns, rank 0 the whole
     tensors."""
+    from fira_tpu_torch.parallel.ring import ROUTES
     from fira_tpu_torch.train.state import make_optimizer
     from fira_tpu_torch.train.step import loss_fn, train_step
 
     dev = mesh.device
+    ROUTES.clear()
     model = local_model(mesh, cfg, full_sd)
     optimizer = make_optimizer(model, cfg)
     batches = [_rows(mesh, b, TRAIN_FIELDS) for b in host_batches]
@@ -93,6 +96,7 @@ def step_job(mesh, cfg: FiraConfig, full_sd, host_batches: List[Dict], *,
     out["peak"] = (torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else 0)
     out["losses"] = [float(x) for x in losses]
+    out["routes"] = dict(ROUTES)
     out["params"] = _cpu(pmesh.gather_state(model.state_dict(), mesh))
     out["replicated"] = {n: p.detach().cpu()
                          for n, p in model.named_parameters()

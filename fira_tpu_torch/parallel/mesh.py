@@ -489,18 +489,14 @@ def divisibility_errors(cfg, n_data: int) -> List[str]:
     return errs
 
 
-def seq_shards_errors(cfg, n_ranks: int, n_model: int = 1) -> List[str]:
-    """``seq_shards`` against the ranks: the JAX model's refusal when it
-    does not divide them, and the combination the port does not run."""
+def seq_shards_errors(cfg, n_devices: int) -> List[str]:
+    """``seq_shards`` against the devices a ring spans (a mesh's ranks, or
+    a one-process ring's devices): the JAX model's refusal when it does
+    not divide them."""
     s = cfg.seq_shards
-    if s <= 1:
-        return []
-    if n_ranks % s:
-        return [f"seq_shards={s} does not divide the {n_ranks} visible "
+    if s > 1 and n_devices % s:
+        return [f"seq_shards={s} does not divide the {n_devices} visible "
                 f"devices"]
-    if n_model > 1:
-        return [f"seq_shards={s} with n_model={n_model}: the port runs "
-                f"ring attention on a data-only mesh (ROADMAP A.10)"]
     return []
 
 
@@ -509,7 +505,7 @@ def layout_errors(cfg, n_data: int, n_model: int) -> List[str]:
     package's divisibility messages, ``seq_shards``, and the shapes tensor
     parallelism splits (heads, widths; the port's shards are even)."""
     errs = divisibility_errors(cfg, n_data)
-    errs += seq_shards_errors(cfg, n_data * n_model, n_model)
+    errs += seq_shards_errors(cfg, n_data * n_model)
     if n_model > 1:
         for knob, value in (("num_head", cfg.num_head),
                             ("embedding_dim", cfg.embedding_dim)):

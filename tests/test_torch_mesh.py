@@ -30,9 +30,15 @@ module-scoped pool of 4 (``RankPool``) runs every layout's job
 - the Feeder's stream byte-stable across workers and data-axis sizes, each
   rank's rows its block of the host batch (tests/test_multichip.py's
   counterpart);
+- ring attention beside tensor parallelism, one step at (1x2, s=2),
+  (2x2, s=2) and (2x2, s=4): the loss within rtol 2e-5 and the gathered
+  gradients within rtol 5e-4 / atol 1e-5 of JAX's ``seq_shards`` model
+  on its 8 devices (its ring mesh spans every device whatever the
+  training layout, so its side needs none) and of the port's dense
+  single process;
 - ``cli train --mesh``: exit 2 on divisibility, on more devices than
   visible and on ``--seq-shards`` the ranks cannot take; training with
-  ``--device cpu --mesh 2x1``;
+  ``--device cpu --mesh 2x1``, and with ``--mesh 1x2 --seq-shards 2``;
 - the spawned ranks import no JAX and nothing of the JAX package."""
 
 import dataclasses
@@ -189,6 +195,53 @@ def test_one_step_matches_jax(setup, pool, name, layout):
                                    atol=1e-5, err_msg=k)
 
 
+def _jax_ring_loss_grads(setup, seq_shards):
+    """JAX's loss and gradient of the first batch with ``seq_shards``: its
+    model builds the (8 / s, s) ring mesh over the 8 devices itself."""
+    key = ("ring", seq_shards)
+    if key not in setup["jax_runs"]:
+        jcfg = setup["jds"].cfg.replace(seq_shards=seq_shards)
+        model = JaxModel(jcfg)
+        batch = {k: jnp.asarray(v) for k, v in setup["jbatches"][0].items()}
+
+        def loss(p, b):
+            nll, cnt = model.apply({"params": p}, b, deterministic=True)
+            return nll / jnp.maximum(cnt, 1)
+
+        value, grads = jax.jit(jax.value_and_grad(loss))(setup["params"],
+                                                         batch)
+        setup["jax_runs"][key] = (float(value), {
+            k: v.numpy() for k, v in convert.params_from_flax(
+                jax.tree_util.tree_map(np.asarray, grads)).items()})
+    return setup["jax_runs"][key]
+
+
+@pytest.mark.parametrize("layout,seq_shards", [((1, 2), 2), ((2, 2), 2),
+                                               ((2, 2), 4)],
+                         ids=["1x2-s2", "2x2-s2", "2x2-s4"])
+def test_tp_ring_step_matches_jax(setup, pool, layout, seq_shards):
+    assert len(jax.devices()) == 8
+    want_loss, want_grads = _jax_ring_loss_grads(setup, seq_shards)
+    if "dense" not in setup["jax_runs"]:
+        losses, grads, _ = _single_steps(setup, setup["tds"].cfg, n=1)
+        setup["jax_runs"]["dense"] = (losses[0], grads)
+    dense_loss, dense_grads = setup["jax_runs"]["dense"]
+    cfg = setup["tds"].cfg.replace(seq_shards=seq_shards)
+    mesh = dataclasses.replace(_cpu_mesh(*layout), seq_shards=seq_shards)
+    got = pool.run(jobs.step_job, cfg, setup["full"], setup["tbatches"][:1],
+                   mesh=mesh)[0]
+    # the gradient pass and the step: every layer's cross-attention on
+    # the ring
+    assert got["routes"] == {"ring": 2 * cfg.num_layers}
+    assert sorted(got["grads"]) == sorted(want_grads) == sorted(dense_grads)
+    for loss, grads in ((want_loss, want_grads), (dense_loss, dense_grads)):
+        # the step's loss is the first batch's, its gradients taken first
+        np.testing.assert_allclose(got["losses"][0], loss, rtol=2e-5)
+        for k, g in got["grads"].items():
+            np.testing.assert_allclose(g.numpy(), np.asarray(grads[k]),
+                                       rtol=5e-4, atol=1e-5, err_msg=k)
+
+
 def _single_steps(setup, cfg, n=3, seed=0):
     model = FiraModel(cfg)
     model.load_state_dict(setup["full"])
@@ -341,10 +394,23 @@ def test_cli_train_mesh(tmp_path, capsys):
                      "--out-dir", str(tmp_path / "x")]) == 2
     assert "seq_shards=2 does not divide the 1 visible devices" in \
         capsys.readouterr().err
-    assert cli.main([*base, "--seq-shards", "2", "--mesh", "1x2",
+    assert cli.main([*base, "--seq-shards", "3", "--mesh", "1x2",
                      "--batch-size", "4",
                      "--out-dir", str(tmp_path / "x")]) == 2
-    assert "ROADMAP A.10" in capsys.readouterr().err
+    assert "seq_shards=3 does not divide the 2 visible devices" in \
+        capsys.readouterr().err
+    # ring attention beside tensor parallelism trains, and its gathered
+    # checkpoint loads into the dense model
+    ring_out = str(tmp_path / "tp_ring")
+    assert cli.main([*base, "--seq-shards", "2", "--mesh", "1x2",
+                     "--batch-size", "4", "--epochs", "1",
+                     "--out-dir", ring_out]) == 0
+    assert "best dev bleu:" in capsys.readouterr().out
+    saved = state_lib.CheckpointManager(
+        os.path.join(ring_out, "ckpt")).load_latest()
+    assert saved["epoch"] == 1
+    FiraModel(FiraDataset(d, fira_tiny()).cfg).load_state_dict(
+        saved["model"])
     if torch.cuda.device_count() < 2:
         # a mesh larger than the GPUs visible, in the JAX package's words
         assert cli.main(["train", "--config", "fira-tiny", "--data-dir", d,

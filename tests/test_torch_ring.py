@@ -16,10 +16,25 @@ one ring of 4, each rank holding its rows of the batch
   rtol 2e-5 (and the JAX package's dense loss on the same weights), and
   the full-prefix beam is token-exact with probabilities at rtol 2e-5 /
   atol 1e-6;
-- a ``seq_shards`` that does not divide the ranks raises a ValueError
-  naming it, and one beside tensor parallelism names the ROADMAP item."""
+- a ``seq_shards`` that does not divide the ranks or the devices raises
+  the JAX model's ValueError, and one beside tensor parallelism is
+  admitted (``tests/test_torch_mesh.py`` holds its step to JAX's);
+- the one-process ring (``ring.DeviceRing``) over ``["cpu"] * n``
+  equals the dense oracle, a fully masked row too;
+- the full-prefix beam of a ``seq_shards=2`` model over ``["cpu"] * 8``
+  (ring data axis 4) equals JAX's ``beam_search`` with ``seq_shards=2``
+  on its 8 devices (tokens equal, probabilities at rtol 2e-5 / atol
+  1e-6, as tests/test_ring.py holds JAX's ring to its dense beam), early
+  exit off and on; rows that the data axis does not divide take dense
+  attention, as JAX's ``_ring_applicable`` routes them;
+- the engine's full-prefix arena on that ring writes the dense engine's
+  bytes;
+- ``cli test`` and ``cli message`` with ``--seq-shards 2 --device cpu``
+  write the dense run's bytes with the visible devices patched to 8, and
+  exit 2 in the JAX model's words on the one CPU device."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,15 +43,17 @@ import pytest
 import torch
 
 from fira_tpu.config import FiraConfig as JaxConfig
+from fira_tpu.decode import beam as jax_beam
 from fira_tpu.model.model import FiraModel as JaxModel
 from fira_tpu.parallel import ring as jax_ring
-from fira_tpu_torch import convert
+from fira_tpu_torch import cli, convert
 from fira_tpu_torch.config import fira_tiny
 from fira_tpu_torch.data import synthetic
 from fira_tpu_torch.data.batching import make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import DEVICE_FIELDS, TRAIN_FIELDS, \
     batch_to_device
+from fira_tpu_torch.decode import runner
 from fira_tpu_torch.decode.beam import beam_search
 from fira_tpu_torch.model.model import FiraModel
 from fira_tpu_torch.parallel import jobs
@@ -145,6 +162,24 @@ def test_longer_than_rank_count_blocks(pool):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("n_dev,seq_shards", [(2, 2), (4, 4), (8, 2)],
+                         ids=["2dev-s2", "4dev-s4", "8dev-s2"])
+def test_device_ring_matches_dense_oracle(n_dev, seq_shards):
+    q, k, v, mask = _rand_qkv(5, B=8)
+    mask[1] = False          # a fully masked row: -1e9, not -inf
+    want = _dense(q, k, v, mask)
+    np.testing.assert_allclose(want, np.asarray(
+        jax_ring.dense_reference_attention(q, k, v, mask)), **TOL)
+    dr = ring.DeviceRing(["cpu"] * n_dev, seq_shards)
+    assert dr.n_data == n_dev // seq_shards and dr.applicable(8, 32, 32)
+    assert not dr.applicable(8, 31, 32) and not dr.applicable(8, 32, 33)
+    assert dr.applicable(6, 32, 32) == (6 % dr.n_data == 0)
+    got = dr.attend(*(torch.from_numpy(x) for x in (q, k, v)),
+                    torch.from_numpy(mask)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.fixture(scope="module")
 def model_setup(tmp_path_factory):
     # batch 8 = 4 ranks x 2 rows; S = 32 + 24 = 56 and tar 12 divide seq 2
@@ -155,7 +190,31 @@ def model_setup(tmp_path_factory):
     cfg = ds.cfg
     host = make_batch(ds.splits["train"], np.arange(8), cfg, batch_size=8)
     model = init_state(cfg, "cpu").model.eval()
-    return dict(cfg=cfg, host=host, model=model, full=model.state_dict())
+    return dict(cfg=cfg, host=host, model=model, full=model.state_dict(),
+                dir=d, ds=ds, jax={})
+
+
+def _jax_side(model_setup):
+    """JAX's config and parameters of the port's weights (built once).
+    The parameters are copies: a pool job moves the port's tensors into
+    shared memory, and an array that aliased their old storage would
+    read freed memory."""
+    if not model_setup["jax"]:
+        cfg = model_setup["cfg"]
+        model_setup["jax"].update(
+            params=jax.tree_util.tree_map(
+                lambda x: jnp.asarray(np.array(x)),
+                convert.params_to_flax(model_setup["full"])),
+            cfg=JaxConfig(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(JaxConfig)}))
+    return model_setup["jax"]["cfg"], model_setup["jax"]["params"]
+
+
+def _ring_model(model_setup, cfg, n_dev=8):
+    model = FiraModel(cfg.replace(seq_shards=2),
+                      ring_devices=["cpu"] * n_dev).eval()
+    model.load_state_dict(model_setup["full"])
+    return model
 
 
 def test_model_loss_and_beam_match_dense(pool, model_setup):
@@ -165,10 +224,7 @@ def test_model_loss_and_beam_match_dense(pool, model_setup):
                                          TRAIN_FIELDS))
         tokens, probs = beam_search(model, batch_to_device(
             host, torch.device("cpu"), DEVICE_FIELDS), cfg)
-    jparams = jax.tree_util.tree_map(
-        jnp.asarray, convert.params_to_flax(model_setup["full"]))
-    jcfg = JaxConfig(**{f.name: getattr(cfg, f.name)
-                        for f in dataclasses.fields(JaxConfig)})
+    jcfg, jparams = _jax_side(model_setup)
     jnll, jcnt = jax.jit(lambda p, b: JaxModel(jcfg).apply(
         {"params": p}, b, deterministic=True))(
             jparams, {k: jnp.asarray(v) for k, v in host.items()})
@@ -186,15 +242,114 @@ def test_model_loss_and_beam_match_dense(pool, model_setup):
                                probs.numpy(), rtol=2e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("early_exit", [False, True], ids=["scan", "early"])
+def test_device_ring_beam_matches_jax(model_setup, early_exit):
+    cfg = model_setup["cfg"].replace(beam_early_exit=early_exit)
+    host = model_setup["host"]
+    jcfg, jparams = _jax_side(model_setup)
+    jcfg = jcfg.replace(seq_shards=2, beam_early_exit=early_exit)
+    assert len(jax.devices()) == 8    # JAX's ring mesh: (data 4, seq 2)
+    jtok, jprobs = jax_beam.beam_search(
+        JaxModel(jcfg), jparams, {k: jnp.asarray(v) for k, v in host.items()},
+        jcfg)
+    model = _ring_model(model_setup, cfg)
+    batch = batch_to_device(host, torch.device("cpu"), DEVICE_FIELDS)
+    ring.ROUTES.clear()
+    tokens, probs, steps = beam_search(model, batch, cfg, with_steps=True)
+    # 8 items x 3 beams = 24 rows over the data axis 4: every step's
+    # cross-attention of every layer rides the ring
+    assert ring.ROUTES == {"ring": cfg.num_layers * steps}
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtok))
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), rtol=2e-5,
+                               atol=1e-6)
+    # 3 items: 9 rows, which the data axis 4 does not divide: dense, as
+    # JAX's _ring_applicable routes them, so the dense model's own beam
+    few = {k: v[:3] for k, v in batch.items()}
+    ring.ROUTES.clear()
+    got = beam_search(model, few, cfg, with_steps=True)
+    assert ring.ROUTES == {"dense": cfg.num_layers * got[2]}
+    want = beam_search(model_setup["model"], few, cfg, with_steps=True)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+
+
+def test_engine_full_prefix_arena_on_the_ring(model_setup, tmp_path):
+    cfg = model_setup["cfg"].replace(decode_engine=True, beam_kv_cache=False)
+    ds = model_setup["ds"]
+    dense = runner.run_test(model_setup["model"], ds, cfg, split="train",
+                            out_dir=str(tmp_path / "dense"))
+    ring.ROUTES.clear()
+    got = runner.run_test(_ring_model(model_setup, cfg), ds,
+                          cfg.replace(seq_shards=2), split="train",
+                          out_dir=str(tmp_path / "ring"))
+    # 8 slots x 3 beams = 24 arena rows: every micro-step rides the ring
+    assert ring.ROUTES["ring"] > 0 and not ring.ROUTES["dense"]
+    assert got["n"] == dense["n"] > 8
+    name = runner.output_name(None)
+    with open(tmp_path / "dense" / name, "rb") as a, \
+            open(tmp_path / "ring" / name, "rb") as b:
+        assert a.read() == b.read()
+
+
+MESSAGE_DIFF = (
+    "diff --git a/src/Foo.java b/src/Foo.java\n"
+    "--- a/src/Foo.java\n+++ b/src/Foo.java\n"
+    "@@ -10,4 +10,4 @@ class Foo\n"
+    " public void run ( ) {\n"
+    "-int count = 42 ;\n"
+    "+for ( int i = 0 ; i < 9 ; i ++ ) { step ( i ) ; }\n"
+    " }\n")
+
+
+def test_cli_decode_commands_with_seq_shards(model_setup, tmp_path, capsys,
+                                             monkeypatch):
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    torch.save(model_setup["full"], ckpt / "best.pt")
+    diff = tmp_path / "one.diff"
+    diff.write_text(MESSAGE_DIFF)
+    base = ["--config", "fira-tiny", "--data-dir", model_setup["dir"],
+            "--ckpt-dir", str(ckpt), "--device", "cpu", "--batch-size", "8",
+            "--test-batch-size", "8"]
+
+    def run(tag, *extra):
+        out = str(tmp_path / tag)
+        assert cli.main(["test", *base, "--out-dir", out, *extra]) == 0
+        with open(os.path.join(out, runner.output_name(None)), "rb") as f:
+            written = f.read()
+        capsys.readouterr()
+        assert cli.main(["message", str(diff), *base, *extra]) == 0
+        return written, capsys.readouterr().out
+
+    want = run("dense")
+    assert want[0] and want[1].strip()
+    # on the one CPU device JAX's model raises; the CLI exits 2 in its words
+    for cmd in (["test", *base, "--out-dir", str(tmp_path / "x")],
+                ["message", str(diff), *base]):
+        assert cli.main([*cmd, "--seq-shards", "2"]) == 2
+        assert "seq_shards=2 does not divide the 1 visible devices" in \
+            capsys.readouterr().err
+    monkeypatch.setattr(ring, "visible_device_count", lambda kind: 8)
+    ring.ROUTES.clear()
+    assert run("ring", "--seq-shards", "2") == want
+    # the cached beam's cross-attention has one-position queries: dense,
+    # as in JAX
+    assert ring.ROUTES["dense"] > 0 and not ring.ROUTES["ring"]
+
+
 def test_indivisible_seq_shards_raise(model_setup):
     cfg = model_setup["cfg"]
     with pytest.raises(ValueError, match="seq_shards=3"):
         FiraModel(cfg.replace(seq_shards=3), mesh=_mesh(3))
-    with pytest.raises(ValueError, match="seq_shards"):
-        FiraModel(cfg.replace(seq_shards=2))   # no mesh: one rank
-    tp = dataclasses.replace(pmesh.make_mesh(2, 2, devices=["cpu"] * 4),
-                             seq_shards=2)
-    with pytest.raises(ValueError, match="ROADMAP A.10"):
-        FiraModel(cfg.replace(seq_shards=2), mesh=tp)
+    with pytest.raises(ValueError, match="seq_shards=2 does not divide the "
+                                         "1 visible devices"):
+        FiraModel(cfg.replace(seq_shards=2))   # no mesh: the one CPU device
+    with pytest.raises(ValueError, match="seq_shards=3 does not divide the "
+                                         "8 visible devices"):
+        FiraModel(cfg.replace(seq_shards=3), ring_devices=["cpu"] * 8)
+    # beside tensor parallelism: admitted wherever seq_shards divides the
+    # ranks (tests/test_torch_mesh.py runs it)
+    assert pmesh.layout_errors(cfg.replace(seq_shards=2), 2, 2) == []
+    assert pmesh.layout_errors(cfg.replace(seq_shards=4), 2, 2) == []
     assert pmesh.layout_errors(cfg.replace(seq_shards=3), 4, 1) == [
         "seq_shards=3 does not divide the 4 visible devices"]
