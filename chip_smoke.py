@@ -163,6 +163,15 @@ Phases, each printing its own line; any failure exits non-zero:
             times, stall, cache and memo meters; wall-clock serving at 1.5x
             the engine's drain rate over the split once, ingest and
             prefix caches off, threads and pool in turns;
+Phases 22-25 run in the late stream: a second process on the same card
+(``chip_smoke.py --late``, its own process group, killed with the smoke),
+started once phase 8 is done and running beside phases 9-21 on the trained
+checkpoints, its own ``cli test --engine`` bytes held to phase 17's and its
+ring beam to phase 15's; its lines are printed after phase 21's. The two
+streams share the card and the host, so a time printed after the late
+stream starts is taken beside the other stream (phase 4's kernel times come
+before it).
+
 22. fleet   the replicated engine fleet and recovery (the f32 checkpoint,
             ``--engine-slots 20`` over 2 or 4 replicas on the one card,
             the replayed trace): ``cli test --engine --engine-replicas 2``
@@ -858,7 +867,6 @@ def train_path(torch, ctx, dtype: str, cli_workers: int) -> dict:
     launch once per step and K1 once per step and per dev batch."""
     from fira_tpu_torch import cli
     from fira_tpu_torch.train import loop as train_loop
-    from fira_tpu_torch.train.state import CheckpointManager
 
     cs, ds, work, cfg = ctx["cs"], ctx["ds"], ctx["work"], ctx["cfg"]
     n_train, n_valid = len(ds.splits["train"]), len(ds.splits["valid"])
@@ -902,10 +910,7 @@ def train_path(torch, ctx, dtype: str, cli_workers: int) -> dict:
     with open(os.path.join(work, f"train_{dtype}", "train_process")) as f:
         gate_lines = f.read().splitlines()
     check(len(gate_lines) == result.gates, f"{len(gate_lines)} gate lines")
-    ckpt = CheckpointManager(ckpt_dir)
-    check(ckpt.has(ckpt.LATEST), "no latest.pt after training")
-    sd = (torch.load(ckpt.path(ckpt.BEST), weights_only=True)
-          if ckpt.has(ckpt.BEST) else ckpt.load_latest()["model"])
+    sd = trained_weights(torch, ckpt_dir)
     check(all(v.dtype == torch.float32 for v in sd.values()),
           f"{dtype}: checkpoint not f32")
     fd = result.feeder
@@ -936,6 +941,17 @@ def train_path(torch, ctx, dtype: str, cli_workers: int) -> dict:
     return dict(result=result, gated=gated, k1=k1, k2=k2, peak=peak,
                 steps=steps, ckpt_dir=ckpt_dir, mallocs=n_mallocs,
                 state_dict=sd)
+
+
+def trained_weights(torch, ckpt_dir: str) -> dict:
+    """The weights a decode of ``ckpt_dir`` loads: ``best.pt`` when the
+    gate wrote one, else ``latest.pt``'s model."""
+    from fira_tpu_torch.train.state import CheckpointManager
+
+    ckpt = CheckpointManager(ckpt_dir)
+    check(ckpt.has(ckpt.LATEST), f"no latest.pt in {ckpt_dir}")
+    return (torch.load(ckpt.path(ckpt.BEST), weights_only=True)
+            if ckpt.has(ckpt.BEST) else ckpt.load_latest()["model"])
 
 
 def max_rel(a, b) -> float:
@@ -2522,6 +2538,17 @@ def serve_bytes(m) -> bytes:
         return f.read()
 
 
+def write_serve_trace(ctx) -> None:
+    """The replayed trace of the serving phases (the test split at 0.5
+    requests a virtual second, seed 3) at ``work/serve/trace.txt``."""
+    from fira_tpu_torch.serve import poisson_times, write_trace
+
+    os.makedirs(os.path.join(ctx["work"], "serve"), exist_ok=True)
+    ctx["serve_trace"] = os.path.join(ctx["work"], "serve", "trace.txt")
+    write_trace(ctx["serve_trace"], poisson_times(
+        len(ctx["ds"].splits["test"]), rate=0.5, seed=3))
+
+
 def serve_phase(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     """``cli serve`` on one engine (20 slots, the f32 trained checkpoint,
     the 61 test commits). Hard checks: on a replayed trace under the
@@ -2555,15 +2582,13 @@ def serve_phase(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
 
     from fira_tpu_torch.decode import engine as engine_lib
     from fira_tpu_torch.model.model import FiraModel
-    from fira_tpu_torch.serve import (poisson_times, read_trace, serve_split,
-                                      write_trace)
+    from fira_tpu_torch.serve import poisson_times, read_trace, serve_split
 
     cs, ds, cfg = ctx["cs"], ctx["ds"], ctx["cfg"]
     t_phase = time.perf_counter()
     n = len(ds.splits["test"])
     os.makedirs(os.path.join(ctx["work"], "serve"))
-    ctx["serve_trace"] = os.path.join(ctx["work"], "serve", "trace.txt")
-    write_trace(ctx["serve_trace"], poisson_times(n, rate=0.5, seed=3))
+    write_serve_trace(ctx)
     want_lines = engine_bytes.decode().split("\n")
     k1 = 0
     for name, flags in (("cache off", ["--prefix-cache", "off"]),
@@ -4232,7 +4257,8 @@ def phase_tiers(torch, ctx, run32: dict, engine_bytes: bytes) -> int:
     print(f"[tiers] the card's memory in use, every process: before the "
           f"phase {base_used / 2**30:.2f} GiB, most during it "
           f"{peak_used / 2**30:.2f} GiB (the prefill workers' CUDA contexts "
-          f"and models included: the wall turns' 2 beside a serve's own 2); "
+          f"and models included: the wall turns' 2 beside a serve's own 2; "
+          f"the smoke's other stream too); "
           f"{card}", flush=True)
     print(f"[tiers] the phase: K1 launched {k1} times in this process "
           f"(each run as k1_formula of its counters; the workers launch "
@@ -4283,7 +4309,8 @@ def file_bytes_equal(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
-def phase_mesh(torch, ctx, run32: dict, run16: dict, modes32: dict) -> dict:
+def phase_mesh(torch, ctx, run32: dict, run16: dict, modes32,
+               keep=None) -> dict:
     """The training mesh (``parallel/mesh.py``) on the one card, fira-full
     f32, counts from zero around each run:
 
@@ -4316,7 +4343,8 @@ def phase_mesh(torch, ctx, run32: dict, run16: dict, modes32: dict) -> dict:
     6. out_fc's all-reduce of the (170 x 30, 24,650) f32 logits timed on
        the 1x1 NCCL group and the two gloo ranks;
     7. ``cli train --mesh 2x1`` exits 2 on the one card;
-    8. the decode commands' one-process ring (``device_ring``).
+    8. the decode commands' one-process ring (``device_ring``; ``keep``
+       takes its f32 full-prefix beam's bytes when ``modes32`` is None).
 
     Returns the K1/K2 launches of the 1x1 runs (full shapes), of the
     ranks (shard shapes) and of the one-process ring's decodes (K1 by
@@ -4556,14 +4584,15 @@ def phase_mesh(torch, ctx, run32: dict, run16: dict, modes32: dict) -> dict:
     print(f"[mesh] cli train --mesh 2x1 on {torch.cuda.device_count()} "
           f"card(s): exit {rc}: {err.strip()}", flush=True)
     check(rc == 2 and want in err, f"--mesh 2x1: exit {rc}, {err!r}")
-    ring_k1 = device_ring(torch, ctx, run32, run16, modes32)
+    ring_k1 = device_ring(torch, ctx, run32, run16, modes32, keep)
     return dict(full=counts, ring=ring_k1, **rank_counts)
 
 
 RING_DEVICES = ["cuda:0", "cuda:0"]   # the one-process ring on one card
 
 
-def device_ring(torch, ctx, run32: dict, run16: dict, modes32) -> dict:
+def device_ring(torch, ctx, run32: dict, run16: dict, modes32,
+                keep=None) -> dict:
     """The decode commands' one-process ring (``parallel/ring.DeviceRing``)
     over ``RING_DEVICES`` at ``seq_shards=2``, on each dtype's trained
     weights, beside the same decode without the ring, counts from zero
@@ -4620,6 +4649,8 @@ def device_ring(torch, ctx, run32: dict, run16: dict, modes32) -> dict:
                 check(not diff and d["out"] == ref["out"],
                       f"{name} on the ring: {len(diff)} lines differ from "
                       f"the dense full-prefix decode")
+                if keep is not None and name == "full-prefix beam":
+                    keep["ring_f32_beam"] = r["out"]
                 if modes32 is not None:
                     same = r["out"] == modes32["out"][
                         "trained", False, False, True, False]
@@ -4888,7 +4919,172 @@ def phase_tooling(torch, ctx, fwd32: dict, bwd32: dict) -> dict:
     return dict(k1=k1 + nan_k1 + sum(n for _, n in got.values()), k2=k2)
 
 
+# the phases after [serve-diffs] run in a second process, the late stream,
+# started once the training phases have written their checkpoints: it
+# shares the card with the main stream, so the times either stream prints
+# after the start are taken beside the other (the smoke's time limit)
+LATE_PHASES = ("fleet", "tiers", "mesh", "tooling")
+LATE_TIMEOUT_S = 1000   # the late stream's own limit, from its start
+
+
+def start_late(ctx, run32: dict, run16: dict, fwd32: dict, bwd32: dict,
+               t_smoke: float):
+    """Start ``chip_smoke.py --late`` in its own process group, its output
+    to ``work/late/late.log``; what it needs is pickled beside it (the
+    runs without their weights, which it loads from the checkpoints).
+    The group is killed when this process exits, however it exits."""
+    import atexit
+    import pickle
+    import signal
+    import subprocess
+    from types import SimpleNamespace
+
+    late_work = os.path.join(ctx["work"], "late")
+    os.makedirs(late_work)
+    # [mesh] holds its cli train --mesh 1x1 against the [train] phase's
+    os.symlink(os.path.join(ctx["work"], "ckpt_cli_float32"),
+               os.path.join(late_work, "ckpt_cli_float32"))
+    runs = {run["gated"].compute_dtype: dict(
+        gated=run["gated"], ckpt_dir=run["ckpt_dir"],
+        # the fields of its TrainResult that [mesh] reads
+        result=SimpleNamespace(losses=list(run["result"].losses),
+                               steps_per_sec=run["result"].steps_per_sec))
+        for run in (run32, run16)}
+    state = os.path.join(late_work, "state.pkl")
+    with open(state, "wb") as f:
+        pickle.dump(dict(runs=runs, fwd32=fwd32, bwd32=bwd32,
+                         t_smoke=t_smoke, late_work=late_work,
+                         **{k: ctx[k] for k in ("data_dir", "kind", "gt_file",
+                                                "smi", "root")}), f)
+    log = open(os.path.join(late_work, "late.log"), "w")
+    err = open(os.path.join(late_work, "late.err"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--late", state], cwd=ctx["root"], stdout=log,
+                            stderr=err, start_new_session=True)
+    log.close()
+    err.close()
+    proc.log_path, proc.err_path = log.name, err.name
+    proc.started = time.perf_counter()
+    atexit.register(stop_late, proc)
+    # a SIGTERM (a time limit) exits through atexit too
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    print(f"[late] {', '.join(LATE_PHASES)} in a second process (pid "
+          f"{proc.pid}) on the same card, beside the phases below; its "
+          f"lines follow theirs", flush=True)
+    return proc
+
+
+def stop_late(proc) -> None:
+    """Kill the late stream's process group (it, and every process it
+    started) if any of it is left."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish_late(proc) -> dict:
+    """Wait for the late stream, echo its output, and return its
+    results; fail if it failed."""
+    import pickle
+    import subprocess
+
+    left = LATE_TIMEOUT_S - (time.perf_counter() - proc.started)
+    try:
+        rc = proc.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        rc = None
+    stop_late(proc)
+    with open(proc.log_path) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if rc != 0:
+        with open(proc.err_path) as f:
+            tail = f.read()[-6000:]
+        check(False, f"the late stream ({', '.join(LATE_PHASES)}) "
+              + ("ran past its limit" if rc is None else f"exited {rc}")
+              + f"; its standard error ends:\n{tail}")
+    with open(os.path.join(os.path.dirname(proc.log_path), "late.pkl"),
+              "rb") as f:
+        return pickle.load(f)
+
+
+def late_main(state_path: str) -> int:
+    """The late stream (``chip_smoke.py --late STATE``, started by
+    :func:`start_late`): the [fleet], [tiers], [mesh] and [tooling]
+    phases on the trained checkpoints, counts from zero around each, each
+    phase against this stream's own ``cli test --engine`` bytes (the main
+    stream holds them, and this stream's ring beam, against its own);
+    the results pickled to ``late.pkl``. It kills its process group if
+    the main stream goes away."""
+    import pickle
+    import signal
+    import threading
+
+    import torch
+
+    with open(state_path, "rb") as f:
+        st = pickle.load(f)
+    parent = os.getppid()
+
+    def orphaned() -> None:
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+    threading.Thread(target=orphaned, daemon=True).start()
+    sys.path.insert(0, st["root"])
+    from fira_tpu_torch import cli
+    from fira_tpu_torch.config import fira_full
+    from fira_tpu_torch.data.dataset import FiraDataset
+    from fira_tpu_torch.ops import build, copy_score as cs
+
+    cli.resolve_device("cuda")
+    build.build_all()   # the main stream's builds of this checkout's sources
+    ds = FiraDataset(st["data_dir"], fira_full())
+    work = st["late_work"]
+    ctx = dict(cs=cs, ds=ds, cfg=ds.cfg, work=work, data_dir=st["data_dir"],
+               var_maps=cli._load_var_maps(st["data_dir"]),
+               **{k: st[k] for k in ("kind", "gt_file", "smi", "root")})
+    run32, run16 = (dict(st["runs"][d], state_dict=trained_weights(
+        torch, st["runs"][d]["ckpt_dir"])) for d in ("float32", "bfloat16"))
+
+    def lap(what: str) -> None:
+        print(f"[time] {what}: done {time.perf_counter() - st['t_smoke']:.1f}"
+              f" s into the smoke (late stream)", flush=True)
+
+    write_serve_trace(ctx)
+    plain = engine_cli(torch, ctx, run32, "late_plain", ["--engine"])
+    out = dict(engine_bytes=plain["out"], plain_k1=plain["k1"])
+    lap("late stream set-up")
+    # --- the replicated fleet and recovery: replicas, retirement, respawn,
+    # spares, kill and resume ---
+    out["fleet_k1"] = phase_fleet(torch, ctx, run32, plain["out"])
+    lap("fleet")
+    # --- the serving tiers: spec decode, the low-precision tiers, the
+    # disaggregated prefill tier ---
+    out["tiers_k1"] = phase_tiers(torch, ctx, run32, plain["out"])
+    lap("tiers")
+    # --- the training mesh: 1x1 on NCCL bitwise against no mesh, two
+    # gloo ranks sharing the card in DP and TP, the ring, the refusal ---
+    keep = {}
+    out["mesh_k"] = phase_mesh(torch, ctx, run32, run16, None, keep)
+    out["ring_f32_beam"] = keep["ring_f32_beam"]
+    lap("mesh")
+    # --- the tooling: the sanitized, profiled cli train, its trace, a NaN
+    # parameter, cli test --sanitize and --copy-head pallas ---
+    out["tool_k"] = phase_tooling(torch, ctx, st["fwd32"], st["bwd32"])
+    lap("tooling")
+    with open(os.path.join(work, "late.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--late"]:
+        return late_main(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -4982,6 +5178,9 @@ def main() -> int:
     for run in (run32, run16):
         dev_gate_check(torch, ctx, run)
     lap("train, train plain, feed, dev gate")
+    # --- the late stream: [fleet], [tiers], [mesh] and [tooling] in a
+    # second process on the card, beside the phases below ---
+    late = start_late(ctx, run32, run16, fwd32, bwd32, t_smoke)
 
     # --- bucketed geometry and grouped steps ---
     tb32 = train_buckets(torch, ctx, "float32", tables)
@@ -5075,22 +5274,6 @@ def main() -> int:
     # --- cli serve --input diffs and the ingest fast path ---
     diffs_k1 = phase_serve_diffs(torch, ctx, run32)
     lap("serve-diffs")
-    # --- the replicated fleet and recovery: replicas, retirement, respawn,
-    # spares, kill and resume ---
-    fleet_k1 = phase_fleet(torch, ctx, run32, engine_bytes)
-    lap("fleet")
-    # --- the serving tiers: spec decode, the low-precision tiers, the
-    # disaggregated prefill tier ---
-    tiers_k1 = phase_tiers(torch, ctx, run32, engine_bytes)
-    lap("tiers")
-    # --- the training mesh: 1x1 on NCCL bitwise against no mesh, two
-    # gloo ranks sharing the card in DP and TP, the ring, the refusal ---
-    mesh_k = phase_mesh(torch, ctx, run32, run16, modes32)
-    lap("mesh")
-    # --- the tooling: the sanitized, profiled cli train, its trace, a NaN
-    # parameter, cli test --sanitize and --copy-head pallas ---
-    tool_k = phase_tooling(torch, ctx, fwd32, bwd32)
-    lap("tooling")
     for run in (run32, run16):
         dtype = run["gated"].compute_dtype
         model = FiraModel(cfg, device="cuda", dtype=dtype).eval()
@@ -5106,6 +5289,19 @@ def main() -> int:
     phase_small_reference(torch, FiraModel, batch_to_device, make_batch, ds,
                           run32["state_dict"])
     lap("decode profiles, small reference")
+    got = finish_late(late)
+    lap("late stream joined")
+    check(got["engine_bytes"] == engine_bytes,
+          "the late stream's cli test --engine: not the engine phase's bytes")
+    check(got["ring_f32_beam"] == modes32["out"][
+        "trained", False, False, True, False],
+          "the late stream's f32 ring beam: bytes differ from the "
+          "beam-modes phase's full-prefix decode")
+    print("[late] its cli test --engine wrote the engine phase's bytes, and "
+          "its one-process ring's f32 full-prefix beam the beam-modes "
+          "phase's full-prefix bytes", flush=True)
+    fleet_k1 = got["fleet_k1"] + got["plain_k1"]
+    tiers_k1, mesh_k, tool_k = got["tiers_k1"], got["mesh_k"], got["tool_k"]
 
     common = dict(route="cuda", library_ms=None)
     fwd = dict(source="fira_tpu_torch/ops/csrc/copy_score.cu",

@@ -177,7 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=None,
                    help="override config epoch count")
     p.add_argument("--batch-size", type=int, default=None)
-    p.add_argument("--test-batch-size", type=int, default=None)
+    p.add_argument("--test-batch-size", type=_positive, default=None)
     p.add_argument("--no-resume", action="store_true",
                    help="ignore an existing latest checkpoint")
     p.add_argument("--synthetic", type=int, default=None, metavar="N",

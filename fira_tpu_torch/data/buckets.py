@@ -100,6 +100,7 @@ def geom_cost(cfg: FiraConfig, geom: BucketGeom) -> float:
 
 def _validated(cfg: FiraConfig, geom: BucketGeom) -> BucketGeom:
     full = full_geom(cfg)
+    # firacheck: allow[HOST-SYNC] config ints from the declared bucket table; no device value exists in the packer
     g = BucketGeom(*(int(x) for x in geom))
     if not (1 <= g.ast_len <= full.ast_len):
         raise ValueError(f"bucket ast_len {g.ast_len} outside "
@@ -206,6 +207,7 @@ def assign_buckets(extents: SampleExtents, table: Sequence[BucketGeom], *,
 
 
 def _round_up(x: int, unit: int) -> int:
+    # firacheck: allow[HOST-SYNC] host numpy quantile scalar; the packer never holds device values
     return ((int(x) + unit - 1) // unit) * unit
 
 
@@ -273,13 +275,17 @@ def packed_plan(split: ProcessedSplit, cfg: FiraConfig, *,
     if shuffle:
         open_chunks: List[List[int]] = [[] for _ in table]
         for i in order:
+            # firacheck: allow[HOST-SYNC] host numpy assignment array — the packer runs on host index data only, never device values
             b = int(assignment[i])
+            # firacheck: allow[HOST-SYNC] host numpy permutation entry, same packer-side data
             open_chunks[b].append(int(i))
             if len(open_chunks[b]) == bs:
+                # firacheck: allow[HOST-SYNC] list-of-host-ints to numpy chunk; no device round-trip
                 plan.append((np.asarray(open_chunks[b]), table[b]))
                 open_chunks[b] = []
         for b, chunk in enumerate(open_chunks):
             if chunk:
+                # firacheck: allow[HOST-SYNC] same host-side tail flush as above
                 plan.append((np.asarray(chunk), table[b]))
         return plan
     for b, geom in enumerate(table):

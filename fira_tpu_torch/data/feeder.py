@@ -290,6 +290,7 @@ class Feeder:
             except Exception as e:
                 if attempt < self._retries:
                     attempt += 1
+                    # firacheck: allow[SCHED-BLOCK] worker-side quarantine retry backoff: the WORKER thread is the right place to sleep — siblings keep assembling and the consumer only ever waits on the ordered-ready condition (the shared docs/FAULTS.md curve)
                     time.sleep(backoff_s(attempt))
                     continue
                 err = FeederTaskError(seq, getattr(task, "note", None), e)
@@ -327,6 +328,7 @@ class Feeder:
                 if self._total is not None and self._next >= self._total:
                     err = StopIteration()
                     break
+                # firacheck: allow[SCHED-BLOCK] this wait IS the metered feed stall (stall_s): the consumer blocks exactly until the next in-order item, and close()/_poison notify_all so it can never wedge
                 self._cond.wait()
         if err is not None:
             self.close()
@@ -437,6 +439,7 @@ def task_note(positions, *, geom_tag: Optional[str] = None,
     """Task identity for FeederTaskError: the split positions the task
     assembles (the first six), and the bucket geometry and call site when
     known."""
+    # firacheck: allow[HOST-SYNC] positions are host-side planning ints (index chunks / request ids); no device value exists here
     pos = [int(p) for p in positions]
     shown = ", ".join(str(p) for p in pos[:6])
     if len(pos) > 6:

@@ -98,10 +98,13 @@ def grouped_plan(split: ProcessedSplit, cfg: FiraConfig, *,
     open_rows: List[List[int]] = [[] for _ in table]
     pending: List[List[np.ndarray]] = [[] for _ in table]
     for i in order:
+        # firacheck: allow[HOST-SYNC] host numpy assignment array — the scheduler runs on host index data only, never device values
         b = int(assignment[i])
+        # firacheck: allow[HOST-SYNC] host numpy permutation entry, same scheduler-side data
         open_rows[b].append(int(i))
         if len(open_rows[b]) < bs:
             continue
+        # firacheck: allow[HOST-SYNC] list-of-host-ints to numpy chunk; no device round-trip
         pending[b].append(np.asarray(open_rows[b]))
         open_rows[b] = []
         if group_size == 1:
@@ -111,6 +114,7 @@ def grouped_plan(split: ProcessedSplit, cfg: FiraConfig, *,
             pending[b] = []
     for b, geom in enumerate(table):
         if open_rows[b]:
+            # firacheck: allow[HOST-SYNC] same host-side tail flush as above
             pending[b].append(np.asarray(open_rows[b]))
         if not pending[b]:
             continue
@@ -201,6 +205,7 @@ def plan_report(split: ProcessedSplit, cfg: FiraConfig, plan: Plan, *,
         for chunk in entry.chunks:
             n_commits += len(chunk)
             for i in chunk:
+                # firacheck: allow[HOST-SYNC] host numpy index chunk; the accounting never holds device values
                 ideal += ideal_cost(cfg, ext, int(i))
     return {
         "dispatches": len(plan),

@@ -208,6 +208,7 @@ def _run_steps(step, carry, T: int, early_exit: bool):
     for s in range(T - 1):
         settled = carry[2].all() if early_exit else None
         carry = step(carry, s)
+        # firacheck: allow[HOST-SYNC] the early-exit predicate is read on the host once a position (one sync a step), where the JAX package's while_loop condition stays on the device; a CUDA-graph beam (ROADMAP.md A.5) must move it
         if early_exit and bool(settled & carry[2].all()):
             return carry, s + 1
     return carry, T - 1

@@ -449,6 +449,7 @@ class SlotEngine:
         """Host ints to an int64 tensor on the device. On the card the
         copy comes from pinned memory and does not block (a pageable copy
         would wait for the whole queue: a host sync)."""
+        # firacheck: allow[HOST-SYNC] values are host slot/row ids; the index tensor is built on the host and copied from pinned memory, no device value exists here
         t = torch.as_tensor(np.asarray(values, dtype=np.int64))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -547,6 +548,7 @@ class SlotEngine:
         arena only maps blocks."""
         cfg, st, K = self.cfg, self._state, self.cfg.beam_size
         n = len(rows)
+        # firacheck: allow[HOST-SYNC] rows and slots are the host int lists refill planned; no device value exists here
         r_np, s_np = np.asarray(rows), np.asarray(slots)
         lanes = np.arange(K)
         # rows, slots and their per-beam rows in one copy to the device
@@ -685,6 +687,7 @@ class SlotEngine:
         harvest lands in); returns their active-slot count, on the
         device."""
         occ = self._one_step()
+        # firacheck: allow[HOST-SYNC] engine_harvest_every is a config int; no device value exists here
         for _ in range(max(1, int(self.cfg.engine_harvest_every)) - 1):
             occ = occ + self._one_step()
         return occ
@@ -718,11 +721,14 @@ class SlotEngine:
         idx = self._index(slots)
         toks = st["tokens"].index_select(0, idx)
         probs = st["probs"].index_select(0, idx)
+        # firacheck: allow[HOST-SYNC] harvest IS the engine's designated output boundary: settled beams must reach the host to be cooked into text, and the sliced row gather is exactly the copy this readback exists to make
         packed = torch.cat([toks.reshape(n, -1).double(), probs.double()],
                            dim=1).cpu()
         self.stats.host_syncs += 1
         kt = toks[0].numel()
+        # firacheck: allow[HOST-SYNC] packed is the host copy the .cpu() above made; no device value exists here
         return (packed[:, :kt].long().reshape(toks.shape).numpy(),
+                # firacheck: allow[HOST-SYNC] same host copy as the line above
                 packed[:, kt:].float().numpy())
 
     @torch.inference_mode()
@@ -886,6 +892,7 @@ class SlotEngine:
         """A host tensor as numpy (bf16 as its int16 bits)."""
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
+        # firacheck: allow[HOST-SYNC] t is the pinned host copy _fill_copies queued at admit; harvest's done-mask read already waited for it (the JAX package's deferred miss-fill draining boundary), so this is a host view
         return t.numpy()
 
     def _drain_pending_fills(self) -> None:
@@ -946,6 +953,7 @@ class SlotEngine:
     def wants_input(self) -> bool:
         """Prefill ahead: keep ``engine_prefill_depth`` chunks staged, and
         at least enough rows to refill every free slot."""
+        # firacheck: allow[HOST-SYNC] engine_prefill_depth is a config int; no device value exists here
         depth = max(1, int(self.cfg.engine_prefill_depth))
         return (len(self._staged) < depth
                 or self._staged_rows < len(self._free))
@@ -996,6 +1004,7 @@ class SlotEngine:
         for hid, rows in groups.items():
             host = hosts[hid]
             requeued = dict(host)
+            # firacheck: allow[HOST-SYNC] host["valid"] is the feeder's host-side numpy batch field; no device value exists here
             valid = np.zeros_like(np.asarray(host["valid"]))
             positions = np.full(valid.shape[0], -1, dtype=np.int64)
             for r, pid in rows:
@@ -1040,6 +1049,7 @@ class SlotEngine:
         positions = host.get("_positions")
         valid = host["valid"]
         C = valid.shape[0]
+        # firacheck: allow[HOST-SYNC] _positions is a host-only numpy field (feeder strips it from the wire); no device value exists here
         row_ids = [(r, int(positions[r]) if positions is not None
                     else index * C + r) for r in range(C) if valid[r]]
         digests = None
@@ -1133,6 +1143,7 @@ class SlotEngine:
                     self._row_digest[pos_id] = digests[r]
         # the chunk's tar budget is its bucket's, visible in the packed
         # msg width, under decode_tar_buckets; else the full tar_len
+        # firacheck: allow[HOST-SYNC] a shape of the host batch; no device value exists here
         limit = (int(host["msg"].shape[1]) if self.cfg.decode_tar_buckets
                  else self.cfg.tar_len)
         self._staged.append(_Staged(chunk=chunk, host=host,
@@ -1170,6 +1181,7 @@ class SlotEngine:
             if self.retired:
                 return
             self._insert(entry.chunk, rows, slots, entry.limit,
+                         # firacheck: allow[HOST-SYNC] grants are host block ids from the allocator; no device value exists here
                          np.asarray(grants) if self._paged else None)
             if self.retired:
                 return
@@ -1209,6 +1221,7 @@ class SlotEngine:
             st.steps += 1
             st.verify_dispatches += 1
         else:
+            # firacheck: allow[HOST-SYNC] engine_harvest_every is a config int; no device value exists here
             st.steps += max(1, int(self.cfg.engine_harvest_every))
         st.step_dispatches += 1
         st.pool_blocks = self._pool_blocks
@@ -1246,14 +1259,17 @@ class SlotEngine:
         parts = [st["done"].long(), self._pending_occ.reshape(1).long()]
         if spec is not None:
             parts.append(spec[0].long())   # the verify's [tested, matched]
+        # firacheck: allow[HOST-SYNC] the per-dispatch done-mask/occupancy read (one sync a harvest), where the JAX engine queues copy_to_host_async and reads it a dispatch later; a CUDA-graph step (ROADMAP.md A.5) must take it off the dispatch path
         flags = torch.cat(parts).cpu()
         if self.retired:
             return []
         stats.host_syncs += 1
         S = self.slots
+        # firacheck: allow[HOST-SYNC] flags is the host copy the .cpu() above made; no device value exists here
         occ_now = int(flags[S])
         stats.occupied_slot_steps += occ_now
         if spec is not None:
+            # firacheck: allow[HOST-SYNC] same host flags copy as above
             tested, matched = int(flags[S + 1]), int(flags[S + 2])
             self._pending_spec = None
             stats.drafted += self._spec_k * occ_now
@@ -1268,6 +1284,7 @@ class SlotEngine:
             # stored before any dedup entry is popped below: a digest
             # leaves _inflight only once its cache entry exists
             self._drain_pending_fills()
+        # firacheck: allow[HOST-SYNC] same host flags copy as above
         done = flags[:S].numpy()
         newly = [s for s in self._busy if done[s]]
         items: List[EngineItem] = []

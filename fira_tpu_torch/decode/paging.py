@@ -33,6 +33,7 @@ def declared_decode_tars(cfg: FiraConfig) -> Tuple[int, ...]:
     tars = {int(cfg.tar_len)}
     if cfg.decode_tar_buckets:
         for _ast, _edges, tar in cfg.buckets:
+            # firacheck: allow[HOST-SYNC] cfg.buckets entries are parse-time host ints, not device values; this runs once at engine construction
             tars.add(int(tar))
     return tuple(sorted(tars))
 
@@ -43,6 +44,7 @@ def auto_block_size(tars: Tuple[int, ...]) -> int:
     geometry allows it, capped at 16. Always valid (1 divides all)."""
     g = 0
     for t in tars:
+        # firacheck: allow[HOST-SYNC] tar budgets are host ints from the config table; knob resolution happens once, before any dispatch
         g = math.gcd(g, int(t))
     cap = max(1, min(16, min(tars) // 2))
     best = 1

@@ -134,7 +134,9 @@ def quantize_int8(w) -> Tuple[np.ndarray, np.ndarray]:
     The error of an element is at most scale / 2. ``w``: numpy or a
     tensor (copied to the host)."""
     if torch.is_tensor(w):
+        # firacheck: allow[HOST-SYNC] engine-BUILD-time quantization (once per engine/respawn/spare prewarm, before any serving dispatch); never runs inside the step loop
         w = w.detach().cpu().float().numpy()
+    # firacheck: allow[HOST-SYNC] same engine-BUILD-time quantization as the line above
     a = np.asarray(w, np.float32)
     reduce_axes = tuple(range(a.ndim - 1))
     scale = np.max(np.abs(a), axis=reduce_axes) / 127.0

@@ -70,6 +70,7 @@ def sample_emitter(writer, *, vocab, cfg: FiraConfig, bleu_by_pos: Dict,
 
     def emit(pos, host, row, tokens, probs):
         best = int(np.argmax(probs))             # run_model.py:351
+        # firacheck: allow[HOST-SYNC] tokens is a host numpy row (the decode output boundary's copy); no device value exists here
         ids = tokens[best].tolist()
         # beam output ids are already copy-resolved at extension time
         hyp = cook_prediction(ids[1:], host["diff"][row],
@@ -209,9 +210,11 @@ def run_test(model: FiraModel, dataset: FiraDataset,
                         "beam_search",
                         item.host["_tag"] if cfg.buckets else None),
                         item.device)
+                # firacheck: allow[HOST-SYNC] per-batch output collection IS the decode boundary: beams must reach the host to be cooked into text
                 tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
                 positions = item.host["_positions"]
                 for i in np.flatnonzero(item.host["valid"]):
+                    # firacheck: allow[HOST-SYNC] _positions is a host-only numpy field (feeder strips it from the wire); no device value exists here
                     emit(int(positions[i]), item.host, i, tokens[i],
                          probs[i])
     n = len(bleu_by_pos)

@@ -267,6 +267,7 @@ def run_verify(step_gated, state, drafts, k: int, tar_len: int, read):
     iters = 0
     while iters < k:
         act = state["live"] & ~state["done"] & gate
+        # firacheck: allow[HOST-SYNC] the verify loop's per-frame predicate read (one sync a frame, counted in host_syncs), where the JAX package's verify loop runs on the device; a CUDA-graph verify (ROADMAP.md A.5) must keep it there
         if not read(act.any()):
             break
         pos_c = state["pos"].clamp(max=tar_len - 2)

@@ -80,6 +80,7 @@ def _payload_checksum(host: Dict) -> str:
     caught against. Host-only "_" keys are replayed metadata, left out."""
     h = hashlib.blake2b(key=_DIGEST_KEY, digest_size=16)
     for name in sorted(k for k in host if not k.startswith("_")):
+        # firacheck: allow[HOST-SYNC] ingest payloads are host numpy by construction (assembled worker-side, put=False); no device value exists here
         a = np.ascontiguousarray(np.asarray(host[name]))
         h.update(name.encode())
         h.update(str(a.dtype).encode())

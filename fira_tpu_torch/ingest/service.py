@@ -310,6 +310,7 @@ def _clip_edges(ex, cfg: FiraConfig) -> Tuple[object, int]:
     """Fit an example's ragged COO under ``cfg.max_edges``: drop trailing
     family edges (the self-loops, the last ``graph_len`` entries the
     bucketed ``make_batch`` drops from, stay whole)."""
+    # firacheck: allow[HOST-SYNC] Example arrays are host numpy (data/dataset.process_record output); shape arithmetic is pure host planning
     n = int(ex.senders.shape[0])
     if n <= cfg.max_edges:
         return ex, 0
@@ -390,6 +391,7 @@ def ingest_request(text: str, word_vocab: Vocab, ast_change_vocab: Vocab,
         geom = table[bucket]
     else:
         bucket, geom = 0, None
+    # firacheck: allow[HOST-SYNC] np.asarray of a host int list builds the make_batch index chunk; no device value exists here
     host = make_batch(split1, np.asarray([0]), cfg, batch_size=batch_size,
                       geom=geom)
     t3 = time.perf_counter()
@@ -599,6 +601,7 @@ def serve_diffs(model, word_vocab: Vocab, ast_change_vocab: Vocab,
         # map (the packed batch's _var column): the same cooking, so a
         # reconstructed corpus request serves the graphs path's line
         best = int(np.argmax(probs))
+        # firacheck: allow[HOST-SYNC] tokens is the host numpy beam the engine's harvest returned; cooking it into text is the output boundary
         hyp = cook_prediction(tokens[best].tolist()[1:], host["diff"][row],
                               host["sub_token"][row], word_vocab, cfg,
                               resolve=False)

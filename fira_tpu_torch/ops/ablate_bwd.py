@@ -22,10 +22,11 @@ import sys
 
 import torch
 
+from fira_tpu_torch.config import fira_full
 from fira_tpu_torch.ops import build, copy_score as cs
 from fira_tpu_torch.ops.timing import smi_name_power, time_ms
 
-SHAPE = (170, 30, 370, 256)
+SHAPE = (170, fira_full().tar_len, 370, 256)
 OUT_DIR = build.BUILD_DIR / "ablate"
 
 # name -> [(text in the source, text that reverts the choice)]

@@ -23,11 +23,13 @@ import sys
 
 import torch
 
+from fira_tpu_torch.config import fira_full
 from fira_tpu_torch.ops import build, copy_score as cs
 from fira_tpu_torch.ops.ablate_bwd import compile_all, variant_sources
 from fira_tpu_torch.ops.timing import smi_name_power, time_ms
 
-SHAPES = {"train": (170, 30, 370, 256), "dev": (20, 30, 370, 256),
+_T = fira_full().tar_len
+SHAPES = {"train": (170, _T, 370, 256), "dev": (20, _T, 370, 256),
           "decode": (60, 1, 370, 256)}
 SYMBOLS = ("copy_score_tile_kernelIfLi256E", "copy_score_row_kernelIfLi256E")
 

@@ -23,7 +23,9 @@ import sys
 
 import numpy as np
 
-SHAPE = (2, 30, 370, 256)
+from fira_tpu_torch.config import fira_full
+
+SHAPE = (2, fira_full().tar_len, 370, 256)
 
 
 def emulate_tile_kernel(src, tgt, w, paired=True, perturb=None):

@@ -308,6 +308,7 @@ class EngineFleet:
         engines (tags ``sp<i>`` from a sequence never reused, devices
         round-robin like the fleet's), idle until a retirement attaches
         one."""
+        # firacheck: allow[HOST-SYNC] count is the engine_spares config int; no device value exists here
         while len(self.spares) < int(count):
             i = self._spare_seq
             self._spare_seq += 1
@@ -377,17 +378,24 @@ class EngineFleet:
         # here, so no position is decoded twice
         pending_pos = set()
         for b in pending:
+            # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
             v = np.asarray(b["valid"], dtype=bool)
+            # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
             pending_pos.update(int(p) for p in np.asarray(b["_positions"])[v])
         n_req = 0
         kept = []
         for p in payloads:
+            # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
             v = np.asarray(p["valid"], dtype=bool).copy()
+            # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
             pos = np.asarray(p["_positions"])
             for r in range(v.shape[0]):
+                # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
                 if v[r] and int(pos[r]) in pending_pos:
                     v[r] = False
+            # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
             if v.any():
+                # firacheck: allow[HOST-SYNC] requeue payloads are host numpy batches (SlotEngine.retire / _as_payload); no device value exists in this dedup
                 p["valid"] = v.astype(np.asarray(p["valid"]).dtype)
                 kept.append(p)
                 n_req += int(v.sum())

@@ -124,6 +124,7 @@ def parse_fault_specs(spec: str) -> List[FaultSpec]:
                 f"{', '.join(CORRUPT_SITES)} (the site that owns a host "
                 f"payload to scramble); {site} is a dispatch boundary")
         try:
+            # firacheck: allow[HOST-SYNC] rate_s is a parse-time CLI spec string field, not a device value
             rate = float(rate_s)
         except ValueError:
             raise ValueError(
@@ -134,6 +135,7 @@ def parse_fault_specs(spec: str) -> List[FaultSpec]:
                 f"inject_faults rate {rate} at site {site} must be in "
                 f"[0, 1] (a per-event fire probability)")
         try:
+            # firacheck: allow[HOST-SYNC] seed_s is a parse-time CLI spec string field, not a device value
             seed = int(seed_s)
         except ValueError:
             raise ValueError(

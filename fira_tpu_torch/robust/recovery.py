@@ -101,6 +101,7 @@ def respawn_backoff_s(attempt: int, base: float) -> float:
     (``robust.faults.backoff_s``, linear in the attempt, capped at 5x)
     rescaled from its 0.01 s base to ``base``, one curve for every retry
     and respawn site."""
+    # firacheck: allow[HOST-SYNC] base is the respawn_backoff_s config float; no device value exists here
     return faults_lib.backoff_s(attempt) * (float(base) / 0.01)
 
 
@@ -216,6 +217,7 @@ def read_journal(path: str) -> Tuple[Optional[Dict], Dict[int, Dict]]:
         if kind == "begin" and meta is None:
             meta = rec
         elif kind in ("done", "shed") and "pos" in rec:
+            # firacheck: allow[HOST-SYNC] rec is a parsed JSON journal record (host dict); no device value exists here
             terminal[int(rec["pos"])] = rec
     return meta, terminal
 
@@ -301,6 +303,7 @@ def recover_output(out_path: str, expected: int) -> Dict[int, str]:
                 continue   # a malformed tail record
             pos_s, line = raw.split("\t", 1)
             try:
+                # firacheck: allow[HOST-SYNC] pos_s is a position tag parsed from the writer's on-disk tail spill; no device value exists here
                 pos = int(pos_s)
             except ValueError:
                 continue
@@ -364,6 +367,7 @@ class RecoveryManager:
         s = self._slot_of(eng)
         s.alive = False
         s.retired_round = int(round_)
+        # firacheck: allow[WALL-CLOCK] the respawn backoff is wall-gated BY DESIGN on wall-clock serves (crash-looping hardware backs off in real seconds); virtual replays gate on rounds instead (due() round branch), so no wall time reaches the virtual schedule
         s.retired_wall = time.monotonic()
         s.last_error = error
 
@@ -385,6 +389,7 @@ class RecoveryManager:
             if s.alive or s.respawns >= self.max_respawns:
                 continue
             if self.wall_clock:
+                # firacheck: allow[WALL-CLOCK] wall-gate branch runs ONLY under self.wall_clock (the wall-serve mode); the virtual-clock path below gates on rounds, so replay determinism is untouched
                 age = time.monotonic() - s.retired_wall
                 if (s.retired_wall >= 0
                         and age < respawn_backoff_s(s.respawns + 1,
@@ -408,7 +413,9 @@ class RecoveryManager:
             eng, from_spare = self.fleet.replace_slot(slot.origin,
                                                       slot.device)
         except Exception as e:
+            # firacheck: allow[HOST-SYNC] round_ is the serve loop's host round counter; no device value exists here
             slot.retired_round = int(round_)   # the backoff starts again
+            # firacheck: allow[WALL-CLOCK] same wall-gated respawn backoff stamp as note_retirement (round-gated on virtual replays)
             slot.retired_wall = time.monotonic()
             slot.last_error = f"respawn failed: {type(e).__name__}: {e}"
             return None, False
@@ -427,6 +434,7 @@ class RecoveryManager:
         for o in sorted(self.slots):
             s = self.slots[o]
             while not s.alive and s.respawns < self.max_respawns:
+                # firacheck: allow[SCHED-BLOCK] drain-mode heal: single-threaded batch work with no open-loop arrivals to starve (docstring above); the serve loop's _heal never sleeps — it gates in due()
                 time.sleep(respawn_backoff_s(s.respawns + 1,
                                              self.backoff_base))
                 eng, _sp = self.respawn(s, s.retired_round)

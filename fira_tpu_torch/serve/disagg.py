@@ -127,6 +127,7 @@ def _ship_result(conn, seq: int, rows, shm_min: int = SHM_MIN_BYTES
         fields = []
         for name in sorted(p):
             a = np.ascontiguousarray(p[name])
+            # firacheck: allow[HOST-SYNC] host numpy payload being packed into the shm segment — no device value in the child's ship path
             nb = int(a.nbytes)
             shm.buf[off:off + nb] = a.tobytes()
             fields.append((name, str(a.dtype), tuple(a.shape), off, nb))
@@ -188,11 +189,13 @@ def _worker_main(conn) -> None:
         chunk = eng._prefill(batch_to_device(batch, device))
         lanes = eng._fill_copies(chunk, list(range(n)))
         if device.type == "cuda":
+            # firacheck: allow[HOST-SYNC] the worker child's whole job is materializing prefill artifacts on host for transport; this wait for the queued D2H copies is the product, not a stall
             torch.cuda.synchronize(device)
         compact = {f: eng._to_numpy(t) for f, t in lanes.items()}
         return prefix_cache_lib.extract_payloads(compact, list(range(n)), 1)
 
     def prefill_group(bucket: int, rows) -> List[Tuple]:
+        # firacheck: allow[HOST-SYNC] host-side wire assembly from the host template — the single H2D copy below is the boundary
         batch = {k: np.array(v) for k, v in templates[bucket].items()
                  if not k.startswith("_")}
         for j, (_d, rh) in enumerate(rows):
@@ -206,6 +209,7 @@ def _worker_main(conn) -> None:
     # the parent's unit of backpressure
     est: Dict[int, int] = {}
     for b in sorted(templates):
+        # firacheck: allow[HOST-SYNC] prewarm-time host wire assembly, once per bucket before any request exists
         wire = {k: np.array(v) for k, v in templates[b].items()
                 if not k.startswith("_")}
         est[b] = prefix_cache_lib.payload_nbytes(prefill_rows(wire, 1)[0])
@@ -416,6 +420,7 @@ class PrefillTier:
                     "dtype": dtype, "worker_id": w.wid,
                     "threads": torch.get_num_threads(),
                     "shm_min_bytes": SHM_MIN_BYTES,
+                    # firacheck: allow[HOST-SYNC] a host flag of torch's matmul settings, reported once in the worker's ready handshake; no device value exists here
                     "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
             try:
                 w.conn.send(init)

@@ -481,8 +481,10 @@ class ServeLoop:
         (assigned by its measured extents, ingest/service.py), 0 when
         unbucketed."""
         if self._assignment is not None:
+            # firacheck: allow[HOST-SYNC] host numpy bucket-assignment array — bucket lookup is pure host-side planning
             return int(self._assignment[i])
         if item.host is not None and "_bucket" in item.host:
+            # firacheck: allow[HOST-SYNC] _bucket is a host int the feeder stamps on the host batch; no device value exists here
             return int(item.host["_bucket"])
         return 0
 
@@ -498,9 +500,11 @@ class ServeLoop:
             i = self._arr_idx
             rec = self.stats.records[i]
             rec.arrival_round = self.stats.rounds
+            # firacheck: allow[HOST-SYNC] FedBatch.retries is a host int counter stamped by the feeder worker; no device value exists here
             rec.retries += int(item.retries)
             if item.host is not None:
                 rec.ingest = item.host.get("_ingest")
+            # firacheck: allow[HOST-SYNC] FedBatch.stall_s is a host perf_counter float stamped by the feeder; no device value exists here
             self.stats.assembly_stall_s += float(item.stall_s)
             digest = None
             if self._dedup_on and item.host is not None:
@@ -557,6 +561,7 @@ class ServeLoop:
         """Quarantine retry backoff: a real sleep on the wall clock only (a
         virtual replay draws every retry afresh and needs no wait)."""
         if isinstance(self.clock, WallClock):
+            # firacheck: allow[SCHED-BLOCK] wall-clock serves only (the branch above): a feeder-retry backoff on the shared docs/FAULTS.md curve, bounded per attempt; virtual replays draw every retry afresh and never sleep
             time.sleep(faults_lib.backoff_s(attempt))
 
     def _admit_gate(self, rec: RequestRecord) -> bool:
@@ -695,6 +700,7 @@ class ServeLoop:
             # having other work (rounds advance only while work is in
             # flight, so the hold cannot deadlock)
             busy = eng.in_flight() > 0 or eng.staged_rows > 0
+            # firacheck: allow[HOST-SYNC] hits is the host list of prefix-cache hits; no device value exists here
             warm = bool(hits) or eng.stats.cache_hits > 0
             head_wait = self.stats.rounds - min(
                 e.record.arrival_round for e in misses)
@@ -714,6 +720,7 @@ class ServeLoop:
         geometry (pad rows from the all-pad template): a drain batch whose
         members the server chose."""
         tmpl = self._templates[bucket]
+        # firacheck: allow[HOST-SYNC] host-side wire assembly from the host template; no device value exists here
         batch = {k: np.array(v) for k, v in tmpl.items()}
         positions = np.full(self._bs, -1, dtype=np.int64)
         for j, e in enumerate(take):
@@ -837,6 +844,7 @@ class ServeLoop:
         while self._arr_idx < len(self._times):
             item = next(self._feed_iter)
             rec = self.stats.records[self._arr_idx]
+            # firacheck: allow[HOST-SYNC] FedBatch.retries is a host int counter stamped by the feeder worker; no device value exists here
             rec.retries += int(item.retries)
             if item.host is not None:
                 rec.ingest = item.host.get("_ingest")
@@ -987,6 +995,7 @@ class ServeLoop:
     # --- the loop -------------------------------------------------------
 
     def run(self) -> ServeStats:
+        # firacheck: allow[WALL-CLOCK] ServeStats.wall_s is DEFINED as real elapsed seconds (the stall-fraction denominator must be wall over wall); it never feeds the scheduling clock
         t0 = time.perf_counter()
         n = len(self._times)
         for eng in self.engines:
@@ -1011,6 +1020,7 @@ class ServeLoop:
                     if isinstance(self.clock, WallClock):
                         # the respawn gate is wall time there, and rounds
                         # are step dispatches: wait a beat, no spin
+                        # firacheck: allow[SCHED-BLOCK] bounded 10ms beat on the ALL-REPLICAS-LOST pause branch: nothing can dispatch, arrivals are polled each beat, and the alternative is a busy-spin
                         time.sleep(0.01)
                     else:
                         # virtual: the round clock is the backoff gate
@@ -1134,6 +1144,7 @@ class ServeLoop:
                     and self.stats.rounds % SNAPSHOT_EVERY_ROUNDS == 0):
                 self._snapshot(self)
         self._flush_shed_log()   # sheds after the last harvest
+        # firacheck: allow[WALL-CLOCK] the wall_s meter's closing read — same real-wall stall-denominator contract as the t0 stamp above
         self.stats.wall_s = time.perf_counter() - t0
         return self.stats
 
@@ -1288,10 +1299,13 @@ def _request_tasks(data, cfg: FiraConfig, n: int, table, assignment,
     stamp = cfg.prefix_cache
     tier_ns = tier_namespace(cfg)
     for i in range(n):
+        # firacheck: allow[HOST-SYNC] mix is a host request->sample index map; task generation is pure host-side planning
         j = int(mix[i]) if mix is not None else i
+        # firacheck: allow[HOST-SYNC] host numpy bucket-assignment array — task generation is pure host-side planning
         geom = table[int(assignment[i])] if table is not None else None
 
         def task(j=j, geom=geom):
+            # firacheck: allow[HOST-SYNC] np.asarray of a host int list builds the make_batch index chunk; no device value exists here
             b = make_batch(data, np.asarray([j]), cfg, batch_size=1,
                            geom=geom)
             return stamp_digests(b, tier_ns) if stamp else b
@@ -1336,6 +1350,7 @@ def write_metrics_atomic(path: str, payload: Dict) -> str:
     with open(tmp, "w") as f:
         json.dump(payload, f, indent=1, allow_nan=False)
         f.flush()
+        # firacheck: allow[SCHED-BLOCK] the atomic-artifact crash contract REQUIRES the fsync before the rename (docs/FAULTS.md); it runs once per snapshot cadence (16 rounds), not per dispatch, and the cost is metered in the journal-overhead rows
         os.fsync(f.fileno())
     os.replace(tmp, path)
     return path

@@ -153,16 +153,19 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
                 raise WatchdogTimeout(
                     "dev gate abandoned by the dispatch watchdog")
             host = item.host
+            # firacheck: allow[HOST-SYNC] dev gate IS a designated sync boundary: teacher-forced ids must reach the host for BLEU scoring (README Design notes)
             ids = step_lib.dev_step(model, item.device).cpu().numpy()
             if guard is not None:
                 guard.step(program_label("dev_step", _tag(host, cfg)),
                            item.device)
             for i in np.flatnonzero(host["valid"]):
+                # firacheck: allow[HOST-SYNC] ids is the host copy the dev gate boundary above made; no device value exists here
                 hyp = cook_prediction(ids[i].tolist(), host["diff"][i],
                                       host["sub_token"][i], vocab, cfg)
                 ref = reference_words(host["msg"][i], vocab)
                 b = nltk_sentence_bleu([ref], hyp)
                 total_bleu += b
+                # firacheck: allow[HOST-SYNC] _positions is a host-only numpy field (feeder strips it from the wire); no device value exists here
                 pos = int(host["_positions"][i])
                 var_map = (var_maps[indices[pos]]
                            if var_maps is not None else None)
@@ -395,6 +398,7 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         restarts the clock."""
         nonlocal measured_steps
         if loss is not None:
+            # firacheck: allow[HOST-SYNC] THE designated sync helper: every hot-loop sync funnels through here so the boundaries stay enumerable (called only at meter/log/epoch edges)
             loss.item()   # waits for the queued steps
         if pending["steps"]:
             if meter.tick(pending["commits"], stall_s=pending["feed_s"]):
@@ -458,6 +462,7 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                                                     var_maps, plan=eval_plan,
                                                     cancel=gate_cancel.is_set,
                                                     guard=guard),
+                                    # firacheck: allow[HOST-SYNC] config scalar, not a device value; the gate is already a designated sync boundary
                                     float(cfg.dispatch_watchdog_s),
                                     label=f"dev_gate[e{epoch}b{idx}]",
                                     cancel_event=gate_cancel)
@@ -476,7 +481,9 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                                 [decision is not None] + list(decision or (0, 0)),
                                 dtype=torch.float64, device=device)
                             broadcast_(sent, mesh.group(ALL), 0)
+                            # firacheck: allow[HOST-SYNC] the dev gate's decision, broadcast from the lead rank: a designated sync boundary once a gate (every mesh rank must take the same checkpoint decision)
                             if sent[0].item():
+                                # firacheck: allow[HOST-SYNC] same dev-gate decision broadcast as the line above
                                 decision = (sent[1].item(), int(sent[2].item()))
                         if decision is not None:
                             bleu, n_batches = decision
@@ -531,6 +538,7 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                     if (-idx) % 10 < k:
                         sync_tick(last)
                         log.console(f"epoch: {epoch} batch: {idx} loss: "
+                                    # firacheck: allow[HOST-SYNC] the 10-batch console-log cadence is a designated sync boundary (README Design notes); steps in between stay async-dispatched
                                     f"{last.item():.4f}")
                     idx += k
                 fs = feed.stats()
