@@ -32,14 +32,20 @@ ahead of the training loop, the dev gate and the test decode:
 - **shutdown**: ``close()`` (also called by the context manager, at the
   end of the stream and on an error) stops dispatch and joins every
   thread.
-- **observability**: each item carries ``stall_s`` (the consumer's time
-  in ``__next__`` for it: waiting, and queueing its copies; the numerator
-  of the loop's feed share) and ``queue_depth`` (ready batches when the
-  consumer arrived); ``stats()`` sums them.
+- **observability**: spans and counters of ``utils/profiling.py``:
+  ``feeder.wait`` (the consumer, from its arrival in ``__next__`` until
+  the in-order batch is in hand), ``feeder.put`` (sharding, pinning and
+  queueing the copies), ``feeder.assemble`` (the successful attempt's
+  task, on the thread that ran it) and ``feeder.not_ready`` (a batch not
+  ready on the consumer's arrival). Each item carries ``stall_s``, its
+  wait plus its put (the numerator of the loop's feed share), and
+  ``queue_depth`` (ready batches when the consumer arrived); ``stats()``
+  sums them.
 
 ``num_workers=0`` is the synchronous mode: the same interface, the tasks
-run on the consumer's thread (their time is then all stall), and no thread
-is started.
+run on the consumer's thread (the wait is then the assembly, every batch
+is not ready on arrival, and the stall is all of it), and no thread is
+started.
 
 The Feeder never waits for the device: ``n_valid`` is counted on the host
 batch before the transfer. ``faults`` (an armed
@@ -75,6 +81,7 @@ import torch
 
 from fira_tpu_torch.analysis.sanitizer import guard_structures, leak_guard
 from fira_tpu_torch.robust.faults import backoff_s
+from fira_tpu_torch.utils import profiling
 
 Batch = Dict[str, Any]
 Task = Callable[[], Batch]
@@ -140,11 +147,10 @@ class FedBatch:
     device: Any         # the fields on the device (== host when put=False)
     n_valid: int        # real (non-pad) rows, counted before the transfer
                         # (over every member of a stacked group)
-    stall_s: float      # consumer time in __next__ for THIS item
+    stall_s: float      # THIS item's feeder.wait plus its feeder.put
     queue_depth: int    # ready-but-unconsumed items when consumer arrived
     error: Optional[BaseException] = None  # FeederTaskError in record mode
     retries: int = 0    # assembly attempts beyond the first this item took
-    task_s: float = 0.0  # seconds of the successful assembly attempt
 
 
 class Feeder:
@@ -153,14 +159,16 @@ class Feeder:
     ``tasks``: iterable of zero-arg callables, each returning one host
     batch; it is drained lazily on the dispatcher thread, so a generator
     is fine. ``put=False`` skips the transfer (host-only pipelines, e.g.
-    tests); otherwise ``fields`` go to ``device``.
+    tests); otherwise ``fields`` go to ``device``. ``recorder`` takes the
+    spans and counters (the program's by default).
     """
 
     def __init__(self, tasks: Iterable[Task], *, num_workers: int = 2,
                  depth: int = 4, put: bool = True, device="cuda",
                  fields=DEVICE_FIELDS, on_error: str = "raise",
                  retries: int = 0, faults=None,
-                 sharding: Optional[Callable[[Batch], Batch]] = None):
+                 sharding: Optional[Callable[[Batch], Batch]] = None,
+                 recorder: profiling.Recorder = profiling.RECORDER):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if num_workers < 0:
@@ -179,15 +187,14 @@ class Feeder:
         self._retries = retries
         self._faults = faults
         self._sharding = sharding
+        self._rec = recorder
         self._next = 0                 # next sequence number to emit
         self._n_stalls = 0
         self._stall_s = 0.0
-        self._stall_max = 0.0
         self._depth_sum = 0
         self._depth_min: Optional[int] = None
         self._n_task_errors = 0
         self._n_task_retries = 0
-        self._task_s = 0.0
         self._closed = False
         # resource-lifecycle sanitizer: armed, every pipeline thread is
         # ledgered at start and retired at join, so a close() that skips
@@ -272,21 +279,22 @@ class Feeder:
         attempt = 0
         while True:
             try:
-                t0 = time.perf_counter()
-                if self._faults is not None:
-                    self._faults.check("feeder.assemble", key=(seq, attempt))
-                host = task()
-                if self._faults is not None:
-                    host = self._faults.corrupt("feeder.assemble", seq, host)
-                # counted on the host before the transfer: reading it back
-                # from the device would wait for the queued steps
-                n_valid = int(host["valid"].sum())
-                if self._faults is not None:
-                    self._faults.check("feeder.device_put",
-                                       key=(seq, attempt))
+                with self._rec.span("feeder.assemble"):
+                    if self._faults is not None:
+                        self._faults.check("feeder.assemble",
+                                           key=(seq, attempt))
+                    host = task()
+                    if self._faults is not None:
+                        host = self._faults.corrupt("feeder.assemble", seq,
+                                                    host)
+                    # counted on the host before the transfer: reading it
+                    # back from the device would wait for the queued steps
+                    n_valid = int(host["valid"].sum())
+                    if self._faults is not None:
+                        self._faults.check("feeder.device_put",
+                                           key=(seq, attempt))
                 return FedBatch(seq, host, host, n_valid, 0.0, 0,
-                                retries=attempt,
-                                task_s=time.perf_counter() - t0)
+                                retries=attempt)
             except Exception as e:
                 if attempt < self._retries:
                     attempt += 1
@@ -314,47 +322,53 @@ class Feeder:
     def __next__(self) -> FedBatch:
         if self._num_workers == 0:
             return self._next_sync()
-        t0 = time.perf_counter()
-        with self._cond:
-            depth_seen = len(self._ready)
-            while True:
-                if self._error is not None:
-                    err = self._error
-                    break
-                if self._next in self._ready:
-                    err = None
-                    item = self._ready.pop(self._next)
-                    break
-                if self._total is not None and self._next >= self._total:
-                    err = StopIteration()
-                    break
-                # firacheck: allow[SCHED-BLOCK] this wait IS the metered feed stall (stall_s): the consumer blocks exactly until the next in-order item, and close()/_poison notify_all so it can never wedge
-                self._cond.wait()
-        if err is not None:
-            self.close()
-            raise err
+        with self._rec.span("feeder.wait") as wait:
+            with self._cond:
+                depth_seen = len(self._ready)
+                not_ready = self._next not in self._ready
+                while True:
+                    if self._error is not None:
+                        err = self._error
+                        break
+                    if self._next in self._ready:
+                        err = None
+                        item = self._ready.pop(self._next)
+                        break
+                    if self._total is not None and self._next >= self._total:
+                        err = StopIteration()
+                        break
+                    # firacheck: allow[SCHED-BLOCK] this wait IS the metered feed stall (feeder.wait): the consumer blocks exactly until the next in-order item, and close()/_poison notify_all so it can never wedge
+                    self._cond.wait()
+            if err is not None:   # raised inside the span: no wait recorded
+                self.close()
+                raise err
+        if not_ready:
+            self._rec.count("feeder.not_ready")
         self._next += 1
         self._inflight.release()
-        self._device_put(item)
-        stall = time.perf_counter() - t0
-        item.stall_s = stall
-        item.queue_depth = depth_seen
-        self._record(item, stall, depth_seen)
-        return item
+        return self._emit(item, wait, depth_seen)
 
     def _next_sync(self) -> FedBatch:
-        t0 = time.perf_counter()
-        try:
-            task = next(self._task_iter)
-        except StopIteration:
-            self._closed = True
-            raise
-        item = self._execute(self._next, task)
-        self._device_put(item)
-        stall = time.perf_counter() - t0
+        with self._rec.span("feeder.wait") as wait:
+            try:
+                task = next(self._task_iter)
+            except StopIteration:
+                self._closed = True
+                raise
+            item = self._execute(self._next, task)
+        self._rec.count("feeder.not_ready")
         self._next += 1
-        item.stall_s = stall
-        self._record(item, stall, 0)
+        return self._emit(item, wait, 0)
+
+    def _emit(self, item: FedBatch, wait: profiling.Span,
+              depth_seen: int) -> FedBatch:
+        """Queue the item's copies under ``feeder.put``; its stall is its
+        wait plus its put."""
+        with self._rec.span("feeder.put") as put:
+            self._device_put(item)
+        item.stall_s = wait.seconds + put.seconds
+        item.queue_depth = depth_seen
+        self._record(item)
         return item
 
     def _device_put(self, item: FedBatch) -> None:
@@ -366,15 +380,13 @@ class Feeder:
                     else self._sharding(item.host))
             item.device = batch_to_device(host, self._device, self._fields)
 
-    def _record(self, item: FedBatch, stall: float, depth_seen: int) -> None:
+    def _record(self, item: FedBatch) -> None:
         self._n_stalls += 1
-        self._stall_s += stall
-        self._stall_max = max(self._stall_max, stall)
-        self._depth_sum += depth_seen
-        self._depth_min = (depth_seen if self._depth_min is None
-                           else min(self._depth_min, depth_seen))
+        self._stall_s += item.stall_s
+        self._depth_sum += item.queue_depth
+        self._depth_min = (item.queue_depth if self._depth_min is None
+                           else min(self._depth_min, item.queue_depth))
         self._n_task_retries += item.retries
-        self._task_s += item.task_s
         if item.error is not None:
             self._n_task_errors += 1
 
@@ -422,7 +434,6 @@ class Feeder:
         return {
             "batches": float(n),
             "feed_stall_s": self._stall_s,
-            "feed_stall_max_ms": 1e3 * self._stall_max,
             "queue_depth_sum": float(self._depth_sum),
             "queue_depth_mean": (self._depth_sum / n) if n else 0.0,
             "queue_depth_min": float(self._depth_min or 0),
@@ -430,7 +441,6 @@ class Feeder:
             "depth": float(self._depth),
             "task_errors": float(self._n_task_errors),
             "task_retries": float(self._n_task_retries),
-            "task_s": self._task_s,
         }
 
 

@@ -35,7 +35,16 @@ an epoch's end; throughput is measured between those points, with the dev
 gates and the checkpoint writes excluded, and the first interval (the
 kernels' first build and launch) dropped, as the JAX loop's
 ``Meter(warmup=1)``. The feed share is the time the loop waited for the
-Feeder, over the measured wall.
+Feeder, over the measured wall. The closing ``throughput:`` line adds the
+run's readings of the program's spans and counters (utils/profiling.py;
+the dev gates' Feeder records into a recorder of its own): the median
+host issue of a forward, a backward and an optimizer step, the Feeder's
+median wait and put, the pool's use (assembly seconds over the workers,
+or the loop's own thread, times the run's whole wall from before its
+first Feeder to after its last, dev gates and checkpoint writes
+included, since the workers assemble through them) and the share of
+batches not ready when the loop asked (``TrainResult.step_ms`` and
+``TrainResult.feeder``).
 
 With ``cfg.dispatch_watchdog_s`` > 0 each dev gate runs under the dispatch
 watchdog (robust/watchdog.py), as the JAX loop's does: a gate that
@@ -145,9 +154,11 @@ def run_dev(model, dataset: FiraDataset, cfg: FiraConfig,
         plan = buckets_lib.decode_plan(data, cfg)
     tasks = buckets_lib.bucketed_assembly_tasks(data, plan, cfg,
                                                 batch_size=bs)
+    # a recorder of its own: the gate's batches stay out of the training
+    # path's spans, which the train loop reads over its run
     with Feeder(tasks, num_workers=cfg.feeder_workers,
                 depth=cfg.feeder_depth, device=device,
-                fields=TRAIN_FIELDS) as feed:
+                fields=TRAIN_FIELDS, recorder=profiling.Recorder()) as feed:
         for item in feed:
             if cancel is not None and cancel():
                 raise WatchdogTimeout(
@@ -203,8 +214,13 @@ class TrainResult:
     # accumulated group one for the group)
     losses: List[float] = dataclasses.field(default_factory=list)
     # the training Feeders' stats summed over the epochs: batches,
-    # feed_stall_s, queue_depth_mean/min, num_workers, depth
+    # feed_stall_s, queue_depth_mean/min, num_workers, depth; and from the
+    # spans and counters of this run: wait_ms and put_ms (medians),
+    # pool_use and not_ready_frac
     feeder: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # median host issue of a forward, a backward and an optimizer step
+    # (ms; "forward", "backward", "optimizer"), from this run's spans
+    step_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     # forward and backward passes (a step each; under accum_steps every
     # micro-batch, the tails' all-invalid ones too) and stacked groups run
     batches: int = 0
@@ -385,6 +401,8 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
     # the JAX loop's Meter(warmup=1); the optimizer steps of its measured
     # intervals are counted beside it
     meter = profiling.Meter(warmup=1)
+    spans_mark = profiling.mark()   # this run's spans and counters: since
+    run_t0 = time.perf_counter()    # the pool's use is over the whole run
     measured_steps = 0
     pending = {"commits": 0, "steps": 0, "feed_s": 0.0}
     losses: List[torch.Tensor] = []
@@ -581,6 +599,9 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         "num_workers": float(cfg.feeder_workers),
         "depth": float(cfg.feeder_depth),
     }
+    step_ms, host = _host_readings(spans_mark, cfg.feeder_workers,
+                                   time.perf_counter() - run_t0)
+    feeder.update(host)
     if measured_steps:
         log.console(f"throughput: {cps:.2f} commits/sec over "
                     f"{measured_steps} measured steps "
@@ -588,7 +609,13 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
                     f"ms/step), dev gates {dev_seconds:.2f} s | feeder "
                     f"queue depth mean {feeder['queue_depth_mean']:.1f} min "
                     f"{feeder['queue_depth_min']:.0f} (workers "
-                    f"{cfg.feeder_workers}, depth {cfg.feeder_depth})")
+                    f"{cfg.feeder_workers}, depth {cfg.feeder_depth}) | "
+                    f"host issue ms: forward {step_ms['forward']:.2f} "
+                    f"backward {step_ms['backward']:.2f} optimizer "
+                    f"{step_ms['optimizer']:.2f} | feeder ms: "
+                    f"wait {host['wait_ms']:.2f} put {host['put_ms']:.2f}, "
+                    f"pool use {100 * host['pool_use']:.1f} %, not ready "
+                    f"{100 * host['not_ready_frac']:.1f} %")
     return TrainResult(
         state=state, best_bleu=best_bleu,
         epochs_run=max(0, n_epochs - start_epoch),
@@ -598,7 +625,36 @@ def train(dataset: FiraDataset, cfg: Optional[FiraConfig] = None, *,
         steps=steps, gates=gates, dev_batches=dev_batches,
         dev_seconds=dev_seconds,
         losses=(torch.cat(losses).cpu().tolist() if losses else []),
-        feeder=feeder, batches=batches, groups=groups, warnings=warnings)
+        feeder=feeder, step_ms=step_ms, batches=batches, groups=groups,
+        warnings=warnings)
+
+
+def _host_readings(since: Dict, workers: int, wall_s: float):
+    """This run's readings of the program's spans and counters (recorded
+    after ``since``, a ``profiling.mark()``): the median issue ms of the
+    step's parts, and the Feeder's median wait and put ms, the pool's use
+    (``feeder.assemble`` seconds over the workers, or the loop's own
+    thread at 0, times ``wall_s``, the run's wall since ``since``: every
+    assembly lies inside it, so the use is at most 1) and the share of
+    batches not ready on arrival."""
+    spans = profiling.spans(since)
+    counts = profiling.counters(since)
+
+    def median_ms(name: str) -> float:
+        return 1e3 * spans[name]["median_s"] if name in spans else 0.0
+
+    step_ms = {part: median_ms(f"train.{part}")
+               for part in ("forward", "backward", "optimizer")}
+    assemble_s = spans.get("feeder.assemble", {}).get("total_s", 0.0)
+    waits = spans.get("feeder.wait", {}).get("count", 0)
+    return step_ms, {
+        "wait_ms": median_ms("feeder.wait"),
+        "put_ms": median_ms("feeder.put"),
+        "pool_use": (assemble_s / (max(workers, 1) * wall_s)
+                     if wall_s else 0.0),
+        "not_ready_frac": (counts.get("feeder.not_ready", 0) / waits
+                           if waits else 0.0),
+    }
 
 
 def _dispatch(entry, accum: int, model, optimizer, batch, gen, mesh

@@ -21,6 +21,16 @@ JAX package's jitted steps do on its mesh
 Each backward goes through ``analysis.sanitizer.backward``: a plain
 ``backward()`` unless the sanitizer's NaN check is armed, which then runs
 it under anomaly detection (``--sanitize``).
+
+The host's issue of each part is a span of ``utils/profiling.py``:
+``train.forward`` (each forward), ``train.backward`` (each backward, with
+``sync_grads`` under a mesh) and ``train.optimizer`` (Adam's step;
+accum's gradient division). On a CUDA device each step ends by recording
+an event on the stream, and the next step begins by querying it (it does
+not block): the step counts ``train.steps``, and ``train.issue_bound``
+when the event has completed, that is, when the card had run everything
+the previous step queued before the host began this one, and so waited
+on the host.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 
 from fira_tpu_torch.analysis import sanitizer
 from fira_tpu_torch.model.model import FiraModel
+from fira_tpu_torch.utils import profiling
 
 
 def _data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -49,20 +60,52 @@ def loss_fn(model: FiraModel, batch: Dict[str, torch.Tensor],
     return nll_sum / count.clamp(min=1)
 
 
+# a step's end on each CUDA device: an event after its last launch
+_STEP_ENDS: Dict[torch.device, "torch.cuda.Event"] = {}
+
+
+def _count_issue(batch: Dict[str, torch.Tensor]) -> None:
+    """At the start of a step's issue on a CUDA device: ``train.steps``,
+    and ``train.issue_bound`` when the previous step's end event has
+    completed (``query`` does not block)."""
+    device = next(iter(batch.values())).device
+    if device.type != "cuda" or device not in _STEP_ENDS:
+        return
+    profiling.count("train.steps")
+    if _STEP_ENDS[device].query():
+        profiling.count("train.issue_bound")
+
+
+def _end_step(batch: Dict[str, torch.Tensor]) -> None:
+    """Record the step's end event on a CUDA device's current stream,
+    after the step's last launch."""
+    device = next(iter(batch.values())).device
+    if device.type != "cuda":
+        return
+    if device not in _STEP_ENDS:
+        _STEP_ENDS[device] = torch.cuda.Event()
+    _STEP_ENDS[device].record(torch.cuda.current_stream(device))
+
+
 def train_step(model: FiraModel, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], generator,
                mesh=None) -> torch.Tensor:
     """One optimizer step in training mode, dropout from ``generator``.
     Returns the loss (before the update) as a detached device tensor."""
     model.train()
+    _count_issue(batch)
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model, batch, generator, mesh)
-    sanitizer.backward(loss)
-    if mesh is not None:
-        from fira_tpu_torch.parallel.mesh import sync_grads
+    with profiling.span("train.forward"):
+        loss = loss_fn(model, batch, generator, mesh)
+    with profiling.span("train.backward"):
+        sanitizer.backward(loss)
+        if mesh is not None:
+            from fira_tpu_torch.parallel.mesh import sync_grads
 
-        sync_grads(model, mesh)
-    optimizer.step()
+            sync_grads(model, mesh)
+    with profiling.span("train.optimizer"):
+        optimizer.step()
+    _end_step(batch)
     return loss.detach()
 
 
@@ -95,24 +138,31 @@ def accum_step(model: FiraModel, optimizer: torch.optim.Optimizer,
     max(sum(count), 1), detached, on the device. Under a mesh both sums
     and the gradients run over the data axis too."""
     model.train()
+    _count_issue(stacked)
     optimizer.zero_grad(set_to_none=True)
     a = next(iter(stacked.values())).shape[0]
     nll_sum = count = None
     for i in range(a):
-        nll, cnt = model(_member(stacked, i), generator)
-        sanitizer.backward(nll)
+        member = _member(stacked, i)
+        with profiling.span("train.forward"):
+            nll, cnt = model(member, generator)
+        with profiling.span("train.backward"):
+            sanitizer.backward(nll)
+            if mesh is not None and i == a - 1:
+                from fira_tpu_torch.parallel.mesh import sync_grads
+
+                sync_grads(model, mesh)
         nll_sum = nll.detach() if nll_sum is None else nll_sum + nll.detach()
         count = cnt if count is None else count + cnt
     if mesh is not None:
-        from fira_tpu_torch.parallel.mesh import sync_grads
-
         nll_sum, count = _data_sum(nll_sum, mesh), _data_sum(count, mesh)
-        sync_grads(model, mesh)
     denom = count.clamp(min=1).to(nll_sum.dtype)
-    for p in model.parameters():
-        if p.grad is not None:
-            p.grad.div_(denom)
-    optimizer.step()
+    with profiling.span("train.optimizer"):
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(denom)
+        optimizer.step()
+    _end_step(stacked)
     return nll_sum / denom
 
 

@@ -11,7 +11,11 @@ index chunks:
 - no pipeline thread is alive after ``close()``, on every exit path;
 - ``put=True`` to the CPU gives ``batch_to_device``'s tensors, bf16 wire
   values as ``torch.bfloat16``;
-- the CPU train loop takes the same steps with 0 and 2 workers."""
+- the CPU train loop takes the same steps with 0 and 2 workers;
+- at 0 and 2 workers, each item's ``stall_s`` is its ``feeder.wait``
+  plus its ``feeder.put``, ``feeder.assemble`` counts one successful
+  attempt an emitted batch (retries left out), and ``feeder.not_ready``
+  counts the batches not ready on the consumer's arrival."""
 
 import random
 import sys
@@ -34,6 +38,7 @@ from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import (TRAIN_FIELDS, Feeder, FeederTaskError,
                                         assembly_tasks, batch_to_device)
 from fira_tpu_torch.train import loop
+from fira_tpu_torch.utils import profiling
 
 GEOM = dict(embedding_dim=32, num_head=4, num_layers=2, sou_len=24,
             tar_len=8, att_len=6, ast_change_len=16, sub_token_len=16,
@@ -279,3 +284,80 @@ def test_cli_refuses_bad_feeder_knobs(capsys):
     assert any("feeder_depth=0" in e
                for e in unsupported(FiraConfig(feeder_depth=0)))
     assert not unsupported(FiraConfig(feeder_workers=0))
+
+
+def _by_thread(intervals, name, thread):
+    return [(a, b) for a, b, n, t in intervals if n == name and t == thread]
+
+
+@pytest.mark.parametrize("workers", (0, 2))
+def test_stall_is_wait_plus_put(corpora, workers):
+    _, tds = corpora
+    split, cfg = tds.splits["train"], tds.cfg
+    chunks = _chunks(tds)
+    with profiling.capture() as cap:
+        with Feeder(assembly_tasks(split, chunks, cfg,
+                                   batch_size=cfg.batch_size),
+                    num_workers=workers, depth=2, device="cpu",
+                    fields=TRAIN_FIELDS) as feed:
+            items = list(feed)
+    me = threading.current_thread().name
+    waits = _by_thread(cap.intervals, "feeder.wait", me)
+    puts = _by_thread(cap.intervals, "feeder.put", me)
+    assert len(items) == len(waits) == len(puts) == len(chunks)
+    for it, (w0, w1), (p0, p1) in zip(items, waits, puts):
+        assert w1 <= p0
+        assert it.stall_s == (w1 - w0) + (p1 - p0)
+    assert feed.stats()["feed_stall_s"] == pytest.approx(
+        sum(it.stall_s for it in items), rel=1e-12)
+
+
+@pytest.mark.parametrize("workers", (0, 2))
+def test_assemble_counts_one_an_emitted_batch(corpora, workers):
+    """Two failed attempts before the third succeeds: one
+    ``feeder.assemble`` a batch, on the workers' threads (the consumer's
+    at 0)."""
+    _, tds = corpora
+    mark = profiling.mark()
+    with profiling.capture() as cap:
+        with Feeder(_failing_tasks(tds, 1, 2, {}), num_workers=workers,
+                    depth=2, put=False, retries=2) as feed:
+            items = list(feed)
+    assert items[1].retries == 2
+    assert profiling.spans(since=mark)["feeder.assemble"]["count"] == len(
+        items) == len(_chunks(tds))
+    threads = {t for _, _, n, t in cap.intervals if n == "feeder.assemble"}
+    if workers:
+        assert threads and all(t.startswith("fira-feeder-worker")
+                               for t in threads)
+    else:
+        assert threads == {threading.current_thread().name}
+
+
+@pytest.mark.parametrize("workers", (0, 2))
+def test_not_ready_counts_batches_missing_on_arrival(workers):
+    """The first batch waits on a gate that opens after the consumer has
+    asked for it: not ready. With workers, the second is assembled while
+    the consumer sleeps: ready. Without, no batch is ever ready before it
+    is asked for."""
+    gate = threading.Event()
+
+    def tasks():
+        for i in range(2):
+            def task(i=i):
+                assert gate.wait(timeout=30)
+                return {"valid": np.ones(1, bool), "i": np.array([i])}
+            yield task
+
+    mark = profiling.mark()
+    opener = threading.Timer(0.2, gate.set)
+    with Feeder(tasks(), num_workers=workers, depth=2, put=False) as feed:
+        opener.start()
+        first = next(feed)
+        time.sleep(0.5)          # the workers finish the second batch
+        second = next(feed)
+    opener.join(timeout=30)
+    assert [int(it.host["i"][0]) for it in (first, second)] == [0, 1]
+    counts = profiling.counters(since=mark)
+    assert counts.get("feeder.not_ready", 0) == (2 if workers == 0 else 1)
+    assert profiling.spans(since=mark)["feeder.wait"]["count"] == 2

@@ -9,13 +9,18 @@
 - ``train(profile_dir=...)`` with ``fused_steps=2`` writes the window
   (steps 2 on, one range a grouped dispatch) and records the JAX loop's
   grouped-program warning and console lines, on one seeded fira-tiny
-  corpus each package writes with its own generator.
+  corpus each package writes with its own generator;
+- the port's span and counter recorder: counts, totals and medians under
+  a stubbed clock, spans from two threads, the capture's bound and its
+  silence when closed, ``record_function`` ranges of the spans inside a
+  ``trace`` window only, and the train loop's readings of its own run.
 """
 
 import glob
 import json
 import os
 import re
+import threading
 
 import pytest
 import torch
@@ -144,3 +149,158 @@ def test_train_profile_not_written_lines(corpora, tmp_path, capsys):
             f"before the profile window (starts at step 2)"
             in capsys.readouterr().out)
     assert not glob.glob(str(tmp_path / "p*" / "*.json"))
+
+
+def _stub_clock(monkeypatch, readings):
+    clock = iter(readings)
+    monkeypatch.setattr("time.perf_counter", lambda: next(clock))
+
+
+def test_span_aggregates_and_median(monkeypatch):
+    """Counts, totals and medians of three spans and a counter under a
+    stubbed clock; ``since`` a mark gives what came after it; a raising
+    block is not recorded; a capture keeps the interval."""
+    rec = profiling.Recorder()
+    _stub_clock(monkeypatch, [0.0, 0.5, 1.0, 1.25, 2.0, 4.0, 5.0, 5.5,
+                              6.0, 7.0, 8.0, 8.5])
+    for _ in range(3):
+        with rec.span("a"):
+            pass
+    assert rec.spans() == {"a": {"count": 3, "total_s": 2.75,
+                                 "median_s": 0.5}}
+    mark = rec.mark()
+    with rec.span("a") as s:
+        pass
+    assert (s.start, s.end, s.seconds) == (5.0, 5.5, 0.5)
+    with pytest.raises(ValueError):
+        with rec.span("a"):
+            raise ValueError("not recorded")
+    with rec.capture() as cap:
+        with rec.span("b") as b:
+            pass
+    assert b.seconds == 0.5 and cap.intervals == [
+        (8.0, 8.5, "b", threading.current_thread().name)]
+    rec.count("c")
+    rec.count("c", 4)
+    assert rec.spans(since=mark) == {
+        "a": {"count": 1, "total_s": 0.5, "median_s": 0.5},
+        "b": {"count": 1, "total_s": 0.5, "median_s": 0.5}}
+    assert rec.spans()["a"] == {"count": 4, "total_s": 3.25,
+                                "median_s": 0.5}
+    assert rec.counters() == {"c": 5} == rec.counters(since=mark)
+    mark = rec.mark()
+    rec.count("c", 2)
+    assert rec.counters(since=mark) == {"c": 2}
+    assert rec.spans(since=mark) == {}
+    rec.reset()
+    assert rec.spans() == {} and rec.counters() == {}
+
+
+def test_recent_durations_are_bounded():
+    rec = profiling.Recorder(recent=4)
+    for d in (9.0, 9.0, 9.0, 1.0, 2.0, 3.0, 4.0):
+        rec.record("x", 0.0, d)
+    got = rec.spans()["x"]
+    assert got["count"] == 7 and got["total_s"] == 37.0
+    assert got["median_s"] == 2.5           # of the last four only
+
+
+def test_spans_from_two_threads():
+    """Two threads (and the caller) record one name: no update is lost,
+    and the capture names each interval's thread."""
+    rec = profiling.Recorder()
+    n = 2000
+    barrier = threading.Barrier(3)
+
+    def work():
+        barrier.wait(timeout=10)
+        for _ in range(n):
+            with rec.span("s"):
+                pass
+            rec.count("c")
+
+    threads = [threading.Thread(target=work, name=f"rec-{i}")
+               for i in range(2)]
+    with rec.capture() as cap:
+        for t in threads:
+            t.start()
+        work()
+        for t in threads:
+            t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert rec.spans()["s"]["count"] == 3 * n
+    assert rec.counters() == {"c": 3 * n}
+    by_thread = {}
+    for _, _, name, thread in cap.intervals:
+        assert name == "s"
+        by_thread[thread] = by_thread.get(thread, 0) + 1
+    assert by_thread == {"rec-0": n, "rec-1": n,
+                         threading.current_thread().name: n}
+
+
+def test_capture_is_bounded_and_silent_when_closed():
+    rec = profiling.Recorder()
+    with rec.span("before"):
+        pass
+    with rec.capture(limit=3) as cap:
+        for i in range(5):
+            rec.record(f"x{i}", float(i), i + 0.5)
+        with pytest.raises(RuntimeError, match="already open"):
+            with rec.capture():
+                pass
+    with rec.span("after"):
+        pass
+    assert [iv[:3] for iv in cap.intervals] == [
+        (0.0, 0.5, "x0"), (1.0, 1.5, "x1"), (2.0, 2.5, "x2")]
+    assert cap.dropped == 2
+    assert rec.spans()["x4"]["count"] == 1   # the aggregates keep all
+    with rec.capture() as later:
+        pass
+    assert later.intervals == [] and later.dropped == 0
+
+
+def test_spans_are_ranges_inside_a_trace_window_only(tmp_path):
+    """Inside ``trace`` (the ``--profile-dir`` window) each span is a
+    ``record_function`` range of the trace; outside it a span enters
+    none."""
+    with profiling.span("train.forward"):
+        assert not torch.autograd.profiler._is_profiler_enabled
+    with profiling.trace(str(tmp_path)):
+        assert profiling.RECORDER.windows == 1
+        with profiling.span("train.forward"):
+            (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+        with profiling.span("train.backward"):
+            torch.ones(4).sum()
+        with profiling.span("feeder.put"):
+            torch.ones(4).sum()
+    assert profiling.RECORDER.windows == 0
+    (path,) = glob.glob(os.path.join(str(tmp_path), "*.pt.trace.json"))
+    with open(path) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    for name in ("train.forward", "train.backward", "feeder.put"):
+        assert names.count(name) == 1, name
+
+
+def test_train_loop_reads_its_own_spans(corpora, tmp_path, capsys):
+    """The loop's closing line and ``TrainResult`` carry the run's issue
+    medians and Feeder readings; the dev gates' batches stay out of the
+    program's recorder, so its puts are the training batches'."""
+    _, tds = corpora
+    mark = profiling.mark()
+    res = train(tds, tds.cfg.replace(dev_start_epoch=0), device="cpu",
+                out_dir=str(tmp_path), epochs=1, resume=False)
+    out = capsys.readouterr().out
+    assert res.gates >= 1
+    spans = profiling.spans(since=mark)
+    assert spans["feeder.put"]["count"] == res.feeder["batches"] == res.steps
+    for part in ("forward", "backward", "optimizer"):
+        assert spans[f"train.{part}"]["count"] == res.steps
+        assert res.step_ms[part] == pytest.approx(
+            1e3 * spans[f"train.{part}"]["median_s"], rel=1e-9)
+    assert res.feeder["put_ms"] > 0 and res.feeder["wait_ms"] >= 0
+    assert 0 < res.feeder["pool_use"] and 0 <= res.feeder["not_ready_frac"] <= 1
+    assert "train.steps" not in profiling.counters(since=mark)   # no card
+    assert re.search(r"throughput: .* \| host issue ms: forward [0-9.]+ "
+                     r"backward [0-9.]+ optimizer [0-9.]+ \| feeder ms: "
+                     r"wait [0-9.]+ put [0-9.]+, pool use [0-9.]+ %, "
+                     r"not ready [0-9.]+ %", out), out

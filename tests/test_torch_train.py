@@ -15,7 +15,12 @@ interpreted on the CPU, jitted):
 - a JAX train state carried across after one step (weights and Adam
   moments): the next step's losses at rtol 1e-5;
 - the epoch batch order equal to the JAX loop's for the same seed and
-  epoch."""
+  epoch;
+- ``train_step``, ``multi_step`` and ``accum_step`` record their forward,
+  backward and optimizer spans, a step each (accum: one forward and
+  backward a micro-batch, one optimizer), and count ``train.steps`` /
+  ``train.issue_bound`` only on a CUDA device, by the state of the event
+  the previous step recorded at its end."""
 
 import jax
 import jax.numpy as jnp
@@ -38,9 +43,11 @@ from fira_tpu_torch.data import synthetic
 from fira_tpu_torch.data.batching import epoch_index_chunks, make_batch
 from fira_tpu_torch.data.dataset import FiraDataset
 from fira_tpu_torch.data.feeder import TRAIN_FIELDS, batch_to_device
+from fira_tpu_torch.data.grouping import stack_group
 from fira_tpu_torch.model.model import FiraModel
 from fira_tpu_torch.train import state as state_lib
 from fira_tpu_torch.train import step as step_lib
+from fira_tpu_torch.utils import profiling
 
 GEOM = dict(embedding_dim=32, num_head=4, num_layers=2, sou_len=24,
             tar_len=8, att_len=6, ast_change_len=16, sub_token_len=16,
@@ -234,3 +241,92 @@ def test_checkpoint_round_trip_resumes_the_stream(setup, tmp_path):
         assert torch.equal(pa, pb), n
     best = torch.load(ckpt.path(ckpt.BEST), weights_only=True)
     assert set(best) == set(a.model.state_dict())
+
+
+@pytest.mark.parametrize("entry,k,want", [
+    ("train_step", 1, (1, 1, 1)),
+    ("multi_step", 3, (3, 3, 3)),
+    ("accum_step", 3, (3, 3, 1)),
+])
+def test_steps_record_their_spans(setup, entry, k, want):
+    """Forward, backward and optimizer spans a call (K steps of
+    ``multi_step``; A micro-batches and one optimizer step of
+    ``accum_step``); no step counter on the CPU."""
+    st = state_lib.init_state(setup["tcfg"], "cpu", seed=4)
+    hosts = setup["tbatches"][:k]
+    batch = _device(hosts[0] if k == 1 else stack_group(hosts))
+    mark = profiling.mark()
+    getattr(step_lib, entry)(st.model, st.optimizer, batch, st.generator)
+    spans = profiling.spans(since=mark)
+    got = tuple(spans[f"train.{p}"]["count"]
+                for p in ("forward", "backward", "optimizer"))
+    assert got == want
+    assert all(v["total_s"] > 0 for v in spans.values())
+    assert profiling.counters(since=mark) == {}
+
+
+@pytest.mark.parametrize("idle", [True, False])
+def test_issue_bound_counts_a_step_whose_stream_is_idle(monkeypatch, idle):
+    """On a CUDA device a step after another counts ``train.steps``, and
+    ``train.issue_bound`` when the event the previous step recorded after
+    its last launch has completed (``query()``, stubbed here: no card on
+    the CPU). The first step on a device, and a step on the CPU, count
+    nothing; one event a device is recorded again each step."""
+    events, streams = [], []
+
+    class Event:
+        def __init__(self):
+            self.on = []
+            events.append(self)
+
+        def record(self, stream):
+            self.on.append(stream)
+
+        def query(self):
+            return idle
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: streams.append(device) or "stream")
+    monkeypatch.setattr(step_lib, "_STEP_ENDS", {})
+
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+    card, cpu = {"diff": OnCard()}, {"diff": torch.zeros(1)}
+    mark = profiling.mark()
+    step_lib._count_issue(card)     # the first step: nothing to query
+    assert profiling.counters(since=mark) == {}
+    step_lib._end_step(card)
+    step_lib._count_issue(card)
+    step_lib._end_step(card)
+    step_lib._count_issue(cpu)
+    step_lib._end_step(cpu)
+    assert len(events) == 1 and events[0].on == ["stream", "stream"]
+    assert streams == [torch.device("cuda", 0)] * 2
+    want = {"train.steps": 1}
+    if idle:
+        want["train.issue_bound"] = 1
+    assert profiling.counters(since=mark) == want
+
+
+@pytest.mark.parametrize("entry,k", [("train_step", 1), ("accum_step", 2)])
+def test_issue_probe_brackets_the_step(setup, monkeypatch, entry, k):
+    """A step queries the previous step's end before its first launch
+    (ahead of the forward's span) and records its own end after its last
+    (behind the optimizer's span)."""
+    calls = []
+    record = profiling.RECORDER.record
+    monkeypatch.setattr(profiling.RECORDER, "record",
+                        lambda name, a, b: calls.append(name)
+                        or record(name, a, b))
+    monkeypatch.setattr(step_lib, "_count_issue",
+                        lambda batch: calls.append("query"))
+    monkeypatch.setattr(step_lib, "_end_step",
+                        lambda batch: calls.append("end"))
+    st = state_lib.init_state(setup["tcfg"], "cpu", seed=4)
+    hosts = setup["tbatches"][:k]
+    batch = _device(hosts[0] if k == 1 else stack_group(hosts))
+    getattr(step_lib, entry)(st.model, st.optimizer, batch, st.generator)
+    assert calls == (["query"] + ["train.forward", "train.backward"] * k
+                     + ["train.optimizer", "end"])
